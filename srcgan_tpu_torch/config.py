@@ -1,0 +1,33 @@
+"""Numerics mode of a forward pass: fp32 for parity, bf16 for throughput.
+
+The JAX package selects a conv/matmul precision (``srcgan_tpu.config``); its
+fp32 parity mode is XLA ``HIGHEST``.  On the card a float32 convolution goes
+through cuDNN in TF32 by default, which keeps about three decimal digits, so
+the port's fp32 mode turns TF32 off for convolutions AND matmuls for the
+scope of the context.  bf16 mode leaves the backend flags alone: the tensors
+themselves are bf16 and the kernels accumulate in fp32.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+@contextlib.contextmanager
+def precision(mode: str):
+    """Scope a numerics mode ("fp32" | "bf16") over the enclosed work."""
+    if mode not in DTYPES:
+        raise ValueError(f"unknown precision {mode!r}; one of {sorted(DTYPES)}")
+    if mode == "bf16":
+        yield
+        return
+    old = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
