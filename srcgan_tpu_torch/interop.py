@@ -1,15 +1,18 @@
-"""Weights into the port: JAX parameter trees and reference .pth state_dicts.
+"""Weights across: JAX parameter trees and reference .pth state_dicts, both ways.
 
 The port's modules carry the reference torch names, which are the names
 ``srcgan_tpu.interop.export_torch_state_dict`` emits, so a state_dict from
 either source loads with ``strict=True``.  ``state_dict_from_jax`` is that
 export done with numpy alone (no jax): path components are renamed by the
 same map, convs go HWIO -> OIHW, transposed convs (kh,kw,in,out) ->
-(in,out,kh,kw), and norm ``scale`` becomes ``weight``.
+(in,out,kh,kw), and norm ``scale`` becomes ``weight``.  ``jax_tree_from_module``
+is its inverse: a port module (or any state_dict-shaped dict of its tensors,
+such as Adam's moments) -> the JAX parameter tree and model state, as numpy,
+which the JAX package's ``load_params`` reads.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +35,10 @@ _TORCH_NAME_MAP = {
 }
 # BatchNorm running statistics, kept in the JAX model state.
 _STATE_NAME_MAP = {"mean": "running_mean", "var": "running_var"}
+# The inverse maps (module-name components; the leaf names depend on the owner).
+_JAX_NAME_MAP = {"RRDB_trunk": "trunk", "upscale_layers": "upscale",
+                 "RRDB_encoder": "encoder", "RRDB_decoder": "decoder"}
+_JAX_STATE_NAME_MAP = {v: k for k, v in _STATE_NAME_MAP.items()}
 
 
 def _torch_name(path, names) -> str:
@@ -76,3 +83,52 @@ def load_params_any(model: nn.Module, path: str) -> nn.Module:
         sd = state_dict_from_jax(model, load_params(path))
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def _jax_path(model: nn.Module, name: str) -> Tuple[Tuple[str, ...], bool]:
+    """(JAX tree path, is model state) of the port tensor ``name``."""
+    *mods, leaf = name.split(".")
+    owner = model.get_submodule(".".join(mods))
+    path = []
+    i = 0
+    while i < len(mods):
+        part = mods[i]
+        if part == "downsample" and i + 1 < len(mods):
+            path.append({"0": "down_conv", "1": "down_bn"}[mods[i + 1]])
+            i += 2
+            continue
+        path.append(_JAX_NAME_MAP.get(part, part))
+        i += 1
+    if leaf in _JAX_STATE_NAME_MAP:
+        return tuple(path) + (_JAX_STATE_NAME_MAP[leaf],), True
+    if isinstance(owner, (nn.Conv2d, nn.ConvTranspose2d)):
+        return tuple(path) + ({"weight": "w", "bias": "b"}[leaf],), False
+    return tuple(path) + ({"weight": "scale", "bias": "bias"}[leaf],), False
+
+
+def jax_tree_from_module(model: nn.Module, tensors: Optional[Dict[str, torch.Tensor]] = None):
+    """(params, model state) in the JAX package's tree layout, as nested dicts
+    of float32 numpy arrays: the inverse of ``state_dict_from_jax``.
+
+    ``tensors`` defaults to the module's own state_dict; any dict with the
+    same names and parameter shapes (an optimizer's moments, gradients)
+    converts the same way.  The arrays are copies.  ``num_batches_tracked``
+    has no JAX counterpart."""
+    sd = model.state_dict() if tensors is None else tensors
+    params: Dict = {}
+    state: Dict = {}
+    for name, t in sd.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        path, is_state = _jax_path(model, name)
+        owner = model.get_submodule(name.rsplit(".", 1)[0])
+        a = t.detach().float().cpu().numpy().copy()     # never a view of the module
+        if name.endswith(".weight") and isinstance(owner, nn.ConvTranspose2d):
+            a = a.transpose(2, 3, 0, 1)
+        elif name.endswith(".weight") and isinstance(owner, nn.Conv2d):
+            a = a.transpose(2, 3, 1, 0)
+        node = state if is_state else params
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+    return params, state

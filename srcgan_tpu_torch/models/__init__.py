@@ -1,4 +1,4 @@
-"""Model registry of the port: the models of the x4 serving cascade.
+"""Model registry of the port: the cascade's SR generators and colorizer.
 
 ``create(name, ...)`` builds a model by name, as ``srcgan_tpu.models.create``
 does; the rest of the JAX zoo is still to be ported (ROADMAP A3, A11).
@@ -7,10 +7,13 @@ from __future__ import annotations
 
 from typing import Dict
 
+from srcgan_tpu_torch.models.espcn import ESPCN, SRCNN
 from srcgan_tpu_torch.models.rddb import RDDBNet
 from srcgan_tpu_torch.models.resdeconv import ResDeconv
 
 REGISTRY: Dict[str, type] = {
+    "ESPCN": ESPCN,
+    "SRCNN": SRCNN,
     "RDDBNet": RDDBNet,
     "ResDeconv": ResDeconv,
 }
@@ -25,4 +28,4 @@ def create(name: str, *args, **kwargs):
     return cls(*args, **kwargs)
 
 
-__all__ = ["REGISTRY", "RDDBNet", "ResDeconv", "create"]
+__all__ = ["ESPCN", "REGISTRY", "RDDBNet", "ResDeconv", "SRCNN", "create"]

@@ -53,6 +53,14 @@ def _fold_indices(phases: tuple, r: int):
     return tuple(np.asarray(col, np.int64) for col in zip(*idx))
 
 
+@functools.lru_cache(maxsize=16)
+def _fold_index_tensors(phases: tuple, r: int, device: torch.device):
+    """_fold_indices as tensors on ``device``, copied there once: a copy from
+    pageable host memory makes the host wait for the device, and the training
+    tail folds conv_last on every step."""
+    return tuple(torch.from_numpy(a).to(device) for a in _fold_indices(phases, r))
+
+
 def fold_last_weight(phases, last_w, r: int, nf: int, dtype):
     """(3,3,nf,ou) conv_last re-indexed onto the r x r phase grid.
 
@@ -62,8 +70,7 @@ def fold_last_weight(phases, last_w, r: int, nf: int, dtype):
     order; output channel co*r*r+phase (pixel-shuffle order)."""
     g = len(phases)
     ou = last_w.shape[3]
-    oy, ox, blk, ph, dy, dx = (torch.from_numpy(a).to(last_w.device)
-                               for a in _fold_indices(tuple(phases), r))
+    oy, ox, blk, ph, dy, dx = _fold_index_tensors(tuple(phases), r, last_w.device)
     wf = last_w.new_zeros((3, 3, g, r * r, nf, ou), dtype=dtype)
     wf[oy, ox, blk, ph] = last_w.to(dtype)[dy, dx]             # (K, nf, ou)
     return wf.permute(0, 1, 2, 4, 5, 3).reshape(3, 3, g * nf, ou * r * r)

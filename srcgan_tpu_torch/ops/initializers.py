@@ -4,7 +4,8 @@ Used only for freshly made models; trained weights come in through
 ``srcgan_tpu_torch.interop``.  The numbers differ from JAX's for the same
 seed (different generators); the distributions are the same: kaiming normal
 (fan_out, relu) for conv and deconv weights, torch's default uniform for
-biases.  Fans are counted as the JAX package counts them on its HWIO weights,
+biases, and torch's default uniform for the weights of the models the JAX
+package builds with ``weight_init="torch"`` (SRCNN).  Fans are counted as the JAX package counts them on its HWIO weights,
 which for a transposed conv is kh*kw*out_channels.
 """
 from __future__ import annotations
@@ -45,3 +46,18 @@ def init_kaiming_(module: nn.Module, generator: torch.Generator | None = None):
         kaiming_normal_(m.weight, fan_out, generator)
         if m.bias is not None:
             torch_bias_default_(m.bias, fan_in, generator)
+
+
+@torch.no_grad()
+def init_torch_default_(module: nn.Module, generator: torch.Generator | None = None):
+    """Torch's default Conv2d init (kaiming_uniform(a=sqrt(5)), i.e.
+    U(+-1/sqrt(fan_in)) for weight and bias) of every conv under ``module``,
+    from ``generator`` (seed 0 when omitted), in registration order."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            cout, cin_g, kh, kw = m.weight.shape
+            torch_bias_default_(m.weight, cin_g * kh * kw, generator)
+            if m.bias is not None:
+                torch_bias_default_(m.bias, cin_g * kh * kw, generator)

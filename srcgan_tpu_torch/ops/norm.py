@@ -8,6 +8,7 @@ cast back, as the JAX package does.
 """
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -32,22 +33,26 @@ def batch_norm(x, scale, bias, running_mean, running_var, *, train: bool,
                momentum: float = 0.1, eps: float = 1e-5):
     """BatchNorm2d over x (N,H,W,C).  Returns (y, new_mean, new_var).
 
-    train=True normalizes with the batch statistics (biased variance) and
-    returns the running statistics updated with the unbiased variance, as
-    torch does; train=False uses and returns the running statistics."""
+    train=True normalizes with the batch statistics (biased variance), as
+    (x - mean) / sqrt(var + eps) * scale + bias so that gradients flow
+    through the statistics, and returns the running statistics (detached)
+    updated with the unbiased variance, as torch does; train=False uses and
+    returns the running statistics."""
     xf = to_nchw(x).float()
-    if train:
-        mean = xf.mean(dim=(0, 2, 3))
-        var = xf.var(dim=(0, 2, 3), unbiased=False)
-        count = xf.numel() // xf.shape[1]
+    if not train:
+        y = F.batch_norm(xf, running_mean.float(), running_var.float(), scale.float(),
+                         bias.float(), training=False, eps=eps)
+        return to_nhwc(y).to(x.dtype), running_mean, running_var
+    mean = xf.mean(dim=(0, 2, 3))
+    var = xf.var(dim=(0, 2, 3), unbiased=False)
+    count = xf.numel() // xf.shape[1]
+    with torch.no_grad():
         unbiased = var * count / max(count - 1, 1)
         new_mean = (1 - momentum) * running_mean + momentum * mean
         new_var = (1 - momentum) * running_var + momentum * unbiased
-    else:
-        mean, var = running_mean, running_var
-        new_mean, new_var = running_mean, running_var
-    y = F.batch_norm(xf, mean.float(), var.float(), scale.float(), bias.float(),
-                     training=False, eps=eps)
+    c = (1, -1, 1, 1)
+    y = ((xf - mean.view(c)) / torch.sqrt(var.view(c) + eps) * scale.float().view(c)
+         + bias.float().view(c))
     return to_nhwc(y).to(x.dtype), new_mean, new_var
 
 
@@ -71,6 +76,6 @@ class BatchNorm2d(nn.BatchNorm2d):
                                   train=self.training, momentum=self.momentum,
                                   eps=self.eps)
         if self.training:
-            self.running_mean.copy_(mean.detach())
-            self.running_var.copy_(var.detach())
+            self.running_mean.copy_(mean)
+            self.running_var.copy_(var)
         return to_nchw(y)

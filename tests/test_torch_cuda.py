@@ -1,5 +1,6 @@
 """srcgan_tpu_torch on an NVIDIA card: the sm_90a kernels against their plain
-versions, and the model gate that routes the x4 bf16 tail through them.
+versions, the model gate that routes the x4 bf16 tail through them, and the
+trainer's fused-input path through the gray+degrade kernel.
 
 Every test here needs a card (marker ``cuda``) and skips without one.  The
 file imports no jax, so it also runs where jax is not installed; there the
@@ -7,14 +8,15 @@ suite's conftest (which pins jax to the CPU) is left out:
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py
 
-Kernel tolerance: max|diff| <= 0.02 * max(max|ref|, 1), as for the Pallas
-kernel (bf16 staging of t1, z2 and zall, different sum orders).
+Kernel tolerances, as for the Pallas kernels: tail_x4 max|diff| <=
+0.02 * max(max|ref|, 1) (bf16 staging of t1, z2 and zall, different sum
+orders); gray_degrade max|diff| <= 1e-6 (fp32, the same taps and order).
 """
 import pytest
 import torch
 
 from srcgan_tpu_torch import models
-from srcgan_tpu_torch.ops.kernels import tail_kernel
+from srcgan_tpu_torch.ops.kernels import preprocess_kernel, tail_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -111,3 +113,113 @@ def test_predictor_on_card_matches_cpu(dev):
     assert tail_kernel.launches == before + 3
     for b, s in zip(batches, streamed):
         np.testing.assert_array_equal(s, pred.predict(b))
+
+
+def u8(seed, shape, dev):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 256, shape, generator=g, dtype=torch.uint8).to(dev)
+
+
+@pytest.mark.parametrize("shape,up", [((8, 256, 256, 3), 2), ((8, 256, 256, 3), 4),
+                                      ((3, 250, 198, 3), 4), ((2, 33, 47, 3), 3),
+                                      ((1, 64, 3000, 3), 2)])
+def test_gray_degrade_matches_plain_version(dev, shape, up):
+    """Training shape, up=4, ragged sizes, a width wider than a block."""
+    x = u8(sum(shape) + up, shape, dev)
+    before = preprocess_kernel.launches
+    got = preprocess_kernel.fused_gray_degrade(x, up)
+    ref = preprocess_kernel.gray_degrade_reference(x, up)
+    torch.cuda.synchronize()
+    assert preprocess_kernel.launches == before + 1
+    n, h, w, _ = shape
+    assert got[0].shape == ref[0].shape == (n, h, w, 1)
+    assert got[1].shape == ref[1].shape == (n, h // up, w // up, 1)
+    for g, r in zip(got, ref):
+        assert (g - r).abs().max().item() <= 1e-6
+
+
+def test_gray_degrade_rejects_what_it_cannot_take(dev):
+    x = u8(0, (2, 32, 32, 3), dev)
+    before = preprocess_kernel.launches
+    for bad in (x.float(), x[:, :, ::2], x[..., :2].contiguous(), x[:, :1, :1].contiguous()):
+        with pytest.raises(ValueError):
+            preprocess_kernel.fused_gray_degrade(bad, 2)
+    assert preprocess_kernel.launches == before
+
+
+@pytest.fixture
+def small_rddbnet(monkeypatch):
+    """The registry's RDDBNet at nf=16, nb=1, gc=8 for the trainers of a test."""
+    import functools
+
+    monkeypatch.setitem(models.REGISTRY, "RDDBNet",
+                        functools.partial(models.RDDBNet, nf=16, nb=1, gc=8))
+
+
+def test_trainer_fused_input_launches_the_kernel(dev, small_rddbnet):
+    """A CUDA batch never reaches the plain version: every uint8 step of a
+    fused-input trainer launches the kernel once, and its step equals the
+    unfused step to the fp32 tolerance of tests/test_fused.py."""
+    from srcgan_tpu_torch import config
+    from srcgan_tpu_torch.train.cas import CasTrainer
+
+    kw = dict(sr_model="RDDBNet", c_model="ResDeconv", up=2, device=dev)
+    src, tar = u8(1, (2, 32, 32, 3), dev), u8(2, (2, 32, 32, 3), dev)
+    with config.precision("fp32"):
+        fused, plain = CasTrainer(fused_input=True, **kw), CasTrainer(**kw)
+        st_f, st_p = fused.init(0), plain.init(0)
+        before = preprocess_kernel.launches
+        st_f, m_f = fused.train_step_u8(st_f, src, tar, 1e-4)
+        st_f, m_k = fused.train_steps_u8(st_f, torch.stack([src] * 2), torch.stack([tar] * 2),
+                                         1e-4)
+        assert preprocess_kernel.launches == before + 3
+        assert m_k["loss_SR"].shape == (2,)
+        _, m_p = plain.train_step_u8(st_p, src, tar, 1e-4)
+    for k in ("loss_SR", "loss_C"):
+        assert abs(m_f[k].item() - m_p[k].item()) <= 1e-6 * abs(m_p[k].item()) + 1e-7
+
+
+def test_transfer_sees_weights_after_adam_step(dev, small_rddbnet):
+    """Adam updates the parameters in place on the card; RDDBNet's cached eval
+    weights must follow (the eval x4 bf16 transfer takes the tail kernel)."""
+    import copy
+
+    from srcgan_tpu_torch.train.cas import CasTrainer
+
+    tr = CasTrainer(sr_model="RDDBNet", c_model="ResDeconv", up=4, device=dev)
+    state = tr.init(1)
+    real_a = torch.rand(2, 64, 64, 1, generator=torch.Generator().manual_seed(1)).to(dev)
+    before = tail_kernel.launches
+    tr.transfer(state, real_a.bfloat16())
+    assert tail_kernel.launches == before + 1
+    tr.transfer(state, real_a)                          # fills the fp32 fold cache
+    state, _ = tr.train_step_u8(state, u8(3, (2, 64, 64, 3), dev), u8(4, (2, 64, 64, 3), dev),
+                                1e-2)
+    _, got, _ = tr.transfer(state, real_a)
+    fresh = copy.deepcopy(state.sr.model).eval()
+    fresh._prepared = (None, None)
+    with torch.no_grad():
+        want = fresh(tr._degrade(real_a).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)   # stale weights: O(1e-2)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_train_step_never_waits_for_the_card(dev, small_rddbnet, fused):
+    """After the first step (which copies the cached constants: sampling
+    matrices, tap tables, luma weights, the tail's fold indices), a bf16
+    uint8 step enqueues its work without one synchronizing call, so the host
+    can run ahead of the card."""
+    from srcgan_tpu_torch.train.cas import CasTrainer
+
+    tr = CasTrainer(sr_model="RDDBNet", c_model="ResDeconv", up=2, device=dev,
+                    act_dtype=torch.bfloat16, fused_input=fused)
+    state = tr.init(0)
+    src, tar = u8(5, (2, 32, 32, 3), dev), u8(6, (2, 32, 32, 3), dev)
+    state, _ = tr.train_step_u8(state, src, tar, 1e-4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _ = tr.train_step_u8(state, src, tar, 1e-4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

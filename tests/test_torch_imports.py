@@ -14,7 +14,13 @@ MODULES = sorted(
 def test_module_list_covers_the_slice():
     for name in ("srcgan_tpu_torch.serving", "srcgan_tpu_torch.interop",
                  "srcgan_tpu_torch.ops.kernels.tail_kernel",
-                 "srcgan_tpu_torch.models.rddb", "srcgan_tpu_torch.train.state"):
+                 "srcgan_tpu_torch.models.rddb", "srcgan_tpu_torch.train.state",
+                 "srcgan_tpu_torch.ops.resize", "srcgan_tpu_torch.data",
+                 "srcgan_tpu_torch.data.preprocess",
+                 "srcgan_tpu_torch.ops.kernels.preprocess_kernel",
+                 "srcgan_tpu_torch.losses", "srcgan_tpu_torch.models.espcn",
+                 "srcgan_tpu_torch.train.optim", "srcgan_tpu_torch.train.cas",
+                 "srcgan_tpu_torch.train.retention"):
         assert name in MODULES
 
 

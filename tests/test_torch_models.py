@@ -27,6 +27,8 @@ _JAX_MODELS = {
     "RDDBNet-x4": lambda: jax_models.RDDBNet(1, 1, 4, nf=16, nb=1),
     "RDDBNet-x2": lambda: jax_models.RDDBNet(1, 1, 2, nf=16, nb=1),
     "ResDeconv": lambda: jax_models.ResDeconv(1, 3),
+    "ESPCN": lambda: jax_models.ESPCN(1, 1, 2),
+    "SRCNN": lambda: jax_models.SRCNN(1, 1, 2),
 }
 
 
@@ -141,9 +143,58 @@ def test_state_dict_from_jax_equals_export(jax_model, monkeypatch, name, args, s
     assert list(model.state_dict()) == list(exported)
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("name", ["ESPCN", "SRCNN"])
+def test_espcn_srcnn_forward(jax_model, name, dtype):
+    jm, params = jax_model(name, {"ESPCN": 12, "SRCNN": 13}[name])   # SRCNN's output is
+    # a ReLU: at seed 13 ~78% of it is non-zero
+    x = np.random.default_rng(11).uniform(0, 1, (2, 12, 10, 1)).astype(np.float32)
+    got, want = forward_pair(jm, params, x, dtype, in_ch=1, ou_ch=1, upscale_factor=2)
+    assert got.shape == ((2, 24, 20, 1) if name == "ESPCN" else (2, 12, 10, 1))
+    check(got, want, dtype)
+
+
+@pytest.mark.parametrize("name,args,seed", [
+    ("ESPCN", dict(in_ch=1, ou_ch=1, upscale_factor=2), 12),
+    ("SRCNN", dict(in_ch=1, ou_ch=1, upscale_factor=2), 13),
+])
+def test_export_load_parity_espcn_srcnn(jax_model, monkeypatch, name, args, seed):
+    """The ESPCN and SRCNN cases of test_state_dict_from_jax_equals_export,
+    and the way back: jax_tree_from_module gives the JAX tree again."""
+    test_state_dict_from_jax_equals_export(jax_model, monkeypatch, name, args, seed)
+    jm, params = jax_model(name, seed)
+    model = port_of(jm, params, **args)
+    back, state = interop.jax_tree_from_module(model)
+    assert state == {}
+    want = dict(jax.tree_util.tree_flatten_with_path(jax.device_get(params))[0])
+    got = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_jax_tree_from_module_inverts_state_dict_from_jax():
+    """RDDBNet and a BatchNorm ResDeconv: module -> JAX tree (and model state)
+    -> state_dict gives the module's state_dict back, tensor for tensor."""
+    g = torch.Generator().manual_seed(14)
+    for model in (models.RDDBNet(1, 1, 4, nf=16, nb=1, generator=g),
+                  models.ResDeconv(1, 3, BN="BN", generator=g)):
+        with torch.no_grad():
+            for name, b in model.named_buffers():
+                if b.is_floating_point():
+                    b.uniform_(0.5, 1.5, generator=g)
+        params, state = interop.jax_tree_from_module(model)
+        sd = interop.state_dict_from_jax(model, params, state)
+        own = {k: v for k, v in model.state_dict().items()
+               if not k.endswith("num_batches_tracked")}
+        assert list(sd) == list(own)
+        for k, v in own.items():
+            assert torch.equal(sd[k], v.contiguous()), k
+
+
 def test_create_unknown_model_lists_known():
     with pytest.raises(KeyError, match="RDDBNet"):
-        models.create("ESPCN", 1, 1, 2)
+        models.create("EDSR", 1, 1, 2)
 
 
 def test_fresh_weights_seeded_and_kaiming():

@@ -105,6 +105,56 @@ def test_batch_norm(train):
         close(g, w)
 
 
+def _vjp_pair(jax_fn, torch_fn, arrays, seed):
+    """Gradients of sum(f(*arrays) * c), c random, in both frameworks."""
+    import jax
+
+    out = np.asarray(jax_fn(*(jnp.asarray(a) for a in arrays)))
+    c = randn(np.random.default_rng(seed), *out.shape)
+    want = jax.grad(lambda *a: jnp.sum(jax_fn(*a) * c), argnums=tuple(range(len(arrays))))(
+        *(jnp.asarray(a) for a in arrays))
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    got = torch.autograd.grad((torch_fn(*ts) * torch.from_numpy(c)).sum(), ts)
+    return got, want
+
+
+def test_batch_norm_train_gradients():
+    """Train-mode BatchNorm under autograd (the trainer's path): gradients
+    of x, scale and bias equal JAX's; the running statistics carry none."""
+    rng = np.random.default_rng(15)
+    x = randn(rng, 3, 4, 5, 8)
+    scale, bias = randn(rng, 8), randn(rng, 8)
+    mean, var = randn(rng, 8), np.abs(randn(rng, 8)) + 0.5
+    rm, rv = torch.from_numpy(mean), torch.from_numpy(var)
+    got, want = _vjp_pair(
+        lambda a, s, b: jops.batch_norm(a, s, b, jnp.asarray(mean), jnp.asarray(var),
+                                        train=True)[0],
+        lambda a, s, b: norm.batch_norm(a, s, b, rm, rv, train=True)[0],
+        (x, scale, bias), 16)
+    for g, w in zip(got, want):
+        close(g, w, atol=1e-4, rtol=1e-4)
+    _, new_mean, new_var = norm.batch_norm(torch.from_numpy(x).requires_grad_(),
+                                           torch.from_numpy(scale), torch.from_numpy(bias),
+                                           rm, rv, train=True)
+    assert not new_mean.requires_grad and not new_var.requires_grad
+
+
+@pytest.mark.parametrize("n_up", [1, 2])
+def test_phasefold_deconv_tail_gradients(n_up):
+    """The training tail's gradients (input, deconv weights, conv_last) equal JAX's."""
+    rng = np.random.default_rng(20 + n_up)
+    nf = 8
+    arrays = [randn(rng, 2, 5, 4, nf)] + [randn(rng, 2, 2, nf, nf, scale=0.3)
+                                          for _ in range(n_up)]
+    arrays += [randn(rng, 3, 3, nf, 2, scale=0.3), randn(rng, 2)]
+    got, want = _vjp_pair(
+        lambda x, *w: jfused.phasefold_deconv_tail(x, list(w[:-2]), w[-2], w[-1]),
+        lambda x, *w: fused.phasefold_deconv_tail(x, list(w[:-2]), w[-2], w[-1]),
+        arrays, 30 + n_up)
+    for g, w in zip(got, want):
+        close(g, w, atol=1e-4, rtol=1e-4)
+
+
 def test_rgb_to_gray():
     x = np.random.default_rng(6).uniform(0, 1, (2, 4, 5, 3)).astype(np.float32)
     close(color.rgb_to_gray(torch.from_numpy(x)), jops.rgb_to_gray(jnp.asarray(x)))
