@@ -13,20 +13,35 @@ import contextlib
 
 import torch
 
-DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+# "tf32" keeps fp32 tensors and lets cuDNN and cuBLAS feed the tensor cores
+# TF32: the card's counterpart of the JAX package's bf16 feed of fp32 tensors.
+DTYPES = {"fp32": torch.float32, "tf32": torch.float32, "bf16": torch.bfloat16}
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another.  ``None`` means ``torch.device("cuda")`` and raises where no card
+    is present; nothing carries on on the CPU unasked."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card is available: this entry point runs on the card by "
+            'default; pass device="cpu" (--device cpu on the command line) to run '
+            "on the CPU")
+    return device
 
 
 @contextlib.contextmanager
 def precision(mode: str):
-    """Scope a numerics mode ("fp32" | "bf16") over the enclosed work."""
+    """Scope a numerics mode ("fp32" | "tf32" | "bf16") over the enclosed work."""
     if mode not in DTYPES:
         raise ValueError(f"unknown precision {mode!r}; one of {sorted(DTYPES)}")
     if mode == "bf16":
         yield
         return
     old = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = mode == "tf32"
+    torch.backends.cuda.matmul.allow_tf32 = mode == "tf32"
     try:
         yield
     finally:

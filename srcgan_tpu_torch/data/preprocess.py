@@ -2,11 +2,13 @@
 
   - convert_pair: uint8 RGB (src, tar) -> (gray src, RGB tar) float32
   - degrade_*: the training and eval degradations (luma + down/up-sampling)
+  - device_put_iter: host batches onto the device, one step ahead
 
 NHWC tensors throughout, on the device of the input.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from srcgan_tpu_torch.ops import color
@@ -51,3 +53,31 @@ def degrade_const_nearest(x: torch.Tensor, up: int) -> torch.Tensor:
     """Const eval replay: nearest down, then nearest up to the same size."""
     lo = interpolate(x, scale_factor=1.0 / up, mode="nearest")
     return interpolate(lo, scale_factor=float(up), mode="nearest")
+
+
+def _stage(item, device: torch.device):
+    """One host item onto ``device``: numpy arrays through pinned memory and a
+    non_blocking copy (the host does not wait for it); anything else as it is."""
+    if isinstance(item, (tuple, list)):
+        return type(item)(_stage(v, device) for v in item)
+    if isinstance(item, np.ndarray):
+        t = torch.from_numpy(np.ascontiguousarray(item))
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
+    return item
+
+
+def device_put_iter(it, device):
+    """Stage host batches (numpy arrays, or tuples of them) onto ``device`` one
+    step ahead: batch k+1 is pinned and its copy enqueued before batch k is
+    handed out, so the copy overlaps the step that consumes batch k."""
+    device = torch.device(device)
+    prev = None
+    for batch in it:
+        nxt = _stage(batch, device)
+        if prev is not None:
+            yield prev
+        prev = nxt
+    if prev is not None:
+        yield prev

@@ -29,7 +29,8 @@ from srcgan_tpu_torch.train.state import parse_checkpoint_name
 
 class CascadePredictor:
     """SR -> colorize cascade.  Takes ownership of the two models: they are
-    moved to ``device`` (default: where sr_model lives), cast to the compute
+    moved to ``device`` (default: the card; raises without one unless the
+    caller passes ``device="cpu"``), cast to the compute
     dtype, put in channels_last memory and in eval mode."""
 
     def __init__(self, sr_model, c_model, up: int, *, lab: bool = False,
@@ -43,8 +44,7 @@ class CascadePredictor:
             raise NotImplementedError("self-ensemble comes with the serving extras (ROADMAP A12)")
         self.up, self.lab, self.bf16 = up, lab, bf16
         self.pad = pad_batch_to
-        self.device = torch.device(device if device is not None
-                                   else next(sr_model.parameters()).device)
+        self.device = config.resolve_device(device)
         self.dtype = config.DTYPES["bf16" if bf16 else "fp32"]
         self.sr_model = self._adopt(sr_model)
         self.c_model = self._adopt(c_model)

@@ -38,7 +38,7 @@ import torch
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from srcgan_tpu_torch import losses, models
+from srcgan_tpu_torch import config, losses, models
 from srcgan_tpu_torch.data import preprocess
 from srcgan_tpu_torch.ops.conv import to_nchw, to_nhwc
 from srcgan_tpu_torch.ops.kernels import preprocess_kernel
@@ -94,7 +94,7 @@ class CasTrainer:
         self.remat = remat
         self.act_dtype = act_dtype
         self.fused_input = fused_input
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = config.resolve_device(device)
 
     # -- setup ---------------------------------------------------------------
 

@@ -1,6 +1,7 @@
 """srcgan_tpu_torch on an NVIDIA card: the sm_90a kernels against their plain
-versions, the model gate that routes the x4 bf16 tail through them, and the
-trainer's fused-input path through the gray+degrade kernel.
+versions, the model gate that routes the x4 bf16 tail through them, the
+trainer's fused-input path through the gray+degrade kernel, and the metrics
+and the eval tool through the ssim kernel.
 
 Every test here needs a card (marker ``cuda``) and skips without one.  The
 file imports no jax, so it also runs where jax is not installed; there the
@@ -10,13 +11,15 @@ suite's conftest (which pins jax to the CPU) is left out:
 
 Kernel tolerances, as for the Pallas kernels: tail_x4 max|diff| <=
 0.02 * max(max|ref|, 1) (bf16 staging of t1, z2 and zall, different sum
-orders); gray_degrade max|diff| <= 1e-6 (fp32, the same taps and order).
+orders); gray_degrade max|diff| <= 1e-6 (fp32, the same taps and order);
+ssim max|diff| <= 1e-6 on SSIM and cs (fp32; the kernel sums 2 x 11 taps, its
+plain version 121: the bound the JAX package holds its two forms to).
 """
 import pytest
 import torch
 
 from srcgan_tpu_torch import models
-from srcgan_tpu_torch.ops.kernels import preprocess_kernel, tail_kernel
+from srcgan_tpu_torch.ops.kernels import preprocess_kernel, ssim_kernel, tail_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -223,3 +226,117 @@ def test_train_step_never_waits_for_the_card(dev, small_rddbnet, fused):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+def ssim_pair(seed, shape, scale, dev):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(shape, generator=g)
+    y = (x + 0.1 * torch.randn(shape, generator=g)).clamp(0, 1)
+    return (x * scale).to(dev), (y * scale).to(dev)
+
+
+@pytest.mark.parametrize("shape", [(8, 256, 256, 3), (2, 512, 512, 3), (3, 250, 198, 1),
+                                   (1, 24, 40, 1), (2, 43, 75, 2), (1, 11, 11, 3)])
+@pytest.mark.parametrize("scale", [1.0, 255.0])
+def test_ssim_kernel_matches_plain_version(dev, shape, scale):
+    """The eval shape, 512^2, ragged tiles, a single-output plane; every mode."""
+    from srcgan_tpu_torch import config
+
+    x, y = ssim_pair(sum(shape), shape, scale, dev)
+    if shape[0] > 1:
+        x[0], y[0] = x[0] / scale, y[0] / scale          # mixed per-sample ranges
+    for kw in (dict(), dict(size_average=False), dict(full=True),
+               dict(size_average=False, per_sample_range=True, full=True)):
+        before = ssim_kernel.launches
+        got = ssim_kernel.ssim_fused(x, y, **kw)
+        assert ssim_kernel.launches == before + 1
+        with config.precision("fp32"):
+            ref = ssim_kernel.ssim_reference(x, y, **kw)
+        torch.cuda.synchronize()
+        for g, r in zip(got if kw.get("full") else (got,), ref if kw.get("full") else (ref,)):
+            assert g.shape == r.shape and g.is_cuda
+            assert (g - r).abs().max().item() <= 1e-6, (kw, (g - r).abs().max().item())
+
+
+def test_ssim_other_windows_and_determinism(dev):
+    from srcgan_tpu_torch import config
+
+    x, y = ssim_pair(1, (2, 64, 80, 3), 1.0, dev)
+    for w_size in (3, 5, 7, 9):
+        with config.precision("fp32"):
+            ref = ssim_kernel.ssim_reference(x, y, w_size=w_size)
+        assert (ssim_kernel.ssim_fused(x, y, w_size=w_size) - ref).abs().item() <= 1e-6
+    runs = [ssim_kernel.ssim_fused(x, y, size_average=False, full=True) for _ in range(3)]
+    for again in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], again))    # no float atomics
+
+
+def test_ssim_dispatch_and_refusals(dev):
+    """A CUDA tensor launches or raises; it never reaches the plain version."""
+    from srcgan_tpu_torch import metrics
+
+    x, y = ssim_pair(2, (2, 32, 32, 3), 1.0, dev)
+    before = ssim_kernel.launches
+    metrics.ssim(x, y)
+    metrics.ssim_per_sample(x, y)
+    metrics.SSIM()(x.bfloat16(), y.bfloat16())
+    assert ssim_kernel.launches == before + 3
+    metrics.ssim(x.cpu(), y.cpu())
+    assert ssim_kernel.launches == before + 3
+    for call in (lambda: metrics.ssim(x.requires_grad_(), y), lambda: metrics.ssim(x[:, :8], y[:, :8]),
+                 lambda: metrics.ssim(x.detach(), y.cpu()),
+                 lambda: metrics.ssim(x.detach(), y, w_size=4)):
+        with pytest.raises(ValueError):
+            call()
+    assert ssim_kernel.launches == before + 3
+
+
+def test_metrics_never_wait_for_the_card(dev):
+    """The dynamic-range detection is branchless: after the first call (which
+    builds and loads the kernel) the four per-sample metrics enqueue without
+    one synchronizing call."""
+    from srcgan_tpu_torch import metrics
+
+    x, y = ssim_pair(3, (4, 64, 64, 3), 255.0, dev)
+    evals = metrics.per_sample_evaluators()
+    [fn(x, y) for _, fn in evals]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = torch.stack([fn(x, y) for _, fn in evals])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.shape == (4, 4) and bool(torch.isfinite(out).all())
+
+
+def test_eval_cli_on_the_card(dev, tmp_path, small_rddbnet):
+    """train_cas and test_cas default to the card; every eval batch launches
+    the ssim kernel once; the row agrees with --device cpu."""
+    from srcgan_tpu_torch import data
+    from srcgan_tpu_torch.cli import test_cas, train_cas
+
+    data.make_synthetic_dataset(str(tmp_path / "Sat2Aerx1"), n_train=4, n_val=1, n_test=5,
+                                size=32, colorizable=True)
+    ck = tmp_path / "ck"
+    state = train_cas.main(["--data-dir", str(tmp_path), "--SRModel", "RDDBNet", "--up", "2",
+                            "--num-epochs", "1", "--save-every", "1", "--batch-size", "2",
+                            "--checkpoints", str(ck), "--run-dir", str(tmp_path / "run")])
+    assert next(state.sr.model.parameters()).is_cuda
+    args = ["--netGA", str(ck / "RDDBNet_A2C_x2_0001.npz"), "--netGB",
+            str(ck / "ResDeconv_C2B_x2_0001.npz"), "--data-dir", str(tmp_path), "--batch-size", "2"]
+    before = ssim_kernel.launches
+    on_card = test_cas.main(args + ["--result-dir", str(tmp_path / "card")])
+    assert ssim_kernel.launches == before + 3 and on_card["device"].startswith("cuda")
+    on_cpu = test_cas.main(args + ["--result-dir", str(tmp_path / "cpu"), "--device", "cpu"])
+    assert ssim_kernel.launches == before + 3
+    assert abs(on_card["PSNR"] - on_cpu["PSNR"]) <= 0.01
+    assert abs(on_card["SSIM"] - on_cpu["SSIM"]) <= 1e-4
+
+
+def test_entry_points_default_to_the_card(dev):
+    from srcgan_tpu_torch.serving import CascadePredictor
+    from srcgan_tpu_torch.train.cas import CasTrainer
+
+    assert CasTrainer("ESPCN", "ResDeconv").device.type == "cuda"
+    pred = CascadePredictor(models.ESPCN(1, 1, 2), models.ResDeconv(1, 3), 2)
+    assert pred.device.type == "cuda" and next(pred.sr_model.parameters()).is_cuda

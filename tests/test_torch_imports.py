@@ -20,7 +20,13 @@ def test_module_list_covers_the_slice():
                  "srcgan_tpu_torch.ops.kernels.preprocess_kernel",
                  "srcgan_tpu_torch.losses", "srcgan_tpu_torch.models.espcn",
                  "srcgan_tpu_torch.train.optim", "srcgan_tpu_torch.train.cas",
-                 "srcgan_tpu_torch.train.retention"):
+                 "srcgan_tpu_torch.train.retention", "srcgan_tpu_torch.metrics",
+                 "srcgan_tpu_torch.ops.kernels.ssim_kernel", "srcgan_tpu_torch.data.dataset",
+                 "srcgan_tpu_torch.data.native", "srcgan_tpu_torch.utils",
+                 "srcgan_tpu_torch.utils.vis", "srcgan_tpu_torch.utils.logging",
+                 "srcgan_tpu_torch.utils.live", "srcgan_tpu_torch.cli",
+                 "srcgan_tpu_torch.cli.test_cas", "srcgan_tpu_torch.cli.train_cas",
+                 "srcgan_tpu_torch.cli.vis_cas"):
         assert name in MODULES
 
 
@@ -34,3 +40,14 @@ def test_import_pulls_in_no_jax(modules):
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_no_source_names_jax_in_an_import():
+    """No module of the port, and not chip_smoke.py, has an import statement
+    that names jax or the JAX package."""
+    import re
+
+    pattern = re.compile(r"^\s*(?:from|import)\s+(?:jax|srcgan_tpu)(?:\.|\s|$)", re.M)
+    files = [p for p in (ROOT / "srcgan_tpu_torch").rglob("*.py") if "_build" not in p.parts]
+    for path in files + [ROOT / "chip_smoke.py"]:
+        assert not pattern.search(path.read_text()), path

@@ -45,7 +45,7 @@ def small():
         psr, pc = models.RDDBNet(1, 1, 4, nf=16, nb=1), models.ResDeconv(1, 3)
         psr.load_state_dict(interop.state_dict_from_jax(psr, npA), strict=True)
         pc.load_state_dict(interop.state_dict_from_jax(pc, npB), strict=True)
-        return CascadePredictor(psr, pc, 4, **kw)
+        return CascadePredictor(psr, pc, 4, device="cpu", **kw)
 
     def jax_pred(**kw):
         return jax_serving.CascadePredictor(sr, pA, c, pB, up=4, **kw)
@@ -108,7 +108,7 @@ def test_from_checkpoints_npz_matches_jax(full_ckpts):
     """Full-width RDDBNet(1,1,4) + ResDeconv(1,3) from .npz written by the
     JAX package's save_params; architecture parsed from the names."""
     netGA, netGB, jax_pred = full_ckpts
-    pred = CascadePredictor.from_checkpoints(netGA, netGB)
+    pred = CascadePredictor.from_checkpoints(netGA, netGB, device="cpu")
     assert pred.up == 4 and pred.sr_model.conv_first.out_channels == 64
     x = u8(6, (1, 8, 8, 1))
     got, want = pred.predict(x), jax_pred.predict(x)
@@ -120,16 +120,17 @@ def test_from_checkpoints_pth_and_reload(full_ckpts, tmp_path):
     """Reference-named .pth state_dicts load too; reload_checkpoints swaps in
     new weights only when its installer runs."""
     netGA, netGB, _ = full_ckpts
-    ref = CascadePredictor.from_checkpoints(netGA, netGB)
+    ref = CascadePredictor.from_checkpoints(netGA, netGB, device="cpu")
     pthA = str(tmp_path / "RDDBNet_A2C_x4_0007.pth")
     pthB = str(tmp_path / "ResDeconv_C2B_x4_0007.pth")
     torch.save(ref.sr_model.state_dict(), pthA)
     torch.save(ref.c_model.state_dict(), pthB)
     x = u8(7, (1, 8, 8, 1))
-    from_pth = CascadePredictor.from_checkpoints(pthA, pthB)
+    from_pth = CascadePredictor.from_checkpoints(pthA, pthB, device="cpu")
     np.testing.assert_array_equal(from_pth.predict(x), ref.predict(x))
 
-    fresh = CascadePredictor(models.RDDBNet(1, 1, 4), models.ResDeconv(1, 3), 4)
+    fresh = CascadePredictor(models.RDDBNet(1, 1, 4), models.ResDeconv(1, 3), 4,
+                             device="cpu")
     before = fresh.predict(x)
     install = fresh.reload_checkpoints(netGA, netGB)
     np.testing.assert_array_equal(fresh.predict(x), before)
@@ -144,7 +145,7 @@ def test_from_checkpoints_pth_and_reload(full_ckpts, tmp_path):
 def test_unported_modes_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         CascadePredictor(models.RDDBNet(1, 1, 4, nf=16, nb=1), models.ResDeconv(1, 3),
-                         4, **{flag: True})
+                         4, device="cpu", **{flag: True})
 
 
 @pytest.mark.parametrize("args", [("RDDBNet", "A2C", 4, 50, None, "npz"),

@@ -54,7 +54,7 @@ def small_models():
 
 
 def port_trainer(c_model="ResDeconv", **kw):
-    return CasTrainer("RDDBNet", c_model, up=UP, lr=LR, **kw)
+    return CasTrainer("RDDBNet", c_model, up=UP, lr=LR, device="cpu", **kw)
 
 
 def jax_trainer(**kw):
@@ -198,7 +198,7 @@ def test_transfer_and_snapshot_match_jax(pair):
 
 def test_const_step_matches_jax():
     """const=True (down+up degradation at full size) with SRCNN, one fp32 step."""
-    tr = CasTrainer("SRCNN", "ResDeconv", up=UP, lr=LR, const=True)
+    tr = CasTrainer("SRCNN", "ResDeconv", up=UP, lr=LR, const=True, device="cpu")
     jtr = JaxCasTrainer(sr_model="SRCNN", c_model="ResDeconv", up=UP, lr=LR, const=True)
     jtr.netG_A2C = jax_models.SRCNN(1, 1, UP, base_kernel=16)
     state = tr.init(1)

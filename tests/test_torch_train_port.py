@@ -35,7 +35,7 @@ def small_models():
 
 
 def trainer(sr="RDDBNet", c="ResDeconv", **kw):
-    return CasTrainer(sr, c, up=2, lr=LR, **kw)
+    return CasTrainer(sr, c, up=2, lr=LR, device="cpu", **kw)
 
 
 def u8(seed, *shape):
