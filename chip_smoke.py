@@ -5,25 +5,35 @@
 
 Phases, in order; the first failure raises and the script exits non-zero:
   1. device  - the card's name and power limit (nvidia-smi);
-  2. build   - nvcc builds every kernel (tail_x4, gray_degrade, ssim) from
-               csrc/, one process per source, all started together;
+  2. build   - nvcc builds every kernel (tail_x4, gray_degrade, ssim, rdb5)
+               from csrc/, one process per source, all started together;
   3. kernels - each kernel's wrapper against its plain PyTorch version at the
                shapes the main paths give it, with both times (CUDA events,
                median of 25 calls after 3 warm-up calls) and its bound: the
                least time the card could take, from the bytes the function
-               must move and the operations it does;
+               must move and the operations it does; the RDB5 kernel in both
+               forms (bf16, int8) at the serving shape (8,128,128,64), a
+               ragged one (1,15,128,64) and a 512-wide one, beside the cuDNN
+               block;
   4. fp32    - the full-width serving cascade on the card against the same
                cascade on the CPU, in fp32 with TF32 off;
   5. serve   - the bf16 CascadePredictor at full width answers requests, every
                forward goes through the tail kernel (launch counter), and the
                steady batch-8 throughput is measured;
-  6. train   - the cascade training step (CasTrainer, RDDBNet x2 + ResDeconv,
+  6. trunk   - the serving RDDBNet in bf16 under rdb5_schedule("fused"): 9
+               rdb5_bf16 launches per forward, against the default forward;
+  7. int8    - CascadePredictor(int8=True) at full width: predict before
+               calibrate raises, calibrate on 2 batches, 9 rdb5_int8 launches
+               per forward and no plain version, two predicts bit-equal, the
+               RDDBNet stage against fp32, the card against the CPU, and the
+               batch time beside the fp32 and bf16 predictors';
+  8. train   - the cascade training step (CasTrainer, RDDBNet x2 + ResDeconv,
                full width): one fp32 uint8 step on the card against the CPU;
                10 bf16 fused-input steps at batch 8, 256^2, each launching
                the gray_degrade kernel once, with both losses falling; a
                K=4 train_steps_u8 call; the step time with fused_input on and
                off; and the eval transfer cascade;
-  7. eval    - the evaluation protocol through the command-line tools, at
+  9. eval    - the evaluation protocol through the command-line tools, at
                full width and depth: a synthetic Sat2Aerx1-layout set of 256^2
                pairs on disk, cli.train_cas for one short epoch (RDDBNet x2 +
                ResDeconv, bf16 activations, 4 steps per dispatch), then
@@ -55,10 +65,10 @@ NF = 64
 # [0, 1] (std ~0.2) instead of saturating: uint8 checks then see the values.
 PRED_SCALE = 0.03
 WARMUP, REPS = 3, 25         # calls per timing: warm-up, then the median of REPS
-KERNELS = ("tail_x4", "gray_degrade", "ssim")
+KERNELS = ("tail_x4", "gray_degrade", "ssim", "rdb5")
 # The card's published peaks (H100 SXM, dense): what a bound is taken against.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 # The training slice: CasTrainer(RDDBNet, ResDeconv, up=2), batch 8 of 256^2 targets.
 TRAIN_BATCH, TRAIN_HW, TRAIN_UP, TRAIN_LR = 8, 256, 2, 1e-4
 TRAIN_STEPS, TRAIN_K, TRAIN_REPS = 10, 4, 10
@@ -621,6 +631,278 @@ def phase_eval(dev, card: str) -> int:
     return launches
 
 
+RDB5_FLOP_PER_PIXEL = 2 * 9 * (64 * 32 + 96 * 32 + 128 * 32 + 160 * 32 + 192 * 64)
+
+
+def phase_rdb5(dev, card: str):
+    """The RDB5 kernel in both forms against their plain versions.  Bounds:
+    bf16 rel-L2 <= 2e-2 (bf16 staging of x1..x4 rounds differently where fp32
+    sums differ in order), int8 rel-L2 <= 1e-2 (the JAX package's bounds for
+    its Pallas kernel; the int8 form sums exact integers and rounds the same
+    fp32 steps as its plain version, so no element is expected to differ)."""
+    from srcgan_tpu_torch import config
+    from srcgan_tpu_torch.models.blocks import ResidualDenseBlock5
+    from srcgan_tpu_torch.ops.kernels import rdb5_kernel as rk
+
+    gen = torch.Generator().manual_seed(9)
+    blk = ResidualDenseBlock5(64, 32).eval().requires_grad_(False)
+    with torch.no_grad():
+        for w, b in blk.convs():
+            w.normal_(0, (2 / (9 * w.shape[0])) ** 0.5, generator=gen)    # kaiming, fan_out
+            b.normal_(0, 0.1, generator=gen)       # the border mask only shows with biases
+    blk.to(dev, memory_format=torch.channels_last)
+    wb = rk.prep_bf16(blk.convs())
+    worst = {"bf16": 0.0, "int8": 0.0}
+    first = {}
+    for shape in ((BATCH, LR, LR, NF), (1, 15, 128, NF), (2, 24, 512, NF)):
+        x = (torch.rand(shape, generator=gen) * 2 - 0.5).to(dev)
+        xb = x.bfloat16()
+        with torch.no_grad(), config.precision("fp32"):
+            fp32, cat = blk.forward_with_sources(x.permute(0, 3, 1, 2))
+            fp32 = fp32.permute(0, 2, 3, 1)
+        w8 = rk.prep_int8(blk.convs(), cat.abs().amax(dim=(0, 2, 3)))
+        before = rk.launches_int8, rk.launches_bf16
+        got8, got16 = rk.rdb5_int8_fused(x, w8), rk.rdb5_bf16_fused(xb, wb)
+        torch.cuda.synchronize()
+        check((rk.launches_int8, rk.launches_bf16) == (before[0] + 1, before[1] + 1),
+              "an rdb5 wrapper did not launch its kernel")
+        ref8, ref16 = rk.rdb5_int8_reference(x, w8), rk.rdb5_bf16_reference(xb, wb)
+        for form, got, ref, bound in (("int8", got8, ref8, 1e-2), ("bf16", got16.float(),
+                                                                   ref16.float(), 2e-2)):
+            check(got.shape == ref.shape == shape and bool(torch.isfinite(got).all()),
+                  f"rdb5_{form} {shape}: shape or not finite")
+            rel, err = rel_l2(got, ref), (got - ref).abs().max().item()
+            worst[form] = max(worst[form], err)
+            print(f"[rdb5] rdb5_{form} {shape}: rel-L2 kernel vs plain = {rel:.3g} (bound "
+                  f"{bound:g}), max|diff| {err:.3g}, {int((got != ref).sum())} of {got.numel()} "
+                  f"elements differ; vs the fp32 block rel-L2 {rel_l2(got, fp32):.3g} "
+                  f"{'PASS' if rel <= bound else 'FAIL'}")
+            check(rel <= bound, f"rdb5_{form} {shape} disagrees with its plain version")
+        if first:
+            continue
+        # times at the serving shape; the cuDNN block is the nn.Module itself
+        n, h, w, _ = shape
+        flop = RDB5_FLOP_PER_PIXEL * n * h * w
+        blk16 = ResidualDenseBlock5(64, 32).eval().requires_grad_(False)
+        blk16.load_state_dict(blk.state_dict())
+        blk16.to(dev, torch.bfloat16, memory_format=torch.channels_last)
+        xn, xbn = x.permute(0, 3, 1, 2), xb.permute(0, 3, 1, 2)
+        with torch.no_grad():
+            cudnn16 = median_ms(lambda: blk16(xbn))
+            cudnn_tf32 = median_ms(lambda: blk(xn))
+            with config.precision("fp32"):
+                cudnn32 = median_ms(lambda: blk(xn))
+        for form, fn, plain, xin, wts, lib in (
+                ("int8", rk.rdb5_int8_fused, rk.rdb5_int8_reference, x, w8, cudnn32),
+                ("bf16", rk.rdb5_bf16_fused, rk.rdb5_bf16_reference, xb, wb, cudnn16)):
+            ms = median_ms(lambda: fn(xin, wts))
+            plain_ms = median_ms(lambda: plain(xin, wts), reps=5)
+            on_device = device_us(lambda: fn(xin, wts), "rdb5_kernel")
+            vectors = (wts.sw, wts.rq, wts.bias) if form == "int8" else (wts.bias,)
+            nbytes = 2 * tensor_bytes(xin) + tensor_bytes(wts.frag, *vectors)
+            least = least_time(nbytes, flop, form)
+            print(f"[rdb5] rdb5_{form} {shape} on {card}: wrapper {ms:.4f} ms "
+                  f"({flop / ms / 1e9:.1f} T{'OP' if form == 'int8' else 'FLOP'}/s; the kernel "
+                  f"on the device {'not measured' if on_device is None else f'{on_device:.1f} us'}"
+                  f", profiler), plain version {plain_ms:.4f} ms; bound {least['bound_ms']:.4f} "
+                  f"ms by {least['bound_by']} ({flop / 1e9:.1f} G{'OP' if form == 'int8' else 'FLOP'}"
+                  f" at the {form} peak; {nbytes / 1e6:.2f} MB is "
+                  f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); the cuDNN block (nn.Module): bf16 "
+                  f"{cudnn16:.4f} ms, fp32 TF32 off {cudnn32:.4f} ms, fp32 TF32 on "
+                  f"{cudnn_tf32:.4f} ms")
+            first[form] = {"ms": ms, "plain_ms": plain_ms, **least, "library_ms": lib}
+    small = torch.zeros(1, 16, 100, NF, device=dev)
+    try:
+        rk.rdb5_int8_fused(small, w8)
+    except ValueError:
+        pass
+    else:
+        raise SmokeFailure("rdb5 accepted a width its gate refuses")
+    common = {"route": "cuda", "source": "srcgan_tpu_torch/csrc/rdb5.cu"}
+    return ({"name": "rdb5_bf16", **common,
+             "replaces": "srcgan_tpu/ops/pallas/rdb5_kernel.py:272",
+             "max_abs_err": worst["bf16"], **first["bf16"]},
+            {"name": "rdb5_int8", **common,
+             "replaces": "srcgan_tpu/ops/pallas/rdb5_kernel.py:263",
+             "max_abs_err": worst["int8"], **first["int8"]})
+
+
+def phase_trunk(dev, card: str, sr, c) -> int:
+    """The serving RDDBNet in bf16 with its nine blocks through rdb5_bf16
+    (rdb5_schedule("fused")), against the default forward (cuDNN): RDDBNet's
+    output within rel-L2 2e-2, the cascade's uint8 output within the serve
+    phase's 2 LSB mean.  Returns the rdb5_bf16 launches of one fused forward."""
+    from srcgan_tpu_torch.models.blocks import rdb5_schedule
+    from srcgan_tpu_torch.ops.kernels import rdb5_kernel as rk
+    from srcgan_tpu_torch.serving import CascadePredictor
+
+    pred = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, bf16=True, device=dev)
+    gray = np.random.default_rng(2).integers(0, 256, (BATCH, LR, LR, 1), dtype=np.uint8)
+    x = torch.from_numpy(gray).to(dev)
+    xin = (x.float() / 255).permute(0, 3, 1, 2).to(torch.bfloat16,
+                                                   memory_format=torch.channels_last)
+    with torch.no_grad():
+        plain = pred.sr_model(xin)
+        u8_plain = pred._run(x)
+        rk.launches_bf16 = rk.launches_int8 = rk.reference_calls = 0
+        with rdb5_schedule("fused"):
+            fused = pred.sr_model(xin)
+            torch.cuda.synchronize()
+            launches = rk.launches_bf16
+            u8_fused = pred._run(x)
+        # in turns: the default forward enqueues ~15 launches per block and is
+        # close to host-bound, so its time drifts with the host
+        times = {"fused": [], "naive": []}
+        for sched in ("naive", "fused", "fused", "naive"):
+            with rdb5_schedule(sched):
+                times[sched].append(median_ms(lambda: pred.sr_model(xin)))
+    check(launches == 9 and rk.reference_calls == 0,
+          f"a fused-schedule forward launched rdb5_bf16 {launches} times, not 9")
+    rel = rel_l2(fused.float(), plain.float())
+    lsb = (u8_fused.int() - u8_plain.int()).abs().float().mean().item()
+    ok = rel <= 2e-2 and lsb <= 2
+    print(f"[trunk] RDDBNet x4 bf16, batch {BATCH} of {LR}^2 on {card}: {launches} rdb5_bf16 "
+          f"launches per forward; fused vs default forward rel-L2 {rel:.3g} (bound 2e-2), "
+          f"cascade uint8 mean|diff| {lsb:.4f} LSB (bound 2); in turns, fused "
+          f"{' / '.join(f'{t:.3f}' for t in times['fused'])} ms, default (cuDNN) "
+          f"{' / '.join(f'{t:.3f}' for t in times['naive'])} ms {'PASS' if ok else 'FAIL'}")
+    check(ok, "the fused-schedule trunk strays from the default forward")
+    return launches
+
+
+def psnr_u8(a: np.ndarray, b: np.ndarray) -> float:
+    mse = ((a.astype(np.float64) - b.astype(np.float64)) ** 2).mean()
+    return float(10 * np.log10(255.0 ** 2 / max(mse, 1e-9)))
+
+
+def phase_int8(dev, card: str, sr, c) -> int:
+    """The int8 serving path at full width (see the module docstring).
+    Returns the rdb5_int8 launches of its forwards."""
+    from srcgan_tpu_torch import config, quant
+    from srcgan_tpu_torch.ops.kernels import rdb5_kernel as rk
+    from srcgan_tpu_torch.serving import CascadePredictor
+
+    rng = np.random.default_rng(10)
+    gray, other = (rng.integers(0, 256, (BATCH, LR, LR, 1), dtype=np.uint8) for _ in range(2))
+    pred = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, int8=True,
+                            pad_batch_to=BATCH, device=dev)
+    try:
+        pred.predict(gray)
+    except RuntimeError as e:
+        check("calibrate" in str(e), f"predict before calibrate raised {e!r}")
+    else:
+        raise SmokeFailure("an int8 predictor answered before calibrate()")
+    try:
+        pred.reload_checkpoints("RDDBNet_A2C_x4_0001.npz", "ResDeconv_C2B_x4_0001.npz")
+    except ValueError:
+        pass
+    else:
+        raise SmokeFailure("an int8 predictor accepted a hot reload")
+    pred.calibrate([gray, other])
+    n_rdb5 = sum(1 for v in pred.int8_scales.values() if v.shape == (192,))
+    print(f"[int8] calibrated {len(pred.int8_scales)} callsites on 2 batches, {n_rdb5} of them "
+          f"fused RDB5 blocks")
+    check(n_rdb5 == 9, "the nine RDB5 blocks are not one callsite each")
+
+    rk.launches_bf16 = rk.launches_int8 = rk.reference_calls = 0
+    y = pred.predict(gray)
+    y_again = pred.predict(gray)
+    y3 = pred.predict(gray[:3])                  # ragged: padded to 8 with the last row
+    launches, forwards = rk.launches_int8, 3
+    print(f"[int8] {forwards} forwards, rdb5_int8 launches {launches}, plain-version runs "
+          f"{rk.reference_calls}")
+    check(launches == 9 * forwards and rk.reference_calls == 0 and rk.launches_bf16 == 0,
+          "an int8 forward did not go through the rdb5_int8 kernel nine times")
+    full = (BATCH, 4 * LR, 4 * LR, 3)
+    check(y.shape == full and y.dtype == np.uint8 and len(np.unique(y)) > 1,
+          f"int8 output {y.shape} {y.dtype}")
+    check(np.array_equal(y, y_again), "two int8 predicts of one batch differ")
+    d3 = np.abs(y3.astype(int) - y[:3].astype(int)).max()
+    check(d3 <= 1, f"padded int8 rows differ from the unpadded ones by {d3}")
+
+    # the second forward waits for nothing and copies nothing from the host
+    x = torch.from_numpy(gray).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with quant.quant_mode("int8", pred.int8_scales, pred._int8_prepared):
+            pred._run(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("[int8] a later forward makes no synchronizing call: PASS")
+
+    # the RDDBNet stage alone against fp32 (its callsites are the table's first)
+    xin = (x.float() / 255).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad(), config.precision("fp32"):
+        sr_fp32 = pred.sr_model(xin)
+        with quant.quant_mode("int8", pred.int8_scales, {}):
+            sr_int8 = pred.sr_model(xin)
+    rel = rel_l2(sr_int8, sr_fp32)
+    fp32 = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, device=dev)
+    bf16 = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, bf16=True, device=dev)
+    y_fp32 = fp32.predict(gray)
+    lsb = np.abs(y.astype(int) - y_fp32.astype(int)).mean()
+    print(f"[int8] RDDBNet stage int8 vs fp32: rel-L2 {rel:.4f} (bound 0.1) "
+          f"{'PASS' if rel <= 0.1 else 'FAIL'}; cascade uint8 int8 vs fp32: PSNR "
+          f"{psnr_u8(y, y_fp32):.2f} dB, mean|diff| {lsb:.3f} LSB (random weights; not bound)")
+    check(rel <= 0.1, "the int8 RDDBNet stage strays from fp32")
+
+    # the card against the CPU on one calibration table, at a small supported
+    # shape.  The integer arithmetic is the same on both; the fp32 layers
+    # between the convolutions sum in other orders, and one flipped
+    # requantization round is 1/127 of a channel's range, so the two int8
+    # outputs are held to be closer to each other than int8 is to fp32.
+    small = rng.integers(0, 256, (1, 16, 128, 1), dtype=np.uint8)
+    card_small = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, int8=True, device=dev)
+    cpu_small = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, int8=True, device="cpu")
+    card_small.calibrate([small])
+    cpu_small.int8_scales = card_small.int8_scales
+    a, b = card_small.predict(small).astype(int), cpu_small.predict(small).astype(int)
+    d, noise = np.abs(a - b), np.abs(a - fp32.predict(small).astype(int)).mean()
+    ok = d.mean() <= noise
+    print(f"[int8] card vs CPU, int8 on one table, (1,16,128,1): mean|diff| {d.mean():.4f} LSB, "
+          f"max {d.max()} (bound: the int8-vs-fp32 mean|diff| there, {noise:.4f} LSB) "
+          f"{'PASS' if ok else 'FAIL'}")
+    check(ok, "int8 on the card is further from int8 on the CPU than from fp32")
+
+    def int8_forward(fn, arg):
+        # one quant_mode block per forward: the callsite counter starts at 0
+        with torch.no_grad(), config.precision("fp32"), quant.quant_mode(
+                "int8", pred.int8_scales, pred._int8_prepared):
+            return fn(arg)
+
+    mp = BATCH * (4 * LR) ** 2 / 1e6
+    int8_ms = median_ms(lambda: int8_forward(pred._run, x), reps=10)
+    sr_ms = median_ms(lambda: int8_forward(pred.sr_model, xin), reps=10)
+    fp32_ms = median_ms(lambda: fp32._run(x), reps=10)
+    bf16_ms = median_ms(lambda: bf16._run(x), reps=10)
+    print(f"[int8] steady batch-{BATCH} {LR}^2 -> {4 * LR}^2 on {card}: int8 cascade "
+          f"{int8_ms:.3f} ms = {mp / int8_ms * 1e3:.2f} MP/s (RDDBNet alone {sr_ms:.3f} ms); "
+          f"fp32 (TF32 off) {fp32_ms:.3f} ms = {mp / fp32_ms * 1e3:.2f} MP/s; bf16 "
+          f"{bf16_ms:.3f} ms = {mp / bf16_ms * 1e3:.2f} MP/s")
+    by_kernel = int8_profile(pred, x)
+    if by_kernel:
+        print("[int8] device time of one int8 forward by kernel (profiler): "
+              + "; ".join(f"{name} {us / 1e3:.2f} ms" for name, us in by_kernel))
+    return launches
+
+
+def int8_profile(pred, x, top: int = 6):
+    """The largest device-time entries of one int8 forward, (name, microseconds)."""
+    from torch import profiler
+
+    from srcgan_tpu_torch import quant
+
+    torch.cuda.synchronize()
+    with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
+                                      profiler.ProfilerActivity.CUDA]) as prof:
+        with quant.quant_mode("int8", pred.int8_scales, pred._int8_prepared):
+            pred._run(x)
+        torch.cuda.synchronize()
+    rows = [(e.key[:60], getattr(e, "self_device_time_total", 0)) for e in prof.key_averages()]
+    return sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])[:top]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script runs "
@@ -646,15 +928,18 @@ def main() -> int:
     tail = phase_kernels(dev, where)
     gray = phase_gray_degrade(dev, where)
     ssim = phase_ssim(dev, where)
+    rdb5_bf16, rdb5_int8 = phase_rdb5(dev, where)
     sr, c = cascade(torch.Generator().manual_seed(1))
     x_small, fp32_small = phase_fp32(dev, sr, c)
     tail["launches"] = phase_serve(dev, where, sr, c, x_small, fp32_small)
+    rdb5_bf16["launches"] = phase_trunk(dev, where, sr, c)
+    rdb5_int8["launches"] = phase_int8(dev, where, sr, c)
     del sr, c
     phase_train_fp32(dev)
     gray["launches"] = phase_train(dev, where)
     ssim["launches"] = phase_eval(dev, where)
 
-    print(json.dumps({"kernels": [tail, gray, ssim]}))
+    print(json.dumps({"kernels": [tail, gray, ssim, rdb5_bf16, rdb5_int8]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}))

@@ -18,6 +18,7 @@ Runs on the card unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import math
 import os
@@ -45,8 +46,9 @@ def build_parser():
                    choices=["highest", "high", "default", "int8"],
                    help="highest = fp32 with TF32 off (metric-grade); high = the "
                         "same fp32 mode (the card has no 3-pass bf16 mode to map "
-                        "it to); default = bf16 networks; int8 = not ported yet "
-                        "(ROADMAP A13), exits")
+                        "it to); default = bf16 networks; int8 = post-training "
+                        "quantized convs (srcgan_tpu_torch.quant; fp32 between them, "
+                        "calibrated on the first eval batches)")
     p.add_argument("--device", type=str, default="cuda",
                    help="where to run: the card by default (an error without "
                         "one); 'cpu' to run on the CPU")
@@ -60,8 +62,6 @@ def _refuse_unported(args) -> None:
                  "stack (ROADMAP A14)")
     if args.self_ensemble:
         sys.exit("--self-ensemble comes with the serving extras (ROADMAP A12)")
-    if args.precision == "int8":
-        sys.exit("--precision int8 comes with the int8 port (ROADMAP A13)")
 
 
 def load_cascade(netGA: str, netGB: str, device, dtype):
@@ -183,6 +183,22 @@ def main(argv=None):
         """float NHWC batch -> uint8 on the host: clip, times 255, truncate."""
         return (t.clamp(0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
 
+    run_ctx = contextlib.nullcontext
+    if args.precision == "int8":
+        from srcgan_tpu_torch import quant
+
+        # calibrate on the first two eval batches through the both-domain cascade
+        cal = []
+        for src_u8, tar_u8, _ in data.batches(testset, args.batch_size):
+            cal.append((torch.from_numpy(src_u8).to(device), torch.from_numpy(tar_u8).to(device)))
+            if len(cal) >= 2:
+                break
+        scales = quant.calibrate_fn(
+            lambda pair: cascade(*preprocess.convert_pair(*pair, info_a["ver"])), cal)
+        print(f"int8: calibrated {len(scales)} conv callsites")
+        prepared = {}
+        run_ctx = lambda: quant.quant_mode("int8", scales, prepared)  # noqa: E731
+
     ps_evals = per_sample_evaluators()
     performs = [[] for _ in ps_evals]
     done = n_batches = 0
@@ -193,7 +209,8 @@ def main(argv=None):
                     for src, tar, idxs in data.batches(testset, args.batch_size))
     for src_u8, tar_u8, idxs in preprocess.device_put_iter(host_batches, device):
         real_a, real_b = preprocess.convert_pair(src_u8, tar_u8, info_a["ver"])
-        _, fake_ab, _, fake_bb = cascade(real_a, real_b)
+        with run_ctx():
+            _, fake_ab, _, fake_bb = cascade(real_a, real_b)
         # one copy to the host for the four metrics of the batch
         per_sample = torch.stack([fn(fake_bb, real_b) for _, fn in ps_evals]).cpu().numpy()
         imgs_a, imgs_b = to_u8(fake_ab), to_u8(fake_bb)

@@ -8,7 +8,8 @@ same map, convs go HWIO -> OIHW, transposed convs (kh,kw,in,out) ->
 (in,out,kh,kw), and norm ``scale`` becomes ``weight``.  ``jax_tree_from_module``
 is its inverse: a port module (or any state_dict-shaped dict of its tensors,
 such as Adam's moments) -> the JAX parameter tree and model state, as numpy,
-which the JAX package's ``load_params`` reads.
+which the JAX package's ``load_params`` reads.  ``quant_scales_from_jax``
+carries an int8 calibration table across.
 """
 from __future__ import annotations
 
@@ -72,6 +73,15 @@ def state_dict_from_jax(model: nn.Module, params, state=None) -> Dict[str, torch
     # the model's registration order (JAX tree utilities sort the keys)
     order = [k for k in model.state_dict() if k in out]
     return {k: out[k] for k in order + [k for k in out if k not in order]}
+
+
+def quant_scales_from_jax(scales) -> Dict[int, np.ndarray]:
+    """The port's int8 calibration table (``quant.quant_mode``'s ``scales``)
+    from one recorded by the JAX package's ``quant.calibrate_fn``: callsite
+    index -> per-input-channel absmax, float32 numpy, copied.  The two
+    packages count callsites alike, and a per-channel vector means the same
+    in NHWC and NCHW, so the table carries over key for key."""
+    return {int(i): np.array(v, dtype=np.float32) for i, v in scales.items()}
 
 
 def load_params_any(model: nn.Module, path: str) -> nn.Module:

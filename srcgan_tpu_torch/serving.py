@@ -10,7 +10,9 @@ luma first), runs through the SR generator and the colorizer, and the result
 is clipped to [0, 1], scaled by 255, rounded half to even and cast.  bf16 mode
 runs both networks in bf16; fp32 mode runs them in fp32 with TF32 off
 (``config.precision``).  ``pad_batch_to`` pads a ragged batch with copies of
-its last row up to a multiple of the bucket.
+its last row up to a multiple of the bucket.  ``int8=True`` serves the
+post-training quantized cascade (``srcgan_tpu_torch.quant``): fp32 between
+the convolutions, ``calibrate()`` before the first ``predict``.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from collections import deque
 import numpy as np
 import torch
 
-from srcgan_tpu_torch import config, models
+from srcgan_tpu_torch import config, models, quant
 from srcgan_tpu_torch.interop import load_params_any
 from srcgan_tpu_torch.ops.color import rgb_to_gray
 from srcgan_tpu_torch.train.state import parse_checkpoint_name
@@ -38,10 +40,14 @@ class CascadePredictor:
                  self_ensemble: bool = False, device=None):
         if lab:
             raise NotImplementedError("G2LAB output needs the LAB colour ops (ROADMAP A2)")
-        if int8:
-            raise NotImplementedError("int8 serving comes with the int8 port (ROADMAP A13)")
         if self_ensemble:
             raise NotImplementedError("self-ensemble comes with the serving extras (ROADMAP A12)")
+        # int8: per-channel weight scales + calibrated activation scales;
+        # needs calibrate() before predict
+        self.int8 = int8
+        self.int8_scales = {}
+        if int8:
+            bf16 = False  # the dequantized values run fp32 between the convolutions
         self.up, self.lab, self.bf16 = up, lab, bf16
         self.pad = pad_batch_to
         self.device = config.resolve_device(device)
@@ -77,6 +83,10 @@ class CascadePredictor:
         calling thread, into copies of the models; the returned ``install()``
         only rebinds them, so callers serialise it with in-flight ``predict``
         calls however they like."""
+        if self.int8:
+            raise ValueError("int8 predictors cannot hot-reload: the calibrated "
+                             "activation scales belong to the old weights; build a "
+                             "new predictor and calibrate it")
         infoA = parse_checkpoint_name(netGA)
         infoB = parse_checkpoint_name(netGB)
         if infoA["role"] != "A2C" or infoB["role"] != "C2B":
@@ -109,6 +119,26 @@ class CascadePredictor:
             rgb = out.clamp(0.0, 1.0).permute(0, 2, 3, 1)
             return torch.round(rgb * 255.0).to(torch.uint8)
 
+    @property
+    def int8_scales(self):
+        """The calibration table: callsite index -> per-channel absmax (numpy)."""
+        return self._int8_scales
+
+    @int8_scales.setter
+    def int8_scales(self, scales) -> None:
+        self._int8_scales = scales
+        self._int8_prepared = {}          # device operands per callsite belong to one table
+
+    def calibrate(self, gray_u8_batches) -> None:
+        """int8 mode: record per-callsite activation scales from representative
+        uint8 batches (a float pass over each; the absmax over all of them).
+        Waits for the device; a handful of batches is enough."""
+        if not self.int8:
+            raise ValueError("calibrate() only applies to int8 predictors")
+        self.int8_scales = quant.calibrate_fn(
+            lambda b: self._run(torch.from_numpy(np.ascontiguousarray(b)).to(self.device)),
+            gray_u8_batches)
+
     def _stream_scope(self):
         return (torch.cuda.stream(self._stream) if self._stream is not None
                 else contextlib.nullcontext())
@@ -118,6 +148,8 @@ class CascadePredictor:
         waiting for either.  Returns (host tensor, event): the host tensor
         holds the result once the event (None on the CPU) has completed."""
         n = gray_u8.shape[0]
+        if self.int8 and not self.int8_scales:
+            raise RuntimeError("int8 predictor needs calibrate() first")
         if self.pad and n % self.pad:
             reps = self.pad - n % self.pad
             gray_u8 = np.concatenate(
@@ -131,7 +163,9 @@ class CascadePredictor:
             x = torch.from_numpy(np.ascontiguousarray(gray_u8))
             if cuda:
                 x = x.pin_memory()
-            out = self._run(x.to(self.device, non_blocking=True))[:n]
+            with (quant.quant_mode("int8", self.int8_scales, self._int8_prepared)
+                  if self.int8 else contextlib.nullcontext()):
+                out = self._run(x.to(self.device, non_blocking=True))[:n]
             host = torch.empty(out.shape, dtype=torch.uint8, pin_memory=cuda)
             host.copy_(out, non_blocking=True)
             done = None

@@ -1,7 +1,8 @@
 """srcgan_tpu_torch on an NVIDIA card: the sm_90a kernels against their plain
 versions, the model gate that routes the x4 bf16 tail through them, the
 trainer's fused-input path through the gray+degrade kernel, and the metrics
-and the eval tool through the ssim kernel.
+and the eval tool through the ssim kernel, and the RDB5 kernel (both forms),
+the fused RDB5 schedule and the int8 predictor through it.
 
 Every test here needs a card (marker ``cuda``) and skips without one.  The
 file imports no jax, so it also runs where jax is not installed; there the
@@ -13,13 +14,17 @@ Kernel tolerances, as for the Pallas kernels: tail_x4 max|diff| <=
 0.02 * max(max|ref|, 1) (bf16 staging of t1, z2 and zall, different sum
 orders); gray_degrade max|diff| <= 1e-6 (fp32, the same taps and order);
 ssim max|diff| <= 1e-6 on SSIM and cs (fp32; the kernel sums 2 x 11 taps, its
-plain version 121: the bound the JAX package holds its two forms to).
+plain version 121: the bound the JAX package holds its two forms to);
+rdb5_int8 rel-L2 <= 1e-2 and rdb5_bf16 rel-L2 <= 2e-2 (the bounds of
+tests/test_quant_kernel.py; the int8 form is expected bit-equal, since both
+sides sum exact integers and round the same fp32 steps).
 """
 import pytest
 import torch
 
 from srcgan_tpu_torch import models
-from srcgan_tpu_torch.ops.kernels import preprocess_kernel, ssim_kernel, tail_kernel
+from srcgan_tpu_torch.ops.kernels import (preprocess_kernel, rdb5_kernel, ssim_kernel,
+                                          tail_kernel)
 
 pytestmark = pytest.mark.cuda
 
@@ -340,3 +345,135 @@ def test_entry_points_default_to_the_card(dev):
     assert CasTrainer("ESPCN", "ResDeconv").device.type == "cuda"
     pred = CascadePredictor(models.ESPCN(1, 1, 2), models.ResDeconv(1, 3), 2)
     assert pred.device.type == "cuda" and next(pred.sr_model.parameters()).is_cuda
+
+
+# ---------------------------------------------------------------------------
+# The RDB5 kernel, the fused schedule and the int8 predictor
+# ---------------------------------------------------------------------------
+
+def rdb5_case(seed, shape, dev):
+    from srcgan_tpu_torch.models.blocks import ResidualDenseBlock5
+
+    g = torch.Generator().manual_seed(seed)
+    blk = ResidualDenseBlock5(64, 32).eval().requires_grad_(False)
+    with torch.no_grad():
+        for _, b in blk.convs():
+            b.normal_(0, 0.1, generator=g)       # the border mask only shows with biases
+    blk.to(dev)
+    x = (torch.rand(shape, generator=g) * 2 - 0.5).to(dev)
+    with torch.no_grad():
+        _, cat = blk.forward_with_sources(x.permute(0, 3, 1, 2))
+    return blk, x, cat.abs().amax(dim=(0, 2, 3))
+
+
+@pytest.mark.parametrize("shape", [(8, 128, 128, 64), (1, 15, 128, 64), (2, 40, 512, 64)])
+def test_rdb5_kernel_matches_plain_versions(dev, shape):
+    """The serving shape, a ragged one-tile-row image and a 512-wide one with
+    three tile rows: every image edge and a ragged last tile."""
+    blk, x, absmax = rdb5_case(sum(shape), shape, dev)
+    w8, wb = rdb5_kernel.prep_int8(blk.convs(), absmax), rdb5_kernel.prep_bf16(blk.convs())
+    before = rdb5_kernel.launches_int8, rdb5_kernel.launches_bf16, rdb5_kernel.reference_calls
+    got8 = rdb5_kernel.rdb5_int8_fused(x, w8)
+    got16 = rdb5_kernel.rdb5_bf16_fused(x.bfloat16(), wb)
+    torch.cuda.synchronize()
+    assert (rdb5_kernel.launches_int8, rdb5_kernel.launches_bf16,
+            rdb5_kernel.reference_calls) == (before[0] + 1, before[1] + 1, before[2])
+    ref8 = rdb5_kernel.rdb5_int8_reference(x, w8)
+    ref16 = rdb5_kernel.rdb5_bf16_reference(x.bfloat16(), wb)
+    assert got8.shape == ref8.shape == shape and got8.dtype == torch.float32
+    assert got16.shape == shape and got16.dtype == torch.bfloat16
+    assert ((got8 - ref8).norm() / ref8.norm()).item() <= 1e-2
+    assert ((got16.float() - ref16.float()).norm() / ref16.float().norm()).item() <= 2e-2
+    with torch.no_grad():
+        fp32 = blk(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    assert ((got8 - fp32).norm() / fp32.norm()).item() <= 0.06
+    assert ((got16.float() - fp32).norm() / fp32.norm()).item() <= 2e-2
+
+
+def test_rdb5_kernel_rejects_what_it_cannot_run(dev):
+    blk, x, absmax = rdb5_case(0, (1, 16, 128, 64), dev)
+    w8, wb = rdb5_kernel.prep_int8(blk.convs(), absmax), rdb5_kernel.prep_bf16(blk.convs())
+    for bad in (lambda: rdb5_kernel.rdb5_int8_fused(x.bfloat16(), w8),
+                lambda: rdb5_kernel.rdb5_bf16_fused(x, wb),
+                lambda: rdb5_kernel.rdb5_int8_fused(x[:, :, :100], w8),
+                lambda: rdb5_kernel.rdb5_int8_fused(x, w8._replace(sw=w8.sw[:1].expand(5, 64))),
+                lambda: rdb5_kernel.rdb5_int8_fused(x, w8._replace(rq=w8.rq.cpu())),
+                lambda: rdb5_kernel.rdb5_bf16_fused(x.bfloat16(), wb._replace(frag=w8.frag))):
+        with pytest.raises(ValueError, match="rdb5"):
+            bad()
+    # a strided view of x is made contiguous, not refused
+    wide = torch.cat([x, x], 2)
+    got = rdb5_kernel.rdb5_int8_fused(wide[:, :, :128], w8)
+    assert torch.equal(got, rdb5_kernel.rdb5_int8_fused(x, w8))
+
+
+def test_fused_schedule_runs_the_trunk_through_the_kernel(dev):
+    """RDDBNet nb=3 in bf16 under rdb5_schedule("fused"): 9 launches per eval
+    forward, none in training mode, fp32 or at an unsupported width."""
+    from srcgan_tpu_torch.models.blocks import rdb5_schedule
+
+    g = torch.Generator().manual_seed(11)
+    net = models.RDDBNet(1, 1, 4, generator=g).to(dev, torch.bfloat16).eval().requires_grad_(False)
+    x = torch.rand(2, 1, 16, 128, generator=g).to(dev, torch.bfloat16,
+                                                   memory_format=torch.channels_last)
+    with torch.no_grad():
+        plain = net(x)
+        before = rdb5_kernel.launches_bf16
+        with rdb5_schedule("fused"):
+            fused = net(x)
+            assert rdb5_kernel.launches_bf16 == before + 9
+            net(x[:, :, :, :100])
+            net.float()(x.float())
+            net.bfloat16().train()
+            net(x)
+            net.eval()
+            assert rdb5_kernel.launches_bf16 == before + 9
+        net(x)
+        assert rdb5_kernel.launches_bf16 == before + 9
+    torch.cuda.synchronize()
+    assert ((fused.float() - plain.float()).norm() / plain.float().norm()).item() <= 2e-2
+
+
+def test_int8_predictor_on_the_card(dev):
+    """Full-width x4 cascade: 9 rdb5_int8 launches per forward and no plain
+    version; after the first predict no int8 forward waits for the card or
+    copies from the host; close to the same predictor on the CPU."""
+    import copy
+
+    import numpy as np
+
+    from srcgan_tpu_torch import quant
+    from srcgan_tpu_torch.serving import CascadePredictor
+
+    g = torch.Generator().manual_seed(12)
+    sr, c = models.RDDBNet(1, 1, 4, generator=g), models.ResDeconv(1, 3, generator=g)
+    with torch.no_grad():
+        c.pred.weight.mul_(0.03)
+    rng = np.random.default_rng(12)
+    batches = [rng.integers(0, 256, (2, 16, 128, 1), dtype=np.uint8) for _ in range(2)]
+    on_cpu = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, device="cpu", int8=True)
+    pred = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, device=dev, int8=True)
+    with pytest.raises(RuntimeError, match="calibrate"):
+        pred.predict(batches[0])
+    pred.calibrate(batches)
+    on_cpu.int8_scales = pred.int8_scales
+    before = rdb5_kernel.launches_int8, rdb5_kernel.reference_calls
+    first = pred.predict(batches[0])
+    assert rdb5_kernel.launches_int8 == before[0] + 9
+    assert rdb5_kernel.reference_calls == before[1]
+    x = torch.from_numpy(batches[0]).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with quant.quant_mode("int8", pred.int8_scales, pred._int8_prepared):
+            again = pred._run(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.array_equal(again.cpu().numpy(), first)
+    assert rdb5_kernel.launches_int8 == before[0] + 18
+    # the same integers on both; the fp32 layers between them sum in other
+    # orders and flip requantization rounds: closer to each other than to fp32
+    want = on_cpu.predict(batches[0])
+    fp32 = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, device=dev).predict(batches[0])
+    noise = np.abs(first.astype(int) - fp32.astype(int)).mean()
+    assert np.abs(first.astype(int) - want.astype(int)).mean() <= noise

@@ -26,7 +26,9 @@ def test_module_list_covers_the_slice():
                  "srcgan_tpu_torch.utils.vis", "srcgan_tpu_torch.utils.logging",
                  "srcgan_tpu_torch.utils.live", "srcgan_tpu_torch.cli",
                  "srcgan_tpu_torch.cli.test_cas", "srcgan_tpu_torch.cli.train_cas",
-                 "srcgan_tpu_torch.cli.vis_cas"):
+                 "srcgan_tpu_torch.cli.vis_cas", "srcgan_tpu_torch.quant",
+                 "srcgan_tpu_torch.ops.kernels.rdb5_kernel",
+                 "srcgan_tpu_torch.models.blocks"):
         assert name in MODULES
 
 
