@@ -5,8 +5,8 @@
 
 Phases, in order; the first failure raises and the script exits non-zero:
   1. device  - the card's name and power limit (nvidia-smi);
-  2. build   - nvcc builds every kernel (tail_x4, gray_degrade, ssim, rdb5)
-               from csrc/, one process per source, all started together;
+  2. build   - nvcc builds every kernel (tail_x4, gray_degrade, ssim, rdb5,
+               probes) from csrc/, one process per source, all started together;
   3. kernels - each kernel's wrapper against its plain PyTorch version at the
                shapes the main paths give it, with both times (CUDA events,
                median of 25 calls after 3 warm-up calls) and its bound: the
@@ -40,6 +40,19 @@ Phases, in order; the first failure raises and the script exits non-zero:
                cli.test_cas on its checkpoints (batch 8, fp32): every eval
                batch launches the ssim kernel once, the PNGs decode, and the
                Performs.csv row agrees with the same tool on the CPU.
+ 10. probes  - the six probe kernels (csrc/probes.cu) against their plain
+               versions at their full shapes (int8 forms and the roll bit-equal,
+               bf16 dots rel-L2 1e-3, probe_matmul's bf16 output 1e-2), each
+               with its time, its bound and, where one PyTorch call computes
+               the same function, that call's time; then the three sweeps
+               through ``python -m srcgan_tpu_torch.probes``'s entry points,
+               which must reach every kernel (launch counters);
+ 11. lab     - the LAB cascade at full width: CascadePredictor(lab=True) in
+               fp32 on the card against the CPU and in bf16 through the tail
+               kernel, beside the RGB predictor; three bf16 CasTrainer(lab=True)
+               steps; cli.train_cas --lab for a short epoch and cli.test_cas on
+               its @G2LAB checkpoints (the ssim kernel once per eval batch, the
+               PNGs decode, the row agrees with --device cpu).
 Then one JSON line of kernel results, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Weights are random, from fixed seeds.
 """
@@ -65,7 +78,7 @@ NF = 64
 # [0, 1] (std ~0.2) instead of saturating: uint8 checks then see the values.
 PRED_SCALE = 0.03
 WARMUP, REPS = 3, 25         # calls per timing: warm-up, then the median of REPS
-KERNELS = ("tail_x4", "gray_degrade", "ssim", "rdb5")
+KERNELS = ("tail_x4", "gray_degrade", "ssim", "rdb5", "probes")
 # The card's published peaks (H100 SXM, dense): what a bound is taken against.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -74,6 +87,10 @@ TRAIN_BATCH, TRAIN_HW, TRAIN_UP, TRAIN_LR = 8, 256, 2, 1e-4
 TRAIN_STEPS, TRAIN_K, TRAIN_REPS = 10, 4, 10
 # The eval slice: 16 test pairs of 256^2 in batches of 8; 32 training pairs.
 EVAL_HW, EVAL_BATCH, EVAL_TEST, EVAL_TRAIN = 256, 8, 16, 32
+# The LAB slice: the same widths; 3 train steps, 16 training and 8 test pairs.
+LAB_STEPS, LAB_EVAL_BATCH, LAB_TEST, LAB_TRAIN = 3, 4, 8, 16
+# The probes: one 128x128 plane of rows (130 tiles of 64 for the resident dots).
+PROBE_M, MXU_M = 16384, 8320
 
 
 class SmokeFailure(RuntimeError):
@@ -533,9 +550,11 @@ def read_performs(result_dir: str) -> dict:
     return rows[0]
 
 
-def phase_eval(dev, card: str) -> int:
+def phase_eval(dev, card: str, lab: bool = False) -> int:
     """The evaluation path through the command-line tools (see the module
-    docstring).  Returns the ssim launches of the card's test_cas run."""
+    docstring); with ``lab`` the LAB slice's: train_cas --lab, then test_cas
+    on its @G2LAB checkpoints, at a smaller set and without the timings.
+    Returns the ssim launches of the card's test_cas run."""
     from PIL import Image
 
     from srcgan_tpu_torch import config, data
@@ -544,19 +563,24 @@ def phase_eval(dev, card: str) -> int:
     from srcgan_tpu_torch.metrics import per_sample_evaluators
     from srcgan_tpu_torch.ops.kernels import ssim_kernel as sk
 
-    print(f"[eval] PNG codec: {native.codec()}")
+    tag = "lab" if lab else "eval"
+    n_train, n_test, batch = ((LAB_TRAIN, LAB_TEST, LAB_EVAL_BATCH) if lab
+                              else (EVAL_TRAIN, EVAL_TEST, EVAL_BATCH))
+    ver = "@G2LAB" if lab else ""
+    print(f"[{tag}] PNG codec: {native.codec()}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
-        data.make_synthetic_dataset(os.path.join(tmp, "Sat2Aerx1"), n_train=EVAL_TRAIN,
-                                    n_val=2, n_test=EVAL_TEST, size=EVAL_HW, seed=0,
+        data.make_synthetic_dataset(os.path.join(tmp, "Sat2Aerx1"), n_train=n_train,
+                                    n_val=2, n_test=n_test, size=EVAL_HW, seed=0,
                                     colorizable=True)
         ck = os.path.join(tmp, "checkpoints")
         train_cas.main(["--data-dir", tmp, "--SRModel", "RDDBNet", "--CModel", "ResDeconv",
                         "--up", str(TRAIN_UP), "--batch-size", str(EVAL_BATCH), "--bf16-acts",
-                        "--steps-per-dispatch", "4", "--num-epochs", "1", "--save-every", "1",
-                        "--log-every", "4", "--checkpoints", ck,
-                        "--run-dir", os.path.join(tmp, "run")])
-        net_a = os.path.join(ck, f"RDDBNet_A2C_x{TRAIN_UP}_0001.npz")
-        net_b = os.path.join(ck, f"ResDeconv_C2B_x{TRAIN_UP}_0001.npz")
+                        "--steps-per-dispatch", "2" if lab else "4", "--num-epochs", "1",
+                        "--save-every", "1", "--log-every", "2" if lab else "4",
+                        "--checkpoints", ck, "--run-dir", os.path.join(tmp, "run"),
+                        *(["--lab"] if lab else [])])
+        net_a = os.path.join(ck, f"RDDBNet{ver}_A2C_x{TRAIN_UP}_0001.npz")
+        net_b = os.path.join(ck, f"ResDeconv{ver}_C2B_x{TRAIN_UP}_0001.npz")
         check(os.path.exists(net_a) and os.path.exists(net_b)
               and os.path.exists(os.path.join(ck, "casstate_latest.npz")),
               "train_cas left no checkpoints")
@@ -565,15 +589,15 @@ def phase_eval(dev, card: str) -> int:
         def evaluate(result, *extra):
             return test_cas.main(["--netGA", net_a, "--netGB", net_b, "--data-dir", tmp,
                                   "--result-dir", os.path.join(tmp, result), "--batch-size",
-                                  str(EVAL_BATCH), "--precision", "highest", *extra])
+                                  str(batch), "--precision", "highest", *extra])
 
         sk.launches = 0
         on_card = evaluate("result")
         launches = sk.launches
-        n_batches = -(-EVAL_TEST // EVAL_BATCH)
-        print(f"[eval] {on_card['images']} images in {on_card['batches']} batches on "
+        n_batches = -(-n_test // batch)
+        print(f"[{tag}] {on_card['images']} images in {on_card['batches']} batches on "
               f"{on_card['device']}, ssim launches {launches}")
-        check(on_card["images"] == EVAL_TEST and on_card["batches"] == n_batches
+        check(on_card["images"] == n_test and on_card["batches"] == n_batches
               and on_card["device"].startswith("cuda"), "the eval did not run on the card")
         check(launches == n_batches, "an eval batch did not launch the ssim kernel exactly once")
 
@@ -583,12 +607,13 @@ def phase_eval(dev, card: str) -> int:
         for side in "AB":
             out = os.path.join(tmp, "result", f"{side}_RDDBNet_x{TRAIN_UP}_0001")
             names = sorted(os.listdir(out))
-            check(len(names) == EVAL_TEST, f"{out}: {len(names)} PNGs")
+            check(len(names) == n_test, f"{out}: {len(names)} PNGs")
             for name in names:
                 with Image.open(os.path.join(out, name)) as im:
                     check(im.size == (EVAL_HW, EVAL_HW) and im.mode == "RGB",
                           f"{name}: {im.size} {im.mode}")
-        print(f"[eval] Performs.csv row {row}; 2x{EVAL_TEST} PNGs decode to "
+        check(("@G2LAB" in row["checkpoint"]) == lab, f"checkpoint {row['checkpoint']}")
+        print(f"[{tag}] Performs.csv row {row}; 2x{n_test} PNGs decode to "
               f"{EVAL_HW}^2 RGB PASS")
 
         on_cpu = evaluate("result_cpu", "--device", "cpu")
@@ -596,11 +621,13 @@ def phase_eval(dev, card: str) -> int:
         d_ssim = abs(on_card["SSIM"] - on_cpu["SSIM"])
         rel = {k: abs(on_card[k] - on_cpu[k]) / abs(on_cpu[k]) for k in ("MSE", "AE")}
         ok = d_psnr <= 0.01 and d_ssim <= 1e-4
-        print(f"[eval] card vs CPU means: PSNR {on_card['PSNR']:.5f} vs {on_cpu['PSNR']:.5f} "
+        print(f"[{tag}] card vs CPU means: PSNR {on_card['PSNR']:.5f} vs {on_cpu['PSNR']:.5f} "
               f"(|d| {d_psnr:.2e}, bound 0.01 dB), SSIM {on_card['SSIM']:.6f} vs "
               f"{on_cpu['SSIM']:.6f} (|d| {d_ssim:.2e}, bound 1e-4), MSE rel "
               f"{rel['MSE']:.2e}, AE rel {rel['AE']:.2e} {'PASS' if ok else 'FAIL'}")
         check(ok, "the card's Performs.csv row disagrees with the CPU's")
+        if lab:
+            return launches
 
         # a second pass, warm: the loop's rate and its host PNG encode time
         warm = evaluate("result_warm")
@@ -903,6 +930,254 @@ def int8_profile(pred, x, top: int = 6):
     return sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])[:top]
 
 
+def probe_entry(name: str, line: int, worst: float, timed: dict) -> dict:
+    script = {"probe_matmul": "scripts/pallas_matmul_probe.py",
+              "probe_mxu": "scripts/pallas_mxu_probe.py"}.get(name, "scripts/pallas_layout_probe3.py")
+    return {"name": name, "route": "cuda", "source": "srcgan_tpu_torch/csrc/probes.cu",
+            "replaces": f"{script}:{line}", "max_abs_err": worst, **timed}
+
+
+def phase_probes(dev, card: str) -> list:
+    """The six probe kernels against their plain versions at their full
+    shapes, with times and bounds; then the sweeps through the entry points.
+    Bounds: int8 forms and the roll bit-equal; bf16 dots rel-L2 <= 1e-3 on
+    fp32 outputs (fp32 sums in another order), <= 1e-2 on probe_matmul's bf16
+    output (one bf16 rounding of the sum).  A kernel's time is a CUDA graph of
+    its launches replayed between events (the host's enqueue time is not in
+    it); the time in the kernels line is one whole call (all its dependent
+    steps).  Returns the six entries of the kernels line."""
+    from srcgan_tpu_torch import config
+    from srcgan_tpu_torch.ops.kernels import probe_kernels as pk
+    from srcgan_tpu_torch.probes import __main__ as probes_main
+    from srcgan_tpu_torch.probes import common
+
+    bf16, int8 = torch.bfloat16, torch.int8
+    rng = np.random.default_rng(11)
+    worst = dict.fromkeys(pk.NAMES, 0.0)
+    timed = {}
+
+    def compare(name, label, got, ref, bound):
+        """bound None: bit-equal; else rel-L2 in float64."""
+        torch.cuda.synchronize()
+        check(got.shape == ref.shape and got.dtype == ref.dtype, f"{name} {label}: shape or type")
+        err = (got.double() - ref.double()).abs().max().item()
+        worst[name] = max(worst[name], err)
+        if bound is None:
+            bad = int((got != ref).sum())
+            print(f"[probes] {name} {label}: {bad} of {got.numel()} elements differ from the "
+                  f"plain version (bound 0) {'PASS' if bad == 0 else 'FAIL'}")
+            check(bad == 0, f"{name} {label} is not bit-equal to its plain version")
+        else:
+            rel = rel_l2(got.double(), ref.double())
+            print(f"[probes] {name} {label}: rel-L2 kernel vs plain = {rel:.3g} (bound {bound:g}), "
+                  f"max|diff| {err:.3g} {'PASS' if rel <= bound else 'FAIL'}")
+            check(rel <= bound, f"{name} {label} disagrees with its plain version")
+
+    def times(name, label, fn, plain, nbytes, ops, dtype, lib=None, steps=1):
+        ms = common.graph_ms([fn] * 4)
+        with config.precision("fp32"):
+            plain_ms = median_ms(plain, reps=5)
+        lib_ms = None if lib is None else common.graph_ms([lib] * 4)
+        least = least_time(nbytes, ops, dtype)
+        unit = "TOP/s" if dtype == "int8" else "TFLOP/s"
+        print(f"[probes] {name} {label} on {card}: {ms:.4f} ms per call of {steps} step(s)"
+              + (f" ({ops / ms / 1e9:.1f} {unit})" if ops else f" ({steps * nbytes / ms / 1e6:.0f} GB/s over the steps)")
+              + f", plain version {plain_ms:.4f} ms, "
+              + ("no single PyTorch call" if lib_ms is None else f"the PyTorch call {lib_ms:.4f} ms")
+              + f"; bound {least['bound_ms']:.5f} ms by {least['bound_by']}")
+        timed[name] = {"ms": ms, "plain_ms": plain_ms, **least, "library_ms": lib_ms}
+
+    def pair(m, k, n, dtype):
+        x, w = common.operand(rng, (m, k), dtype, dev), common.operand(rng, (k, n), dtype, dev)
+        if dtype == int8:
+            common.alternate_int8(x, w)        # the chain takes both operands
+        return x, w
+
+    with config.precision("fp32"):             # the plain versions' fp32 matmuls: TF32 off
+        # 6a probe_matmul: the smallest and the largest (K, N), both types
+        for dtype, tname in ((bf16, "bf16"), (int8, "int8")):
+            for k, n in ((64, 64), (576, 192)):
+                x, w = pair(PROBE_M, k, n, dtype)
+                before = pk.launches["probe_matmul"]
+                got = pk.probe_matmul(x, w)
+                check(pk.launches["probe_matmul"] == before + 1, "probe_matmul did not launch")
+                compare("probe_matmul", f"{tname} M={PROBE_M} K={k} N={n}", got,
+                        pk.probe_matmul_reference(x, w), None if dtype == int8 else 1e-2)
+                if (k, n) == (576, 192) and dtype == bf16:
+                    times("probe_matmul", f"bf16 K={k} N={n}", lambda: pk.probe_matmul(x, w),
+                          lambda: pk.probe_matmul_reference(x, w), tensor_bytes(x, w, got),
+                          2 * PROBE_M * k * n, "bf16", lib=lambda: torch.matmul(x, w))
+        # 6b probe_mxu: B=16 dependent dots on a resident tile
+        for dtype, tname in ((bf16, "bf16"), (int8, "int8")):
+            for k, n in ((192, 128), (576, 192)):
+                x, w = pair(MXU_M, k, n, dtype)
+                got, ref = pk.probe_mxu(x, w, 16), pk.probe_mxu_reference(x, w, 16)
+                compare("probe_mxu", f"{tname} M={MXU_M} K={k} N={n}", got, ref,
+                        None if dtype == int8 else 1e-3)
+                if dtype == int8:
+                    check(not torch.equal(got, 16 * pk._dot(x, w)),
+                          "the int8 chain never switched operands")
+                if (k, n) == (576, 192) and dtype == bf16:
+                    times("probe_mxu", f"bf16 K={k} N={n}", lambda: pk.probe_mxu(x, w, 16),
+                          lambda: pk.probe_mxu_reference(x, w, 16), tensor_bytes(x, w, got),
+                          16 * 2 * MXU_M * k * n, "bf16", steps=16)
+                if (k, n) == (576, 192):
+                    # the dots are executed, not hoisted: the time grows with their number
+                    t16, t48 = (common.graph_ms([lambda b=b: pk.probe_mxu(x, w, b)] * 4)
+                                for b in (16, 48))
+                    per = (t48 - t16) / 32
+                    print(f"[probes] probe_mxu {tname} K={k} N={n} on {card}: 16 dots {t16:.4f} ms, "
+                          f"48 dots {t48:.4f} ms: {per * 1e3:.2f} us per added dot = "
+                          f"{common.rate(2 * MXU_M * k * n, per):.1f} "
+                          f"{'TOP/s' if dtype == int8 else 'TFLOP/s'}")
+                    check(t48 > 2 * t16, "probe_mxu's time does not grow with its dots")
+        # 6c probe_dots: the same chain at shallow K
+        for k, n in ((32, 192), (64, 192), (576, 192)):
+            x, w = pair(PROBE_M, k, n, bf16)
+            got = pk.probe_dots(x, w, 16)
+            compare("probe_dots", f"bf16 M={PROBE_M} K={k} N={n}", got,
+                    pk.probe_dots_reference(x, w, 16), 1e-3)
+            if (k, n) == (64, 192):
+                times("probe_dots", f"bf16 K={k} N={n}", lambda: pk.probe_dots(x, w, 16),
+                      lambda: pk.probe_dots_reference(x, w, 16), tensor_bytes(x, w, got),
+                      16 * 2 * PROBE_M * k * n, "bf16", steps=16)
+        # 6d probe_concat_dot: both forms, the same function
+        a, w = pair(PROBE_M, 64, 192, bf16)
+        w = torch.cat([w, pair(1, 64, 192, bf16)[1]])
+        for form in ("concat", "twodots"):
+            got = pk.probe_concat_dot(a, w, 8, form)
+            compare("probe_concat_dot", f"{form} M={PROBE_M} N=192", got,
+                    pk.probe_concat_dot_reference(a, w, 8, form), 1e-3)
+        times("probe_concat_dot", "concat N=192", lambda: pk.probe_concat_dot(a, w, 8, "concat"),
+              lambda: pk.probe_concat_dot_reference(a, w, 8, "concat"), tensor_bytes(a, w, got),
+              8 * 2 * PROBE_M * 128 * 192, "bf16", steps=8)
+        # 6e probe_roll: bit-equal, with values where the added constant shows
+        a[0, :3] = torch.tensor([0.0, 1e-8, -1e-8], device=dev).bfloat16()
+        for shift in (1, 128):
+            got, ref = pk.probe_roll(a, shift, 16), pk.probe_roll_reference(a, shift, 16)
+            compare("probe_roll", f"shift {shift} ({PROBE_M},64)", got.view(torch.int16),
+                    ref.view(torch.int16), None)
+        # torch.roll is the PyTorch call beside it: ONE call does one of the 16 steps
+        times("probe_roll", "shift 128", lambda: pk.probe_roll(a, 128, 16),
+              lambda: pk.probe_roll_reference(a, 128, 16), 2 * tensor_bytes(a), 0, "bf16",
+              lib=lambda: torch.roll(a, 128, dims=0), steps=16)
+        # 6f probe_stage1: both forms against the one plain version
+        x, w = pair(PROBE_M, 64, 192, bf16)[0], pair(576, 576, 192, bf16)[1]
+        ref = pk.probe_stage1_reference(x, w, 4, 128)
+        for form in ("im2col", "shifted"):
+            got = pk.probe_stage1(x, w, 4, 128, form)
+            compare("probe_stage1", f"{form} M={PROBE_M}", got, ref, 1e-3)
+        times("probe_stage1", "im2col", lambda: pk.probe_stage1(x, w, 4, 128, "im2col"),
+              lambda: pk.probe_stage1_reference(x, w, 4, 128), tensor_bytes(x, w, got),
+              4 * 2 * PROBE_M * 576 * 192, "bf16", steps=4)
+
+    # the main path of this slice: the three sweeps through their entry points
+    for name in pk.NAMES:
+        pk.launches[name] = 0
+    rows = probes_main.main([])
+    counts = dict(pk.launches)
+    print(f"[probes] sweeps: {', '.join(f'{k} {len(v)} lines' for k, v in rows.items())}; "
+          f"launches {counts}")
+    check(len(rows["matmul"]) == 18 and len(rows["mxu"]) == 8 and len(rows["layout"]) == 12,
+          "a sweep printed fewer lines than its script's")
+    check(all(counts[name] > 0 for name in pk.NAMES), "a sweep did not reach its kernel")
+    lines = {"probe_matmul": 29, "probe_mxu": 23, "probe_dots": 66, "probe_concat_dot": 103,
+             "probe_roll": 154, "probe_stage1": 186}
+    return [{**probe_entry(name, lines[name], worst[name], timed[name]),
+             "launches": counts[name]} for name in pk.NAMES]
+
+
+def lab_cascade(gen):
+    """Full-width RDDBNet(1,1,4) and the 2-channel ResDeconv(1,2), GroupNorm."""
+    from srcgan_tpu_torch import models
+
+    sr = models.RDDBNet(1, 1, 4, generator=gen)
+    c = models.ResDeconv(1, 2, generator=gen)
+    with torch.no_grad():
+        c.pred.weight.mul_(PRED_SCALE)
+    return sr, c
+
+
+def phase_lab(dev, card: str, rgb_sr, rgb_c, x_small) -> dict:
+    """The LAB slice at full width (see the module docstring).  Returns its
+    launch counts: tail_x4 over the bf16 forwards, ssim over the eval."""
+    from srcgan_tpu_torch.ops import color
+    from srcgan_tpu_torch.ops.kernels import tail_kernel
+    from srcgan_tpu_torch.serving import CascadePredictor
+
+    sr, c = lab_cascade(torch.Generator().manual_seed(12))
+    on_cpu = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, lab=True, device="cpu")
+    on_card = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, lab=True, device=dev)
+    a, b = on_cpu.predict(x_small).astype(int), on_card.predict(x_small).astype(int)
+    diff = np.abs(a - b).max()
+    print(f"[lab] fp32 LAB predictor, card vs CPU, (2,32,32,1) uint8: max|diff| = {diff} "
+          f"(bound 1), {len(np.unique(b))} distinct values {'PASS' if diff <= 1 else 'FAIL'}")
+    check(diff <= 1 and len(np.unique(b)) > 1, "the LAB cascade on the card disagrees with the CPU")
+
+    pred = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, lab=True, bf16=True,
+                            pad_batch_to=BATCH, device=dev)
+    rgb = CascadePredictor(copy.deepcopy(rgb_sr), copy.deepcopy(rgb_c), 4, bf16=True, device=dev)
+    rng = np.random.default_rng(13)
+    gray = rng.integers(0, 256, (BATCH, LR, LR, 1), dtype=np.uint8)
+    tail_kernel.launches = 0
+    y, y3 = pred.predict(gray), pred.predict(gray[:3])
+    ys = list(pred.predict_stream(iter([gray, gray]), lookahead=2))
+    tail_launches, forwards = tail_kernel.launches, 4
+    print(f"[lab] {forwards} bf16 LAB forwards, tail_x4 launches {tail_launches}")
+    check(tail_launches == forwards, "a bf16 LAB forward did not go through the tail kernel once")
+    full = (BATCH, 4 * LR, 4 * LR, 3)
+    check(y.shape == full and y.dtype == np.uint8 and len(np.unique(y)) > 1,
+          f"LAB output {y.shape} {y.dtype}")
+    check(np.abs(y3.astype(int) - y[:3].astype(int)).max() <= 1, "padded LAB rows differ")
+    check(all(np.array_equal(s, y) for s in ys), "LAB predict_stream differs from predict")
+    small = pred.predict(x_small).astype(int)
+    bf_diff = np.abs(small - b).mean()
+    print(f"[lab] bf16 vs fp32 LAB on the card, (2,32,32,1): mean|diff| = {bf_diff:.4f} LSB "
+          f"(not bound: the gamma curve is steep near black)")
+
+    x = torch.from_numpy(gray).to(dev)
+    times = {"lab": [], "rgb": []}
+    for which in ("rgb", "lab", "lab", "rgb"):
+        fn = pred._run if which == "lab" else rgb._run
+        times[which].append(median_ms(lambda: fn(x)))
+    lab_img = torch.rand(BATCH, 4 * LR, 4 * LR, 3, device=dev)
+    colour_ms = median_ms(lambda: color.lab_norm_to_rgb(lab_img))
+    lab_ms = statistics.median(times["lab"])
+    mp = BATCH * (4 * LR) ** 2 / 1e6
+    print(f"[lab] steady batch-{BATCH} {LR}^2 -> {4 * LR}^2 bf16 on {card}, in turns: LAB cascade "
+          f"{' / '.join(f'{t:.3f}' for t in times['lab'])} ms = {mp / lab_ms * 1e3:.2f} MP/s, RGB "
+          f"cascade {' / '.join(f'{t:.3f}' for t in times['rgb'])} ms; lab_norm_to_rgb alone on "
+          f"({BATCH},{4 * LR},{4 * LR},3) fp32 {colour_ms:.4f} ms = "
+          f"{100 * colour_ms / lab_ms:.2f}% of the LAB forward")
+    del pred, rgb, on_card, on_cpu
+
+    # three bf16 training steps of the LAB trainer on one batch
+    shape = (TRAIN_BATCH, TRAIN_HW, TRAIN_HW, 3)
+    src, tar = (torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+                for _ in range(2))
+    tr = slice_trainer(dev, act_dtype=torch.bfloat16, lab=True)
+    state = tr.init(14)
+    check(state.c.model.pred.out_channels == 2, "the LAB colorizer does not have 2 channels")
+    metrics = []
+    for _ in range(LAB_STEPS):
+        state, m = tr.train_step_u8(state, src, tar, TRAIN_LR)
+        metrics.append({k: float(v) for k, v in m.items()})
+    loss = {k: [m[k] for m in metrics] for k in ("loss_SR", "loss_C")}
+    finite = all(math.isfinite(v) for vs in loss.values() for v in vs)
+    falls = all(vs[-1] < vs[0] for vs in loss.values())
+    print(f"[lab] {LAB_STEPS} bf16 LAB train steps, batch {TRAIN_BATCH} of {TRAIN_HW}^2: loss_SR "
+          f"{' -> '.join(f'{v:.5f}' for v in loss['loss_SR'])}, loss_C "
+          f"{' -> '.join(f'{v:.5f}' for v in loss['loss_C'])}; finite {finite}, both fall {falls} "
+          f"{'PASS' if finite and falls else 'FAIL'}")
+    check(finite and falls, "LAB training: a loss is not finite or does not fall")
+    step_ms = median_ms(lambda: tr.train_step_u8(state, src, tar, TRAIN_LR), reps=5)
+    print(f"[lab] bf16 LAB step on {card}: {step_ms:.3f} ms (host-bound, as the RGB step)")
+    del state, tr
+
+    ssim_launches = phase_eval(dev, card, lab=True)
+    return {"tail_x4": tail_launches, "ssim": ssim_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script runs "
@@ -934,12 +1209,15 @@ def main() -> int:
     tail["launches"] = phase_serve(dev, where, sr, c, x_small, fp32_small)
     rdb5_bf16["launches"] = phase_trunk(dev, where, sr, c)
     rdb5_int8["launches"] = phase_int8(dev, where, sr, c)
-    del sr, c
     phase_train_fp32(dev)
     gray["launches"] = phase_train(dev, where)
     ssim["launches"] = phase_eval(dev, where)
+    probes = phase_probes(dev, where)
+    lab = phase_lab(dev, where, sr, c, x_small)
+    tail["launches_lab"], ssim["launches_lab"] = lab["tail_x4"], lab["ssim"]
+    del sr, c
 
-    print(json.dumps({"kernels": [tail, gray, ssim, rdb5_bf16, rdb5_int8]}))
+    print(json.dumps({"kernels": [tail, gray, ssim, rdb5_bf16, rdb5_int8, *probes]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}))

@@ -5,13 +5,17 @@
       --netGB checkpoints/ResDeconv_C2B_x2_0050.npz
 
 The protocol:
-  - model class and scale are parsed from the checkpoint file names;
+  - model class, scale and colour space (``@G2LAB``) are parsed from the
+    checkpoint file names;
   - the degradation replay uses nearest resampling (training uses bilinear);
   - the evaluators [MSE, PSNR, AE, SSIM] are averaged over the test split:
     batches are scored per sample, which reproduces the one-sample-at-a-time
     means exactly;
   - per-sample PNGs go to result/{A,B}_<model>_x<up>_<epoch>/ under the
-    datalist's names, and the means are appended to result/Performs.csv.
+    datalist's names, and the means are appended to result/Performs.csv;
+  - on @G2LAB checkpoints the SR net predicts L and the colorizer ab: the
+    metrics compare L (+) ab with the normalized-LAB target, and the PNGs are
+    L (+) ab converted to RGB.
 
 Runs on the card unless ``--device cpu`` is given.
 """
@@ -66,7 +70,8 @@ def _refuse_unported(args) -> None:
 
 def load_cascade(netGA: str, netGB: str, device, dtype):
     """(info of netGA, SR net, colorizer) from name-encoded checkpoints, in
-    eval mode on ``device`` at ``dtype``.  Exits on a G2LAB checkpoint."""
+    eval mode on ``device`` at ``dtype``.  A G2LAB colorizer has two output
+    channels (ab)."""
     import torch
 
     from srcgan_tpu_torch import models
@@ -75,21 +80,21 @@ def load_cascade(netGA: str, netGB: str, device, dtype):
 
     info_a = parse_checkpoint_name(netGA)
     info_b = parse_checkpoint_name(netGB)
-    if info_a["ver"] == "G2LAB" or info_b["ver"] == "G2LAB":
-        sys.exit("a G2LAB checkpoint needs the LAB colour ops (ROADMAP A9)")
+    lab = info_a["ver"] == "G2LAB"
     nets = []
     for net, path in ((models.create(info_a["model"], 1, 1, info_a["up"]), netGA),
-                      (models.create(info_b["model"], 1, 3), netGB)):
+                      (models.create(info_b["model"], 1, 2 if lab else 3), netGB)):
         load_params_any(net, path)
         net.to(device=device, dtype=dtype, memory_format=torch.channels_last)
         nets.append(net.eval().requires_grad_(False))
     return info_a, nets[0], nets[1]
 
 
-def make_cascade(sr_net, c_net, up: int, const: bool, mode: str):
+def make_cascade(sr_net, c_net, up: int, const: bool, mode: str, lab: bool = False):
     """cascade(realA, realB) -> (fake_AC, fake_AB, fake_BC, fake_BB), fp32
     NHWC: the degradation replay and the cascade on both domains, under
-    ``torch.no_grad()`` in ``config.precision(mode)``."""
+    ``torch.no_grad()`` in ``config.precision(mode)``.  With ``lab`` realB is
+    normalized LAB and its L channel is the SR target."""
     import torch
 
     from srcgan_tpu_torch import config
@@ -105,7 +110,7 @@ def make_cascade(sr_net, c_net, up: int, const: bool, mode: str):
 
     def cascade(real_a, real_b):
         with torch.no_grad(), config.precision(mode):
-            real_bc = preprocess.luma(real_b)
+            real_bc = real_b[..., :1] if lab else preprocess.luma(real_b)
             if const:
                 real_ba = preprocess.degrade_const_nearest(real_bc, up)
                 real_aa = real_a
@@ -163,13 +168,14 @@ def main(argv=None):
     from srcgan_tpu_torch import config, data
     from srcgan_tpu_torch.data import preprocess
     from srcgan_tpu_torch.metrics import per_sample_evaluators
+    from srcgan_tpu_torch.ops import color
     from srcgan_tpu_torch.utils import vis
 
     device = config.resolve_device(args.device)
     mode = "bf16" if args.precision == "default" else "fp32"
     info_a, sr_net, c_net = load_cascade(args.netGA, args.netGB, device, config.DTYPES[mode])
-    sf = info_a["up"]
-    cascade = make_cascade(sr_net, c_net, sf, args.const, mode)
+    sf, lab = info_a["up"], info_a["ver"] == "G2LAB"
+    cascade = make_cascade(sr_net, c_net, sf, args.const, mode, lab)
 
     testset = data.FileListDataset(args.root, "test", info_a["ver"], args.data_dir)
 
@@ -210,10 +216,15 @@ def main(argv=None):
     for src_u8, tar_u8, idxs in preprocess.device_put_iter(host_batches, device):
         real_a, real_b = preprocess.convert_pair(src_u8, tar_u8, info_a["ver"])
         with run_ctx():
-            _, fake_ab, _, fake_bb = cascade(real_a, real_b)
+            fake_ac, fake_ab, fake_bc, fake_bb = cascade(real_a, real_b)
+        pred = torch.cat([fake_bc, fake_bb], dim=-1) if lab else fake_bb
         # one copy to the host for the four metrics of the batch
-        per_sample = torch.stack([fn(fake_bb, real_b) for _, fn in ps_evals]).cpu().numpy()
-        imgs_a, imgs_b = to_u8(fake_ab), to_u8(fake_bb)
+        per_sample = torch.stack([fn(pred, real_b) for _, fn in ps_evals]).cpu().numpy()
+        if lab:
+            imgs_a = to_u8(color.lab_norm_to_rgb(torch.cat([fake_ac, fake_ab], dim=-1)))
+            imgs_b = to_u8(color.lab_norm_to_rgb(pred))
+        else:
+            imgs_a, imgs_b = to_u8(fake_ab), to_u8(fake_bb)
         n_batches += 1
         names = []
         for j, idx in enumerate(idxs):

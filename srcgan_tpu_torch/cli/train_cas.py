@@ -2,12 +2,13 @@
 
   python -m srcgan_tpu_torch.cli.train_cas --SRModel RDDBNet --CModel ResDeconv --up 2
   python -m srcgan_tpu_torch.cli.train_cas --const      # constant-resolution pipeline
+  python -m srcgan_tpu_torch.cli.train_cas --lab        # LAB colour space (also with --const)
 
 Every flag of the JAX package's tool keeps its name.  Checkpoints keep the
 name-encoded convention, as .npz parameter trees that either package loads,
 plus the full train state for ``--resume``.  Runs on the card unless
 ``--device cpu`` is given.  Flags whose machinery is still to be ported
-(the mesh family, orbax, the perceptual and distillation losses, LAB) exit
+(the mesh family, orbax, the perceptual and distillation losses) exit
 at once with the ROADMAP item that brings them.
 """
 from __future__ import annotations
@@ -29,7 +30,8 @@ def build_parser():
     p.add_argument("--const", action="store_true",
                    help="constant-resolution pipeline (down, then up, degrade)")
     p.add_argument("--lab", action="store_true",
-                   help="LAB colour space: not ported yet (ROADMAP A9); exits")
+                   help="LAB colour space: L to the SR net, ab from the colorizer; "
+                        "checkpoints are named <Model>@G2LAB_...")
     p.add_argument("--root", type=str, default="Sat2Aerx1")
     p.add_argument("--data-dir", type=str, default=None)
     p.add_argument("--lr", type=float, default=1e-4)
@@ -136,8 +138,6 @@ def _refuse_unported(args) -> None:
     if extra:
         sys.exit(f"{', '.join(extra)}: the perceptual and distillation losses are "
                  "still to be ported (ROADMAP A13)")
-    if args.lab:
-        sys.exit("--lab needs the LAB colour ops (ROADMAP A9)")
 
 
 def _stacked_blocks(it, k):
@@ -200,10 +200,10 @@ def _run(args, preempted):
 
     device = config.resolve_device(args.device)
     mode = "bf16" if args.bf16_acts else "tf32" if args.bf16 else "fp32"
-    ver = "G2RGB"
+    ver = "G2LAB" if args.lab else "G2RGB"
     trainer = CasTrainer(
         sr_model=args.SRModel, c_model=args.CModel, up=args.up, lr=args.lr,
-        const=args.const, lr_policy=args.lr_policy, num_epochs=args.num_epochs,
+        const=args.const, lab=args.lab, lr_policy=args.lr_policy, num_epochs=args.num_epochs,
         remat=args.remat, act_dtype=torch.bfloat16 if args.bf16_acts else None,
         device=device)
     state = trainer.init(args.seed)
@@ -250,10 +250,11 @@ def _run(args, preempted):
 
     def _save_epoch_checkpoints(epoch, mean_psnr):
         os.makedirs(args.checkpoints, exist_ok=True)
+        lab_ver = "G2LAB" if args.lab else None
         netGA = os.path.join(args.checkpoints, checkpoint_name(
-            args.SRModel, "A2C", args.up, epoch))
+            args.SRModel, "A2C", args.up, epoch, ver=lab_ver))
         netGB = os.path.join(args.checkpoints, checkpoint_name(
-            args.CModel, "C2B", args.up, epoch))
+            args.CModel, "C2B", args.up, epoch, ver=lab_ver))
         save_params(netGA, interop.jax_tree_from_module(state.sr.model)[0])
         save_params(netGB, interop.jax_tree_from_module(state.c.model)[0])
         if ema is not None:

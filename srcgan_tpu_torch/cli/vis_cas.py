@@ -4,7 +4,8 @@
 
 Side-by-side framed panels [input | SR | colorized | target], saved only when
 the sample's colorization PSNR exceeds --threshold (22.5 dB is the
-protocol's bar for a "good" sample).  Runs on the card unless ``--device cpu``
+protocol's bar for a "good" sample).  On @G2LAB checkpoints the colorized
+panel is L (+) ab and it and the target are converted from LAB.  Runs on the card unless ``--device cpu``
 is given.
 """
 from __future__ import annotations
@@ -41,8 +42,8 @@ def main(argv=None):
 
     device = config.resolve_device(args.device)
     info_a, sr_net, c_net = load_cascade(args.netGA, args.netGB, device, torch.float32)
-    sf = info_a["up"]
-    cascade = make_cascade(sr_net, c_net, sf, args.const, "fp32")
+    sf, lab = info_a["up"], info_a["ver"] == "G2LAB"
+    cascade = make_cascade(sr_net, c_net, sf, args.const, "fp32", lab)
     degrade = (preprocess.degrade_const_nearest if args.const
                else preprocess.degrade_nearest)
 
@@ -60,13 +61,16 @@ def main(argv=None):
             torch.tensor(src_u8[None], device=device),
             torch.tensor(tar_u8[None], device=device), info_a["ver"])
         _, _, fake_bc, pred = cascade(real_a, real_b)
+        if lab:
+            pred = torch.cat([fake_bc, pred], dim=-1)
         if float(psnr(pred, real_b)) > args.threshold:
-            real_ba = degrade(preprocess.luma(real_b), sf)
+            real_bc = real_b[..., :1] if lab else preprocess.luma(real_b)
+            mode = "LAB" if lab else "RGB"
             panel = vis.patch2vis(
-                vis.tensor2img(real_ba, "RGB"),
+                vis.tensor2img(degrade(real_bc, sf), "RGB"),
                 vis.tensor2img(fake_bc, "RGB"),
-                vis.tensor2img(pred, "RGB"),
-                vis.tensor2img(real_b, "RGB"),
+                vis.tensor2img(pred, mode),
+                vis.tensor2img(real_b, mode),
             )
             vis.save_png(os.path.join(out_dir, testset.datalist[idx]), panel)
             n_saved += 1

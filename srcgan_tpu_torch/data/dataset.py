@@ -1,4 +1,4 @@
-"""File-list datasets (G2RGB) with on-device preprocessing, as in
+"""File-list datasets (G2RGB, G2LAB) with on-device preprocessing, as in
 ``srcgan_tpu.data.dataset``.
 
 Layout: ``<data_dir>/<root>/{src,tar}/`` plus ``{train,val,test}.txt`` file
@@ -6,13 +6,12 @@ lists.  The work is split between host and device:
 
   host   : file list, PNG decode (the native libpng decoder, or PIL), uint8
            HWC arrays, batching, shuffling, D4 augmentation: no float math;
-  device : everything numeric (/255, luma, degradation) in
+  device : everything numeric (/255, luma, RGB->LAB, degradation) in
            ``srcgan_tpu_torch.data.preprocess``, so the host-to-device copy
            is uint8, a quarter of the fp32 bytes.
 
 Pure numpy: for the same arguments ``batches`` yields the same bytes as the
-JAX package's (the random draws are made in the same order).  The G2LAB
-variant waits for the LAB colour ops (ROADMAP A9).
+JAX package's (the random draws are made in the same order).
 """
 from __future__ import annotations
 
@@ -43,8 +42,8 @@ def _read_png(path: str) -> np.ndarray:
 class FileListDataset:
     """Host-side dataset: yields uint8 RGB (src, tar) pairs by index.
 
-    ver selects the on-device target conversion: 'G2RGB' (src->gray, tar->RGB);
-    'G2LAB' (tar->normalized LAB) is still to be ported (ROADMAP A9).
+    ver selects the on-device target conversion: 'G2RGB' (src->gray, tar->RGB)
+    or 'G2LAB' (src->gray, tar->normalized LAB).
     """
 
     def __init__(self, root: str, split: str = "all", ver: str = "G2RGB",
@@ -92,7 +91,8 @@ class FileListDataset:
         return np.stack(srcs), np.stack(tars)
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
-        """One converted sample: float32 HWC arrays (src luma, tar RGB).
+        """One converted sample: float32 HWC arrays (src luma, tar RGB or
+        normalized LAB).
 
         The training path takes ``batches()`` and converts on the device;
         this per-sample form converts on the host.
@@ -110,13 +110,15 @@ class FileListDataset:
         """Write a side-by-side src | tar preview PNG and return its path."""
         from srcgan_tpu_torch.utils.vis import save_png, whitespace
 
-        if self.ver == "G2LAB":
-            raise NotImplementedError("a G2LAB preview needs the LAB colour ops "
-                                      "(ROADMAP A9)")
         sample = self.__getitem__(idx)
         src = sample["src"]
         tar = sample["tar"]
         src_img = whitespace((np.repeat(src, 3, axis=-1) * 255).astype(np.uint8))
+        if self.ver == "G2LAB":
+            import torch
+
+            from srcgan_tpu_torch.ops import color
+            tar = color.lab_norm_to_rgb(torch.from_numpy(tar)).numpy()
         tar_img = whitespace((tar * 255).astype(np.uint8))
         vis = np.concatenate([src_img, tar_img], axis=1)
         out_dir = example_dir or os.path.join(
@@ -134,8 +136,7 @@ class G2RGB(FileListDataset):
 
 class G2LAB(FileListDataset):
     def __init__(self, root, split="all", **kw):
-        raise NotImplementedError("the G2LAB dataset needs the LAB colour ops "
-                                  "(ROADMAP A9)")
+        super().__init__(root, split, ver="G2LAB", **kw)
 
 
 _VERSIONS = {"G2RGB": G2RGB, "G2LAB": G2LAB}

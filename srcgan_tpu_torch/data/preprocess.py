@@ -1,6 +1,6 @@
 """On-device preprocessing of uint8 batches, as in ``srcgan_tpu.data.preprocess``.
 
-  - convert_pair: uint8 RGB (src, tar) -> (gray src, RGB tar) float32
+  - convert_pair: uint8 RGB (src, tar) -> (gray src, RGB|LAB tar) float32
   - degrade_*: the training and eval degradations (luma + down/up-sampling)
   - device_put_iter: host batches onto the device, one step ahead
 
@@ -16,15 +16,14 @@ from srcgan_tpu_torch.ops.resize import interpolate
 
 
 def convert_pair(src_u8: torch.Tensor, tar_u8: torch.Tensor, ver: str = "G2RGB"):
-    """uint8 NHWC RGB pair -> float32 (src luma 1ch, tar /255 RGB 3ch).
-
-    G2LAB needs the LAB colour ops, which are still to be ported."""
-    if ver == "G2LAB":
-        raise NotImplementedError("G2LAB needs the LAB colour ops (ROADMAP A9)")
-    if ver != "G2RGB":
+    """uint8 NHWC RGB pair -> float32 (src luma 1ch, tar 3ch): tar is /255
+    RGB for G2RGB and normalized LAB (L/100, (ab+128)/255) for G2LAB."""
+    if ver not in ("G2RGB", "G2LAB"):
         raise ValueError(f"unknown dataset version {ver!r}")
     src = src_u8.float() / 255.0
     tar = tar_u8.float() / 255.0
+    if ver == "G2LAB":
+        tar = color.rgb_to_lab_norm(tar)
     return color.rgb_to_gray(src), tar
 
 

@@ -45,3 +45,8 @@ def pixel_shuffle(x, r: int):
     """(N,H,W,C*r*r) -> (N,H*r,W*r,C); input channel c*r*r + i*r + j, which is
     torch's order, so F.pixel_shuffle on the NCHW view is exact."""
     return to_nhwc(F.pixel_shuffle(to_nchw(x), r))
+
+
+def pixel_unshuffle(x, r: int):
+    """Inverse of pixel_shuffle: (N,H*r,W*r,C) -> (N,H,W,C*r*r)."""
+    return to_nhwc(F.pixel_unshuffle(to_nchw(x), r))

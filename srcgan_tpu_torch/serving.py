@@ -9,7 +9,9 @@ uint8 in, uint8 out: the input is divided by 255 (an RGB input is turned to
 luma first), runs through the SR generator and the colorizer, and the result
 is clipped to [0, 1], scaled by 255, rounded half to even and cast.  bf16 mode
 runs both networks in bf16; fp32 mode runs them in fp32 with TF32 off
-(``config.precision``).  ``pad_batch_to`` pads a ragged batch with copies of
+(``config.precision``).  ``lab=True`` serves a G2LAB cascade: the SR output
+is L, the colorizer's two channels are ab, and L (+) ab goes through
+``lab_norm_to_rgb`` in fp32 after the cascade.  ``pad_batch_to`` pads a ragged batch with copies of
 its last row up to a multiple of the bucket.  ``int8=True`` serves the
 post-training quantized cascade (``srcgan_tpu_torch.quant``): fp32 between
 the convolutions, ``calibrate()`` before the first ``predict``.
@@ -25,7 +27,7 @@ import torch
 
 from srcgan_tpu_torch import config, models, quant
 from srcgan_tpu_torch.interop import load_params_any
-from srcgan_tpu_torch.ops.color import rgb_to_gray
+from srcgan_tpu_torch.ops.color import lab_norm_to_rgb, rgb_to_gray
 from srcgan_tpu_torch.train.state import parse_checkpoint_name
 
 
@@ -38,8 +40,6 @@ class CascadePredictor:
     def __init__(self, sr_model, c_model, up: int, *, lab: bool = False,
                  bf16: bool = False, pad_batch_to: int = 0, int8: bool = False,
                  self_ensemble: bool = False, device=None):
-        if lab:
-            raise NotImplementedError("G2LAB output needs the LAB colour ops (ROADMAP A2)")
         if self_ensemble:
             raise NotImplementedError("self-ensemble comes with the serving extras (ROADMAP A12)")
         # int8: per-channel weight scales + calibrated activation scales;
@@ -115,8 +115,14 @@ class CascadePredictor:
             if x.shape[-1] == 3:
                 x = rgb_to_gray(x)
             x = x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)
-            out = self.c_model(self.sr_model(x)).float()
-            rgb = out.clamp(0.0, 1.0).permute(0, 2, 3, 1)
+            fake_c = self.sr_model(x)
+            out = self.c_model(fake_c).float()
+            if self.lab:
+                # L (+) ab, NHWC, back to RGB in fp32 (clipped to [0, 1] there)
+                lab_img = torch.cat([fake_c.float(), out], dim=1).permute(0, 2, 3, 1)
+                rgb = lab_norm_to_rgb(lab_img)
+            else:
+                rgb = out.clamp(0.0, 1.0).permute(0, 2, 3, 1)
             return torch.round(rgb * 255.0).to(torch.uint8)
 
     @property

@@ -80,11 +80,12 @@ class CasTrainer:
                  perceptual_params=None, perceptual_weight: float = 1.0,
                  act_dtype: Optional[torch.dtype] = None, fused_input: bool = False,
                  *, device=None):
+        if perceptual_params is not None and lab:
+            raise ValueError("--perceptual requires an RGB pipeline (the LAB "
+                             "colorizer predicts 2-channel ab maps)")
         if fused_input and (lab or const):
             raise ValueError("fused_input applies to the G2RGB non-const "
                              "uint8 input path only")
-        if lab:
-            raise NotImplementedError("lab=True needs the LAB colour ops (ROADMAP A9)")
         if perceptual_params is not None:
             raise NotImplementedError("the VGG perceptual loss comes with "
                                       "losses_vgg (ROADMAP A13)")
@@ -105,7 +106,8 @@ class CasTrainer:
             torch.Generator().manual_seed(int(seed)))
         sr = models.create(self.sr_name, 1, 1, self.up, device=self.device,
                            generator=gen).train()
-        c = models.create(self.c_name, 1, 3, device=self.device, generator=gen).train()
+        c = models.create(self.c_name, 1, 2 if self.lab else 3, device=self.device,
+                          generator=gen).train()
         return CasState(TrainState(sr, optim.adam(sr.parameters(), self.lr), 0),
                         TrainState(c, optim.adam(c.parameters(), self.lr), 0))
 
@@ -118,7 +120,10 @@ class CasTrainer:
         return None if x is None else torch.as_tensor(x, device=self.device)
 
     def _split_targets(self, realB):
-        """(SR target 1ch, colorization target)."""
+        """(SR target 1ch, colorization target): luma and RGB, or with lab
+        the L and the ab channels of a normalized-LAB target."""
+        if self.lab:
+            return realB[..., :1], realB[..., 1:]
         return preprocess.luma(realB), realB
 
     def _degrade(self, x):
@@ -196,8 +201,8 @@ class CasTrainer:
                         update(state.c, grads["c"], model_states["c"]))
 
     def train_step(self, state: CasState, realA, realB, lr) -> Tuple[CasState, Metrics]:
-        """One optimization step on a (realA gray, realB RGB target) float
-        batch, NHWC.  Returns (state, metrics {loss_SR, loss_C, psnr_SR, psnr_C})."""
+        """One optimization step on a (realA gray, realB target) float batch,
+        NHWC; realB is RGB, or normalized LAB with lab.  Returns (state, metrics {loss_SR, loss_C, psnr_SR, psnr_C})."""
         grads, mstates, metrics = self.grads(state, self._tensor(realA), self._tensor(realB))
         return self.apply_grads(state, grads, mstates, lr), metrics
 
@@ -249,7 +254,8 @@ class CasTrainer:
             real_BC, real_BA = preprocess_kernel.fused_gray_degrade(tar_u8, self.up)
             realB = tar_u8.float() / 255.0
             return realB, realB, (real_BC, real_BA)
-        realA, realB = preprocess.convert_pair(src_u8, tar_u8, "G2RGB")
+        realA, realB = preprocess.convert_pair(src_u8, tar_u8,
+                                               "G2LAB" if self.lab else "G2RGB")
         return realA, realB, None
 
     def train_step_u8(self, state: CasState, src_u8, tar_u8, lr

@@ -63,7 +63,7 @@ class Logger:
             for k, v in images.items():
                 mode = "RGB"
                 if k in ("fake_AB", "real_B", "fake_BB") and ver == "G2LAB":
-                    mode = "LAB"            # raises until the LAB ops are ported
+                    mode = "LAB"            # the LAB-space windows
                 img = vis.tensor2img(v, mode)
                 # atomic overwrite: LiveView may be serving this window
                 # concurrently, and a reader racing a plain in-place write

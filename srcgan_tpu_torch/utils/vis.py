@@ -68,12 +68,19 @@ def add_barrier(img: np.ndarray, width: int = 2, color: int = 0) -> np.ndarray:
 
 def tensor2img(x, mode: str = "RGB", dsize=(256, 256)) -> np.ndarray:
     """First sample of an NHWC float batch (numpy or tensor) -> uint8 HWC RGB
-    at dsize.  LAB tensors wait for the LAB colour ops (ROADMAP A9)."""
+    at dsize.  mode "LAB": a normalized-LAB tensor is de-normalized and
+    converted to RGB; a 2-channel ab map is read as (a, b, b), as the JAX
+    package's clamped channel index reads it."""
     from PIL import Image
 
-    if mode == "LAB":
-        raise NotImplementedError("LAB tensors need the LAB colour ops (ROADMAP A9)")
     a = _host(x[0])
+    if mode == "LAB":
+        import torch
+
+        from srcgan_tpu_torch.ops import color
+        if a.shape[-1] == 2:
+            a = np.concatenate([a, a[..., 1:]], axis=-1)
+        a = color.lab_norm_to_rgb(torch.from_numpy(np.ascontiguousarray(a))).numpy()
     if a.shape[-1] == 1:
         a = np.repeat(a, 3, axis=-1)
     img = np.clip(a * 255.0, 0, 255).astype(np.uint8)

@@ -186,7 +186,7 @@ def test_vis_cas_matches_jax(jax_ckpts, synth, tmp_path):
 UNPORTED_TRAIN = [(["--mesh-size", "2"], "A14"), (["--mesh-size", "2", "--space-size", "2"], "A14"),
                   (["--fsdp"], "A14"), (["--zero-opt"], "A14"), (["--orbax-dir", "x"], "A14"),
                   (["--perceptual", "random"], "A13"), (["--distill-netGA", "a.npz"], "A13"),
-                  (["--distill-netGB", "b.npz"], "A13"), (["--lab"], "A9")]
+                  (["--distill-netGB", "b.npz"], "A13")]
 
 
 @pytest.mark.parametrize("flags,item", UNPORTED_TRAIN, ids=[f[0][0] + f"-{i}" for i, f in
@@ -233,11 +233,13 @@ def test_unported_eval_flags_exit_naming_the_roadmap(flags, item, jax_ckpts, tmp
 
 @pytest.mark.parametrize("cli", [test_cas, vis_cas])
 def test_lab_checkpoints_exit_naming_the_roadmap(cli, tmp_path):
-    args = ["--netGA", "RDDBNet@G2LAB_A2C_x2_0050.npz", "--netGB", "ResDeconv@G2LAB_C2B_x2_0050.npz",
+    """LAB is ported: @G2LAB names no longer exit naming a ROADMAP item; with
+    no such files the tool gets as far as loading them."""
+    args = ["--netGA", str(tmp_path / "RDDBNet@G2LAB_A2C_x2_0050.npz"),
+            "--netGB", str(tmp_path / "ResDeconv@G2LAB_C2B_x2_0050.npz"),
             "--result-dir", str(tmp_path / "r"), "--device", "cpu"]
-    with pytest.raises(SystemExit) as e:
+    with pytest.raises(FileNotFoundError, match="G2LAB"):
         cli.main(args)
-    assert "ROADMAP A9" in str(e.value)
 
 
 def test_flag_names_are_the_jax_tools():
@@ -300,3 +302,61 @@ def test_resolve_device():
         for asked in (None, "cuda", "cuda:0"):
             with pytest.raises(RuntimeError, match="no CUDA card"):
                 config.resolve_device(asked)
+
+
+# -- @G2LAB checkpoints: L from the SR net, ab from a 2-channel colorizer -----
+
+def lab_ckpts(d, sr_name, up, seed):
+    """JAX-initialised <sr_name> x<up> + 2-channel ResDeconv under @G2LAB names."""
+    sr, c = getattr(jmodels, sr_name)(1, 1, up), jmodels.ResDeconv(1, 2)
+    pa = jax.device_get(sr.init(jax.random.PRNGKey(seed)))
+    pb = jax.device_get(c.init(jax.random.PRNGKey(seed + 1)))
+    pb = {**pb, "pred": {**pb["pred"], "w": pb["pred"]["w"] * 0.03}}
+    net_a = str(d / f"{sr_name}@G2LAB_A2C_x{up}_0007.npz")
+    net_b = str(d / f"ResDeconv@G2LAB_C2B_x{up}_0007.npz")
+    jax_save_params(net_a, pa)
+    jax_save_params(net_b, pb)
+    return net_a, net_b
+
+
+@pytest.mark.parametrize("up,const", [(2, False), (4, False), (8, False),
+                                      (2, True), (4, True), (8, True)])
+def test_lab_performs_rows_equal_jax(synth, tmp_path, up, const):
+    """The evaluation sweep's shape on @G2LAB pairs: every scale, with and
+    without --const (SRCNN keeps the size there).  The metrics compare L (+) ab
+    with the normalized-LAB target; Performs.csv equals the JAX tool's to the
+    printed digits (%.3f), the means within PSNR 0.01 dB and SSIM 1e-4, and the
+    PNGs (L (+) ab converted to RGB) within 1 LSB."""
+    ckpts = lab_ckpts(tmp_path, "SRCNN" if const else "ESPCN", up, 10 * up + const)
+    extra = ["--batch-size", "2"] + (["--const"] if const else [])
+    ours = test_cas.main(eval_args(ckpts, synth, tmp_path / "port", "--device", "cpu", *extra))
+    theirs = jax_test_cas.main(eval_args(ckpts, synth, tmp_path / "jax", *extra)).iloc[-1]
+    assert ours["images"] == 3 and ours["checkpoint"] == theirs["checkpoint"]
+    assert "@G2LAB" in ours["checkpoint"]
+    assert abs(ours["PSNR"] - float(theirs["PSNR"])) <= 0.01
+    assert abs(ours["SSIM"] - float(theirs["SSIM"])) <= 1e-4
+    port_rows = read_csv(tmp_path / "port" / "Performs.csv")
+    jax_rows = read_csv(tmp_path / "jax" / "Performs.csv")
+    assert list(port_rows[0]) == list(jax_rows[0]) == COLUMNS
+    assert [port_rows[0][k] for k in COLUMNS[1:]] == [jax_rows[0][k] for k in COLUMNS[1:]]
+    tag = os.path.basename(ckpts[0]).split("@")[0] + f"_x{up}_0007"
+    for side in "AB":
+        for name in (f"test-{i}.png" for i in range(3)):
+            a = _read_png(str(tmp_path / "port" / f"{side}_{tag}" / name)).astype(int)
+            b = _read_png(str(tmp_path / "jax" / f"{side}_{tag}" / name)).astype(int)
+            assert a.shape == b.shape == (32, 32, 3) and np.abs(a - b).max() <= 1
+
+
+def test_lab_vis_cas_panels_agree(synth, tmp_path):
+    """vis_cas on a @G2LAB pair: the colorized and target panels go through
+    LAB -> RGB; panels within 1 LSB of the JAX tool's."""
+    ckpts = lab_ckpts(tmp_path, "ESPCN", 2, 3)
+    assert vis_cas.main(eval_args(ckpts, synth, tmp_path / "port", "--threshold", "-100",
+                                  "--device", "cpu")) == 3
+    assert jax_vis_cas.main(eval_args(ckpts, synth, tmp_path / "jax", "--threshold",
+                                      "-100")) == 3
+    for name in ("test-0.png", "test-2.png"):
+        a = _read_png(str(tmp_path / "port" / "vis_ESPCN_x2_0007" / name)).astype(int)
+        b = _read_png(str(tmp_path / "jax" / "vis_ESPCN_x2_0007" / name)).astype(int)
+        assert a.shape == b.shape == (256 + 4, 4 * (256 + 4), 3)
+        assert np.abs(a - b).max() <= 1

@@ -259,3 +259,33 @@ def test_retention_and_early_stop(synth, tmp_path, capsys):
                               "--early-stop-delta", "100"))
     assert "early stop at epoch 2" in capsys.readouterr().out
     assert os.path.exists(tmp_path / "c2" / "ESPCN_A2C_x2_0002.npz")
+
+
+@pytest.mark.parametrize("const", [False, True])
+def test_lab_trains_and_both_test_cas_score_it(synth, tmp_path, const):
+    """--lab (and --lab --const, with SRCNN): @G2LAB checkpoints with a
+    2-channel colorizer, the LAB windows in the run dir, --resume, and the
+    same scores from both packages' test_cas (PSNR 0.01 dB, SSIM 1e-4, MSE and
+    AE rtol 1e-4) on L (+) ab."""
+    sr = "SRCNN" if const else "ESPCN"
+    args = train_args(synth, tmp_path / "ckpt", tmp_path / "run", "--lab", "--num-epochs", "1",
+                      "--save-every", "1", "--batch-size", "2", "--log-every", "2",
+                      *(["--const"] if const else []))
+    args[args.index("--SRModel") + 1] = sr
+    state = train_cas.main(args)
+    assert state.c.model.pred.out_channels == 2 and state.sr.step == 3
+    ckpts = (str(tmp_path / "ckpt" / f"{sr}@G2LAB_A2C_x2_0001.npz"),
+             str(tmp_path / "ckpt" / "ResDeconv@G2LAB_C2B_x2_0001.npz"))
+    assert all(os.path.exists(p) for p in ckpts)
+    for window in ("real_B.png", "fake_BB.png", "fake_AB.png", "real_BC.png"):
+        assert _read_png(str(tmp_path / "run" / window)).shape == (256, 256, 3), window
+    extra = ["--const"] if const else []
+    theirs = jax_test_cas.main(eval_args(ckpts, synth, tmp_path / "jax", *extra)).iloc[-1]
+    ours = test_cas.main(eval_args(ckpts, synth, tmp_path / "port", "--device", "cpu", *extra))
+    assert theirs["checkpoint"] == f"{sr}@G2LAB_A2C_x2_0001"
+    assert abs(ours["PSNR"] - float(theirs["PSNR"])) <= 0.01
+    assert abs(ours["SSIM"] - float(theirs["SSIM"])) <= 1e-4
+    np.testing.assert_allclose(ours["MSE"], float(theirs["MSE"]), rtol=1e-4)
+    np.testing.assert_allclose(ours["AE"], float(theirs["AE"]), rtol=1e-4)
+    resumed = train_cas.main(args + ["--resume"])
+    assert resumed.sr.step == 3                                  # nothing left to do

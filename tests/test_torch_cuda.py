@@ -2,7 +2,8 @@
 versions, the model gate that routes the x4 bf16 tail through them, the
 trainer's fused-input path through the gray+degrade kernel, and the metrics
 and the eval tool through the ssim kernel, and the RDB5 kernel (both forms),
-the fused RDB5 schedule and the int8 predictor through it.
+the fused RDB5 schedule and the int8 predictor through it, the six probe
+kernels, and the LAB predictor.
 
 Every test here needs a card (marker ``cuda``) and skips without one.  The
 file imports no jax, so it also runs where jax is not installed; there the
@@ -17,14 +18,16 @@ ssim max|diff| <= 1e-6 on SSIM and cs (fp32; the kernel sums 2 x 11 taps, its
 plain version 121: the bound the JAX package holds its two forms to);
 rdb5_int8 rel-L2 <= 1e-2 and rdb5_bf16 rel-L2 <= 2e-2 (the bounds of
 tests/test_quant_kernel.py; the int8 form is expected bit-equal, since both
-sides sum exact integers and round the same fp32 steps).
+sides sum exact integers and round the same fp32 steps); the probes' int8
+forms and the roll bit-equal, their bf16 dots rel-L2 <= 1e-3 on fp32 outputs
+and <= 1e-2 on probe_matmul's bf16 output.
 """
 import pytest
 import torch
 
 from srcgan_tpu_torch import models
-from srcgan_tpu_torch.ops.kernels import (preprocess_kernel, rdb5_kernel, ssim_kernel,
-                                          tail_kernel)
+from srcgan_tpu_torch.ops.kernels import (preprocess_kernel, probe_kernels, rdb5_kernel,
+                                          ssim_kernel, tail_kernel)
 
 pytestmark = pytest.mark.cuda
 
@@ -477,3 +480,147 @@ def test_int8_predictor_on_the_card(dev):
     fp32 = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, device=dev).predict(batches[0])
     noise = np.abs(first.astype(int) - fp32.astype(int)).mean()
     assert np.abs(first.astype(int) - want.astype(int)).mean() <= noise
+
+
+# -- the probes ---------------------------------------------------------------
+
+def probe_operand(seed, shape, dtype, dev):
+    g = torch.Generator().manual_seed(seed)
+    if dtype == torch.int8:
+        return torch.randint(-100, 100, shape, generator=g).to(dev, torch.int8)
+    return (torch.rand(shape, generator=g) * 2 - 1).to(dev, torch.bfloat16)
+
+
+def probe_rel_l2(got, ref):
+    got, ref = got.double(), ref.double()
+    return ((got - ref).norm() / ref.norm()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("m,k,n", [(16384, 64, 64), (16384, 576, 192), (128, 192, 128)])
+def test_probe_matmul_matches_plain_version(dev, dtype, m, k, n):
+    x, w = probe_operand(k, (m, k), dtype, dev), probe_operand(n, (k, n), dtype, dev)
+    before = probe_kernels.launches["probe_matmul"]
+    got, ref = probe_kernels.probe_matmul(x, w), probe_kernels.probe_matmul_reference(x, w)
+    torch.cuda.synchronize()
+    assert probe_kernels.launches["probe_matmul"] == before + 1
+    assert got.dtype == ref.dtype == dtype and got.shape == ref.shape == (m, n)
+    if dtype == torch.int8:
+        assert torch.equal(got, ref)
+    else:
+        assert probe_rel_l2(got, ref) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("k,n", [(576, 192), (192, 128), (288, 128), (32, 192), (64, 64)])
+def test_probe_mxu_and_dots_match_plain_versions(dev, dtype, k, n):
+    """The int8 chain is tried on a pair whose selection alternates: y[0,0] is
+    odd for x and even for clip(x + 1)."""
+    x, w = probe_operand(k, (8320, k), dtype, dev), probe_operand(n, (k, n), dtype, dev)
+    if dtype == torch.int8:
+        from srcgan_tpu_torch.probes import common
+
+        common.alternate_int8(x, w)
+        y = int(probe_kernels._dot(x[:1], w[:, :1])[0, 0])
+        y2 = int(probe_kernels._dot(probe_kernels._int8_next(x[:1]), w[:, :1])[0, 0])
+        assert y % 2 == 1 and y2 % 2 == 0
+        got, ref = probe_kernels.probe_mxu(x, w, 16), probe_kernels.probe_mxu_reference(x, w, 16)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, ref)
+        assert not torch.equal(got, 16 * probe_kernels._dot(x, w))
+        return
+    for fn, plain in ((probe_kernels.probe_mxu, probe_kernels.probe_mxu_reference),
+                      (probe_kernels.probe_dots, probe_kernels.probe_dots_reference)):
+        got, ref = fn(x, w, 16), plain(x, w, 16)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and probe_rel_l2(got, ref) <= 1e-3
+
+
+@pytest.mark.parametrize("form", ["concat", "twodots"])
+def test_probe_concat_dot_matches_plain_version(dev, form):
+    a, w = probe_operand(1, (16384, 64), torch.bfloat16, dev), probe_operand(
+        2, (128, 192), torch.bfloat16, dev)
+    got = probe_kernels.probe_concat_dot(a, w, 8, form)
+    ref = probe_kernels.probe_concat_dot_reference(a, w, 8, form)
+    torch.cuda.synchronize()
+    assert probe_rel_l2(got, ref) <= 1e-3
+
+
+@pytest.mark.parametrize("shift", [1, 128, -1, 16383])
+@pytest.mark.parametrize("steps", [1, 16])
+def test_probe_roll_is_bit_equal(dev, shift, steps):
+    a = probe_operand(3, (16384, 64), torch.bfloat16, dev)
+    a[0, :3] = torch.tensor([0.0, 1e-8, -1e-8], device=dev).bfloat16()
+    keep = a.clone()
+    got, ref = probe_kernels.probe_roll(a, shift, steps), probe_kernels.probe_roll_reference(
+        a, shift, steps)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+    assert torch.equal(a, keep)                                  # the input is not written
+
+
+@pytest.mark.parametrize("form", ["im2col", "shifted"])
+@pytest.mark.parametrize("m,stride", [(16384, 128), (256, 16)])
+def test_probe_stage1_matches_plain_version(dev, form, m, stride):
+    x, w = probe_operand(4, (m, 64), torch.bfloat16, dev), probe_operand(
+        5, (576, 192), torch.bfloat16, dev)
+    got = probe_kernels.probe_stage1(x, w, 4, stride, form)
+    ref = probe_kernels.probe_stage1_reference(x, w, 4, stride)
+    torch.cuda.synchronize()
+    assert probe_rel_l2(got, ref) <= 1e-3
+
+
+def test_probes_reject_what_the_kernels_cannot_run(dev):
+    """On a CUDA tensor a wrapper launches or raises: nothing runs the plain
+    version instead."""
+    x, w = probe_operand(6, (100, 64), torch.bfloat16, dev), probe_operand(
+        7, (64, 64), torch.bfloat16, dev)
+    before = dict(probe_kernels.launches)
+    with pytest.raises(ValueError, match="M % 64"):
+        probe_kernels.probe_mxu(x, w)
+    with pytest.raises(ValueError, match="N in"):
+        probe_kernels.probe_matmul(x[:64], w[:, :48].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        probe_kernels.probe_matmul(x[:64], w.t())
+    with pytest.raises(ValueError, match="N=192"):
+        probe_kernels.probe_concat_dot(x[:64], probe_operand(8, (128, 64), torch.bfloat16, dev))
+    assert probe_kernels.launches == before
+
+
+def test_probe_entry_points_run_on_the_card(dev, capsys):
+    from srcgan_tpu_torch.probes import __main__ as probes_main
+
+    for name in probe_kernels.NAMES:
+        probe_kernels.launches[name] = 0
+    rows = probes_main.main([])
+    out = capsys.readouterr().out
+    assert all(probe_kernels.launches[name] > 0 for name in probe_kernels.NAMES)
+    assert len(rows["matmul"]) == 18 and len(rows["mxu"]) == 8 and len(rows["layout"]) == 12
+    assert torch.cuda.get_device_name(0).split()[0] in out and " W" in out
+    assert "TFLOP/s" in out and "TOP/s" in out and "GB/s" in out
+
+
+# -- the LAB predictor ----------------------------------------------------------
+
+def test_lab_predictor_on_card_matches_cpu(dev):
+    """lab=True at small width: fp32 on the card within 1 LSB of the CPU; the
+    bf16 x4 forward goes through the tail kernel."""
+    import copy
+
+    import numpy as np
+
+    from srcgan_tpu_torch.serving import CascadePredictor
+
+    gen = torch.Generator().manual_seed(3)
+    sr, c = models.RDDBNet(1, 1, 4, nf=16, nb=1, generator=gen), models.ResDeconv(
+        1, 2, generator=gen)
+    with torch.no_grad():
+        c.pred.weight.mul_(0.03)
+    x = np.random.default_rng(0).integers(0, 256, (2, 16, 16, 1), dtype=np.uint8)
+    on_cpu = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, lab=True, device="cpu")
+    on_card = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, lab=True, device=dev)
+    a, b = on_cpu.predict(x).astype(int), on_card.predict(x).astype(int)
+    assert a.shape == (2, 64, 64, 3) and np.abs(a - b).max() <= 1
+    before = tail_kernel.launches
+    y = CascadePredictor(sr, c, 4, lab=True, bf16=True, device=dev).predict(x)
+    assert tail_kernel.launches == before + 1 and y.shape == (2, 64, 64, 3)

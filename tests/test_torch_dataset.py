@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from srcgan_tpu.data import dataset as jds
+from srcgan_tpu.utils import vis as jvis
 from srcgan_tpu_torch import data
 from srcgan_tpu_torch.data import dataset as ds
 from srcgan_tpu_torch.data import native, preprocess
@@ -132,18 +133,27 @@ def test_load_dataset_and_normalize(synth, monkeypatch):
     assert np.array_equal(data.normalize(a), jds.normalize(a))
 
 
-def test_lab_variant_names_its_roadmap_item(synth):
-    with pytest.raises(NotImplementedError, match="A9"):
-        data.G2LAB("Sat2Aerx1", "train", data_dir=synth)
-    with pytest.raises(NotImplementedError, match="A9"):
-        data.load_dataset("Sat2Aerx1", ver="G2LAB")
-    lab = data.FileListDataset("Sat2Aerx1", "train", ver="G2LAB", data_dir=synth)
-    with pytest.raises(NotImplementedError, match="A9"):
-        lab[0]
-    with pytest.raises(NotImplementedError, match="A9"):
-        lab.show(0)
-    with pytest.raises(NotImplementedError, match="A9"):
-        vis.tensor2img(np.zeros((1, 4, 4, 3), np.float32), "LAB")
+def test_lab_variant_names_its_roadmap_item(synth, tmp_path, monkeypatch):
+    """LAB is ported (it once raised naming its ROADMAP item): the G2LAB class,
+    its samples, its preview and tensor2img(mode="LAB") equal the JAX package's;
+    samples within 2e-5 on normalized LAB, images within 1 LSB."""
+    lab, jlab = (m.G2LAB("Sat2Aerx1", "train", data_dir=synth) for m in (data, jds))
+    assert lab.ver == "G2LAB" and len(lab) == len(jlab)
+    monkeypatch.setattr(ds, "DATASET_DIR", synth)
+    assert [type(s).__name__ for s in data.load_dataset("Sat2Aerx1", ver="G2LAB")] == ["G2LAB"] * 3
+    got, want = lab[0], jlab[0]
+    assert got["tar"].shape == want["tar"].shape and got["tar"].dtype == np.float32
+    assert np.abs(got["tar"] - want["tar"]).max() <= 2e-5
+    assert np.abs(got["src"] - want["src"]).max() <= 1e-6
+    a = ds._read_png(lab.show(0, example_dir=str(tmp_path / "port"))).astype(int)
+    b = ds._read_png(jlab.show(0, example_dir=str(tmp_path / "jax"))).astype(int)
+    assert a.shape == b.shape and np.abs(a - b).max() <= 1
+    rng = np.random.default_rng(0)
+    for channels in (3, 2):          # a 2-channel ab map reads as (a, b, b) in both
+        x = rng.uniform(0, 1, (1, 8, 8, channels)).astype(np.float32)
+        a, b = vis.tensor2img(x, "LAB", (8, 8)), jvis.tensor2img(x, "LAB", (8, 8))
+        assert a.shape == b.shape == (8, 8, 3)
+        assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
 
 
 def test_png_codecs_agree(synth, tmp_path, monkeypatch):

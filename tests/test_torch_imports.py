@@ -28,7 +28,11 @@ def test_module_list_covers_the_slice():
                  "srcgan_tpu_torch.cli.test_cas", "srcgan_tpu_torch.cli.train_cas",
                  "srcgan_tpu_torch.cli.vis_cas", "srcgan_tpu_torch.quant",
                  "srcgan_tpu_torch.ops.kernels.rdb5_kernel",
-                 "srcgan_tpu_torch.models.blocks"):
+                 "srcgan_tpu_torch.models.blocks", "srcgan_tpu_torch.ops.color",
+                 "srcgan_tpu_torch.ops.kernels.probe_kernels", "srcgan_tpu_torch.probes",
+                 "srcgan_tpu_torch.probes.common", "srcgan_tpu_torch.probes.matmul_probe",
+                 "srcgan_tpu_torch.probes.mxu_probe", "srcgan_tpu_torch.probes.layout_probe3",
+                 "srcgan_tpu_torch.probes.__main__"):
         assert name in MODULES
 
 

@@ -88,8 +88,14 @@ def test_convert_pair_and_luma_equal_jax():
     close(got_a, want_a)
     close(got_b, want_b)        # XLA divides by 255 as a multiply by 1/255
     close(preprocess.luma(got_b), jpre.luma(want_b))
-    with pytest.raises(NotImplementedError, match="A9"):
-        preprocess.convert_pair(torch.from_numpy(src), torch.from_numpy(tar), "G2LAB")
+    want_a, want_b = jpre.convert_pair(jnp.asarray(src), jnp.asarray(tar), "G2LAB")
+    got_a, got_b = preprocess.convert_pair(torch.from_numpy(src), torch.from_numpy(tar), "G2LAB")
+    close(got_a, want_a)
+    # normalized LAB: two frameworks' pow and cube root, bound 2e-5
+    assert got_b.shape == (2, 16, 20, 3)
+    assert np.abs(got_b.numpy() - np.asarray(want_b)).max() <= 2e-5
+    with pytest.raises(ValueError, match="unknown dataset version"):
+        preprocess.convert_pair(torch.from_numpy(src), torch.from_numpy(tar), "G2XYZ")
 
 
 @pytest.mark.parametrize("shape,up", [((2, 32, 32, 3), 2), ((2, 32, 32, 3), 4),

@@ -200,7 +200,7 @@ def test_int8_refusals(small, full_ckpts):
         q.reload_checkpoints(netGA, netGB)
 
 
-@pytest.mark.parametrize("flag,item", [("self_ensemble", "A12"), ("lab", "A2")])
+@pytest.mark.parametrize("flag,item", [("self_ensemble", "A12")])
 def test_unported_modes_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         CascadePredictor(models.RDDBNet(1, 1, 4, nf=16, nb=1), models.ResDeconv(1, 3),
@@ -215,3 +215,96 @@ def test_checkpoint_names_match_jax(args):
     assert state.parse_checkpoint_name(f"/x/{name}") == jax_state.parse_checkpoint_name(name)
     with pytest.raises(ValueError, match="unrecognized"):
         state.parse_checkpoint_name("RDDBNet_x4.npz")
+
+
+# -- G2LAB serving: the SR net's output is L, the colorizer's two channels ab ----
+
+@pytest.fixture(scope="module")
+def small_lab(tmp_path_factory):
+    """The small x4 cascade with a 2-channel colorizer, as @G2LAB .npz files the
+    JAX package wrote, the JAX predictor on them and a factory of port ones."""
+    d = tmp_path_factory.mktemp("lab")
+    sr, c = jax_models.RDDBNet(1, 1, 4, nf=16, nb=1), jax_models.ResDeconv(1, 2)
+    pA = jax.jit(sr.init)(jax.random.PRNGKey(4))
+    pB = jax.jit(c.init)(jax.random.PRNGKey(5))
+    pB = {**pB, "pred": {"w": pB["pred"]["w"] * 0.03}}
+    npA, npB = jax.device_get(pA), jax.device_get(pB)
+
+    def port(**kw):
+        psr, pc = models.RDDBNet(1, 1, 4, nf=16, nb=1), models.ResDeconv(1, 2)
+        psr.load_state_dict(interop.state_dict_from_jax(psr, npA), strict=True)
+        pc.load_state_dict(interop.state_dict_from_jax(pc, npB), strict=True)
+        return CascadePredictor(psr, pc, 4, lab=True, device="cpu", **kw)
+
+    def jax_pred(**kw):
+        return jax_serving.CascadePredictor(sr, pA, c, pB, up=4, lab=True, **kw)
+
+    return port, jax_pred
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+def test_lab_fp32_matches_jax(small_lab, channels):
+    """lab=True: lab_norm_to_rgb(L (+) ab) in fp32 after the cascade; uint8
+    within 1 LSB of the JAX predictor, and not the RGB predictor's output."""
+    port, jax_pred = small_lab
+    x = u8(40 + channels, (2, 8, 8, channels))
+    got, want = port().predict(x), jax_pred().predict(x)
+    assert got.shape == want.shape == (2, 32, 32, 3) and got.dtype == np.uint8
+    assert len(np.unique(got)) > 8
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+def test_lab_bf16_matches_jax(small_lab):
+    """bf16 networks, the colour conversion in fp32: mean|diff| <= 1 LSB, the
+    bound of test_bf16_matches_jax."""
+    port, jax_pred = small_lab
+    x = u8(44, (2, 8, 8, 1))
+    got, want = port(bf16=True).predict(x), jax_pred(bf16=True).predict(x)
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert got.shape == want.shape and diff.mean() <= 1.0, (diff.mean(), diff.max())
+
+
+def test_lab_from_checkpoints_and_reload_refusals(full_ckpts, tmp_path):
+    """@G2LAB names make a LAB predictor with a 2-channel colorizer from .npz
+    files the JAX package wrote; a predictor refuses to reload a pair of the
+    other colour space, either way."""
+    sr, c = jax_models.RDDBNet(1, 1, 4), jax_models.ResDeconv(1, 2)
+    pA = jax.jit(sr.init)(jax.random.PRNGKey(6))
+    pB = jax.jit(c.init)(jax.random.PRNGKey(7))
+    labA = str(tmp_path / jax_state.checkpoint_name("RDDBNet", "A2C", 4, 50, "G2LAB", "npz"))
+    labB = str(tmp_path / jax_state.checkpoint_name("ResDeconv", "C2B", 4, 50, "G2LAB", "npz"))
+    save_params(labA, pA)
+    save_params(labB, pB)
+    pred = CascadePredictor.from_checkpoints(labA, labB, device="cpu")
+    want = jax_serving.CascadePredictor.from_checkpoints(labA, labB)
+    assert pred.lab and want.lab and pred.c_model.pred.out_channels == 2
+    x = u8(45, (1, 8, 8, 1))
+    got = pred.predict(x)
+    assert got.shape == (1, 32, 32, 3)
+    assert np.abs(got.astype(int) - want.predict(x).astype(int)).max() <= 1
+    rgbA, rgbB, _ = full_ckpts
+    with pytest.raises(ValueError, match="G2RGB but this predictor serves G2LAB"):
+        pred.reload_checkpoints(rgbA, rgbB)
+    rgb = CascadePredictor.from_checkpoints(rgbA, rgbB, device="cpu")
+    with pytest.raises(ValueError, match="G2LAB but this predictor serves G2RGB"):
+        rgb.reload_checkpoints(labA, labB)
+    pred.reload_checkpoints(labA, labB)()          # its own colour space reloads
+
+
+def test_lab_int8_matches_jax_on_shared_scales(small_lab):
+    """int8=True with lab=True: the quantized cascade, then the fp32 colour
+    conversion, as the JAX predictor; on JAX's calibration table mean|diff| <=
+    1 LSB (the bound of test_int8_matches_jax_on_shared_scales)."""
+    port, jax_pred = small_lab
+    batches = [u8(50 + i, (2, 16, 16, 1)) for i in range(2)]
+    jq, q = jax_pred(int8=True), port(int8=True)
+    with jax_blocks.rdb5_schedule("naive"):
+        jq.calibrate(batches)
+        want = jq.predict(batches[0])
+    q.calibrate(batches)
+    assert sorted(q.int8_scales) == sorted(jq.int8_scales)
+    q.int8_scales = interop.quant_scales_from_jax(jq.int8_scales)
+    got = q.predict(batches[0])
+    assert got.shape == want.shape == (2, 64, 64, 3)
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert diff.mean() <= 1.0, (diff.mean(), diff.max())

@@ -301,3 +301,113 @@ def test_batchnorm_colorizer_step_matches_jax():
     assert got.keys() == want.keys() and len(want) > 0
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+# -- the LAB cascade (lab=True): L to the SR net, 2-channel ab from the colorizer --
+
+@pytest.fixture(scope="module")
+def lab_pair():
+    tr = port_trainer(lab=True)
+    return tr, tr.init(2), jax_trainer(lab=True)
+
+
+def lab_targets(seed):
+    """A normalized-LAB batch in float64 from a numpy-seeded RGB batch (JAX's
+    fp32 conversion: both sides then start from the same numbers)."""
+    from srcgan_tpu.ops import color as jcolor
+
+    rgb = np.random.default_rng(seed).uniform(0, 1, (N, HW, HW, 3)).astype(np.float32)
+    return np.asarray(jcolor.rgb_to_lab_norm(jnp.asarray(rgb)), np.float64)
+
+
+def test_lab_float64_masked_gradients_match_jax(lab_pair):
+    """lab=True: the SR net learns L, the 2-channel colorizer ab.  Float64
+    gradients of the residual-masked L1 at the matched point, per-layer
+    rel-L2 <= 3e-5 (the bound of test_float64_masked_gradients_match_jax)."""
+    tr, state, jtr = lab_pair
+    assert state.c.model.pred.weight.shape[0] == 2
+    tar = lab_targets(7)
+    real_BC, tgt = tar[..., :1], tar[..., 1:]
+    got_BC, got_tgt = tr._split_targets(torch.from_numpy(tar))
+    assert torch.equal(got_BC, torch.from_numpy(real_BC)) and got_tgt.shape[-1] == 2
+    real_BA = np.asarray(jtr._degrade(jnp.asarray(real_BC, jnp.float32)), np.float64)
+    jst = jax_state_of(jtr, state)
+
+    fwd = lambda net: jax.jit(lambda p, x: net.apply(p, x, state={}, train=True)[0])
+    fa = fwd(jtr.netG_A2C)(jst.sr.params, jnp.asarray(real_BA, jnp.float32))
+    fb = fwd(jtr.netG_C2B)(jst.c.params, jnp.asarray(real_BC, jnp.float32))
+    mask_a = (np.abs(np.asarray(fa) - real_BC) > MASK_TAU).astype(np.float64)
+    mask_b = (np.abs(np.asarray(fb) - tgt) > MASK_TAU).astype(np.float64)
+    assert mask_a.sum() > 0 and mask_b.sum() > 0 and mask_b.shape[-1] == 2
+
+    jax.config.update("jax_enable_x64", True)
+    try:
+        def masked(net, x, t, mask):
+            def loss(p):
+                y, _ = net.apply(p, jnp.asarray(x), state={}, train=True)
+                return jnp.sum(mask * jnp.abs(y - t)) / jnp.sum(mask)
+            return loss
+
+        to64 = lambda t: jtu.tree_map(lambda a: jnp.asarray(a, jnp.float64), t)
+        want_a = jax.jit(jax.grad(masked(jtr.netG_A2C, real_BA, real_BC, mask_a)))(
+            to64(jst.sr.params))
+        want_b = jax.jit(jax.grad(masked(jtr.netG_C2B, real_BC, tgt, mask_b)))(
+            to64(jst.c.params))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+    for net, x, t, mask, want in ((state.sr.model, real_BA, real_BC, mask_a, want_a),
+                                  (state.c.model, real_BC, tgt, mask_b, want_b)):
+        net64 = copy.deepcopy(net).double().train()
+        y = to_nhwc(net64(to_nchw(torch.from_numpy(x))))
+        m = torch.from_numpy(mask)
+        loss = (m * (y - torch.from_numpy(t)).abs()).sum() / m.sum()
+        names, params = zip(*net64.named_parameters())
+        got = dict(zip(names, torch.autograd.grad(loss, params)))
+        err = per_layer_max_rel(interop.jax_tree_from_module(net64, got)[0], want)
+        assert err <= 3e-5, (type(net).__name__, err)
+
+
+@pytest.mark.parametrize("const", [False, True])
+def test_lab_train_step_u8_matches_jax(const):
+    """One fp32 uint8 step with lab=True (and with const): convert_pair(G2LAB)
+    runs in the step on both sides.  Losses and PSNRs rtol 1e-5, each tensor's
+    Adam update within rel-L2 5e-2 (test_fp32_train_step_u8_matches_jax's)."""
+    if const:        # the const pipeline keeps the size: SRCNN, as test_const_step_matches_jax
+        tr = CasTrainer("SRCNN", "ResDeconv", up=UP, lr=LR, const=True, lab=True, device="cpu")
+        jtr = JaxCasTrainer(sr_model="SRCNN", c_model="ResDeconv", up=UP, lr=LR, const=True,
+                            lab=True)
+        jtr.netG_A2C = jax_models.SRCNN(1, 1, UP, base_kernel=16)
+    else:
+        tr, jtr = port_trainer(lab=True), jax_trainer(lab=True)
+    state = tr.init(3)
+    before = {r: interop.jax_tree_from_module(getattr(state, r).model)[0] for r in ("sr", "c")}
+    jst = jax_state_of(jtr, state)
+    src, tar = u8(11, N, HW, HW, 3), u8(12, N, HW, HW, 3)
+    jst, jm = jtr.train_step_u8(jst, jnp.asarray(src), jnp.asarray(tar), LR)
+    state, m = tr.train_step_u8(state, torch.from_numpy(src), torch.from_numpy(tar), LR)
+    for k in ("loss_SR", "loss_C", "psnr_SR", "psnr_C"):
+        np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-5, err_msg=k)
+    for role, jparams in (("sr", jst.sr.params), ("c", jst.c.params)):
+        after = flat(interop.jax_tree_from_module(getattr(state, role).model)[0])
+        start, want = flat(before[role]), flat(jparams)
+        for k in want:
+            err = rel_l2(after[k] - start[k], want[k] - start[k])
+            assert err <= 5e-2, (role, k, err)
+
+
+def test_lab_snapshot_matches_jax(lab_pair):
+    """The logged image set with lab=True: real_BC is L, fake_BB and fake_AB
+    are 2-channel ab maps; fp32, max|diff| <= 1e-4 * max|ref|."""
+    tr, state, jtr = lab_pair
+    jst = jax_state_of(jtr, state)
+    realA = np.random.default_rng(8).uniform(0, 1, (N, HW, HW, 1)).astype(np.float32)
+    realB = lab_targets(9).astype(np.float32)
+    got = tr.snapshot(state, torch.from_numpy(realA), torch.from_numpy(realB))
+    want = jtr.snapshot(jst, jnp.asarray(realA), jnp.asarray(realB))
+    assert got.keys() == want.keys()
+    assert got["fake_BB"].shape[-1] == got["fake_AB"].shape[-1] == 2
+    for k in want:
+        w = np.asarray(want[k])
+        assert tuple(got[k].shape) == w.shape, k
+        assert np.abs(got[k].numpy() - w).max() <= 1e-4 * np.abs(w).max(), k

@@ -259,7 +259,7 @@ def test_transfer_at_bf16_leaves_masters_fp32(init_state):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(lab=True), NotImplementedError, "A9"),
+    (dict(lab=True, perceptual_params={}), ValueError, "perceptual"),
     (dict(lab=True, fused_input=True), ValueError, "fused_input"),
     (dict(sr="SRCNN", const=True, fused_input=True), ValueError, "fused_input"),
     (dict(perceptual_params={}), NotImplementedError, "A13"),
@@ -301,3 +301,38 @@ def test_retention_and_early_stopping_match_jax(tmp_path):
     assert outs[0] == outs[1]
     with pytest.raises(ValueError):
         retention.EarlyStopper(mode="median")
+
+
+# -- lab=True ---------------------------------------------------------------
+
+def test_lab_u8_step_equals_float_step_on_converted_pair(init_state):
+    """train_step_u8 with lab converts with G2LAB in the step: the same update
+    as train_step on convert_pair's output; the colorizer has two channels."""
+    from srcgan_tpu_torch.data import preprocess
+
+    tr = trainer(lab=True)
+    src, tar = u8(30, N, HW, HW, 3), u8(31, N, HW, HW, 3)
+    st_u8, st_f = init_state(lab=True), init_state(lab=True)
+    assert st_u8.c.model.pred.weight.shape[0] == 2
+    st_u8, m_u8 = tr.train_step_u8(st_u8, src, tar, LR)
+    realA, realB = preprocess.convert_pair(src, tar, "G2LAB")
+    assert realB.shape == (N, HW, HW, 3) and 0 <= float(realB.min()) and float(realB.max()) <= 1
+    st_f, m_f = tr.train_step(st_f, realA, realB, LR)
+    for k in m_u8:
+        assert torch.equal(m_u8[k], m_f[k]), k
+    assert_same(params_of(st_u8), params_of(st_f))
+
+
+def test_lab_targets_and_bf16_step(init_state):
+    """_split_targets with lab is (L, ab); a bf16-activation lab step keeps fp32
+    masters and finite losses; K steps per call run the same conversion."""
+    tr = trainer(lab=True, act_dtype=torch.bfloat16)
+    x = torch.rand(N, HW, HW, 3, generator=torch.Generator().manual_seed(1))
+    lum, ab = tr._split_targets(x)
+    assert torch.equal(lum, x[..., :1]) and torch.equal(ab, x[..., 1:])
+    src = torch.stack([u8(40 + k, N, HW, HW, 3) for k in range(2)])
+    tar = torch.stack([u8(50 + k, N, HW, HW, 3) for k in range(2)])
+    state, m = tr.train_steps_u8(init_state(lab=True), src, tar, LR)
+    assert all(v.shape == (2,) and bool(torch.isfinite(v).all()) for v in m.values())
+    assert all(p.dtype == torch.float32 for p in state.c.model.parameters())
+    assert state.sr.step == state.c.step == 2
