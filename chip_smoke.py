@@ -11,17 +11,21 @@ Phases, in order; the first failure raises and the script exits non-zero:
                shapes the main paths give it, with both times (CUDA events,
                median of 25 calls after 3 warm-up calls) and its bound: the
                least time the card could take, from the bytes the function
-               must move and the operations it does; the RDB5 kernel in both
+               must move and the operations it does; the two host-bound
+               wrappers (gray_degrade, ssim) in five rounds in turns with
+               their plain versions, with the spread; the RDB5 kernel in both
                forms (bf16, int8) at the serving shape (8,128,128,64), a
-               ragged one (1,15,128,64) and a 512-wide one, beside the cuDNN
-               block;
+               ragged one (1,15,128,64) and a 512-wide one, timed in turns
+               with the cuDNN block;
   4. fp32    - the full-width serving cascade on the card against the same
                cascade on the CPU, in fp32 with TF32 off;
   5. serve   - the bf16 CascadePredictor at full width answers requests, every
-               forward goes through the tail kernel (launch counter), and the
-               steady batch-8 throughput is measured;
-  6. trunk   - the serving RDDBNet in bf16 under rdb5_schedule("fused"): 9
-               rdb5_bf16 launches per forward, against the default forward;
+               forward goes through the tail kernel once and the rdb5_bf16
+               kernel nine times (launch counters), and the steady batch-8
+               throughput is measured;
+  6. trunk   - the serving RDDBNet in bf16 under rdb5_schedule("fused") and
+               with no schedule scoped: 9 rdb5_bf16 launches per forward,
+               against the naive forward (cuDNN), in turns;
   7. int8    - CascadePredictor(int8=True) at full width: predict before
                calibrate raises, calibrate on 2 batches, 9 rdb5_int8 launches
                per forward and no plain version, two predicts bit-equal, the
@@ -49,7 +53,7 @@ Phases, in order; the first failure raises and the script exits non-zero:
                which must reach every kernel (launch counters);
  11. lab     - the LAB cascade at full width: CascadePredictor(lab=True) in
                fp32 on the card against the CPU and in bf16 through the tail
-               kernel, beside the RGB predictor; three bf16 CasTrainer(lab=True)
+               and rdb5_bf16 kernels, beside the RGB predictor; three bf16 CasTrainer(lab=True)
                steps; cli.train_cas --lab for a short epoch and cli.test_cas on
                its @G2LAB checkpoints (the ssim kernel once per eval batch, the
                PNGs decode, the row agrees with --device cpu).
@@ -116,10 +120,28 @@ def median_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+def in_turns_ms(fns: dict, rounds: int = 5, reps: int = REPS) -> dict:
+    """``median_ms`` of every function of ``fns`` in each of ``rounds`` rounds,
+    the order reversed from round to round, so that a drift of the host or the
+    card falls on all of them alike: name -> the rounds' medians."""
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for _ in range(rounds):
+        for name in order:
+            times[name].append(median_ms(fns[name], reps))
+        order.reverse()
+    return times
+
+
+def spread(ts) -> str:
+    return (f"median {statistics.median(ts):.4f} ms, min {min(ts):.4f}, max {max(ts):.4f} over "
+            f"{len(ts)} rounds in turns")
+
+
 def device_us(fn, match: str, calls: int = 10):
     """Mean device time in microseconds, per call of ``fn``, of the kernels
-    whose name contains ``match`` (torch.profiler over ``calls`` calls); None
-    where the profiler reports no device time."""
+    whose name contains ``match`` ("" for every kernel; torch.profiler over
+    ``calls`` calls); None where the profiler reports no device time."""
     from torch import profiler
 
     fn()
@@ -129,8 +151,9 @@ def device_us(fn, match: str, calls: int = 10):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    # kernels only: an operator's own entry repeats the time of the kernels it launched
     total = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-                if match in e.key)
+                if match in e.key and e.device_type == torch.autograd.DeviceType.CUDA)
     return total / calls if total > 0 else None
 
 
@@ -236,8 +259,16 @@ def phase_gray_degrade(dev, card: str) -> dict:
         print(f"[kernels] gray_degrade {shape} up={up}: max|kernel - plain| over both "
               f"outputs = {err:.3g} (bound 1e-6) {'PASS' if err <= 1e-6 else 'FAIL'}")
         check(err <= 1e-6, f"gray_degrade {shape} up={up} disagrees with its plain version")
-        ms = median_ms(lambda: pk.fused_gray_degrade(x, up))
-        plain_ms = median_ms(lambda: pk.gray_degrade_reference(x, up))
+        # host-bound (two launches' worth of Python around a 7 us kernel): the
+        # wrapper's time moves with the host, so the training shape is read in
+        # rounds, in turns with the plain version, and its spread is printed
+        turns = in_turns_ms({"kernel": lambda: pk.fused_gray_degrade(x, up),
+                             "plain": lambda: pk.gray_degrade_reference(x, up)},
+                            rounds=5 if first is None else 1)
+        ms, plain_ms = (statistics.median(turns[k]) for k in ("kernel", "plain"))
+        if first is None:
+            print(f"[kernels] gray_degrade {shape} up={up} wrapper: {spread(turns['kernel'])}; "
+                  f"plain version: {spread(turns['plain'])}")
         nbytes = tensor_bytes(x, *got)
         # per pixel 3 divides, 3 multiplies, 2 adds; per output two 2-tap stencils
         least = least_time(nbytes, 8 * n * h * w + 6 * n * (h // up) * (w // up), "fp32")
@@ -305,10 +336,18 @@ def phase_ssim(dev, card: str) -> dict:
             check(err <= 1e-6, f"ssim {shape} {label} disagrees with its plain version")
         x = torch.from_numpy(base).to(dev)
         y = torch.from_numpy(noisy).to(dev)
-        ms = median_ms(lambda: sk.ssim_fused(x, y, size_average=False, per_sample_range=True))
+        # host-bound too (about twenty small torch calls around a 29 us kernel):
+        # the eval shape in rounds, in turns with the plain version
         with config.precision("fp32"):
-            plain_ms = median_ms(lambda: sk.ssim_reference(x, y, size_average=False,
-                                                           per_sample_range=True))
+            turns = in_turns_ms(
+                {"kernel": lambda: sk.ssim_fused(x, y, size_average=False, per_sample_range=True),
+                 "plain": lambda: sk.ssim_reference(x, y, size_average=False,
+                                                    per_sample_range=True)},
+                rounds=5 if first is None else 1)
+        ms, plain_ms = (statistics.median(turns[k]) for k in ("kernel", "plain"))
+        if first is None:
+            print(f"[kernels] ssim per-sample {shape} wrapper: {spread(turns['kernel'])}; "
+                  f"plain version: {spread(turns['plain'])}")
         n, h, w, c = shape
         ranges, dims = sk.plane_ranges(x, True), sk._check(x, y, 11)
         kernel_ms = median_ms(lambda: sk._kernel(x, y, ranges, dims, 11))
@@ -361,7 +400,7 @@ def phase_fp32(dev, sr, c):
 
 
 def phase_serve(dev, card, sr, c, x_small, fp32_small) -> int:
-    from srcgan_tpu_torch.ops.kernels import tail_kernel
+    from srcgan_tpu_torch.ops.kernels import rdb5_kernel, tail_kernel
     from srcgan_tpu_torch.serving import CascadePredictor
 
     pred = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, bf16=True,
@@ -372,15 +411,17 @@ def phase_serve(dev, card, sr, c, x_small, fp32_small) -> int:
     stream_in = [rng.integers(0, 256, (BATCH, LR, LR, 1), dtype=np.uint8)
                  for _ in range(3)]
 
-    tail_kernel.launches = 0
+    tail_kernel.launches = rdb5_kernel.launches_bf16 = rdb5_kernel.reference_calls = 0
     y = pred.predict(gray)
     y3 = pred.predict(gray[:3])             # ragged: padded to 8 with the last row
     yrgb = pred.predict(rgb)
     ys = list(pred.predict_stream(iter(stream_in), lookahead=2))
-    launches = tail_kernel.launches
+    launches, blocks = tail_kernel.launches, rdb5_kernel.launches_bf16
     forwards = 6
-    print(f"[serve] {forwards} forwards, tail_x4 launches {launches}")
+    print(f"[serve] {forwards} forwards, tail_x4 launches {launches}, rdb5_bf16 launches {blocks}")
     check(launches == forwards, "a bf16 forward did not go through the tail kernel once")
+    check(blocks == 9 * forwards and rdb5_kernel.reference_calls == 0,
+          "a bf16 forward did not run its nine RDB5 blocks through the rdb5_bf16 kernel")
 
     full = (BATCH, 4 * LR, 4 * LR, 3)
     check(y.shape == full and y.dtype == np.uint8, f"output {y.shape} {y.dtype}")
@@ -668,7 +709,7 @@ def phase_rdb5(dev, card: str):
     its Pallas kernel; the int8 form sums exact integers and rounds the same
     fp32 steps as its plain version, so no element is expected to differ)."""
     from srcgan_tpu_torch import config
-    from srcgan_tpu_torch.models.blocks import ResidualDenseBlock5
+    from srcgan_tpu_torch.models.blocks import ResidualDenseBlock5, rdb5_schedule
     from srcgan_tpu_torch.ops.kernels import rdb5_kernel as rk
 
     gen = torch.Generator().manual_seed(9)
@@ -714,17 +755,39 @@ def phase_rdb5(dev, card: str):
         blk16.load_state_dict(blk.state_dict())
         blk16.to(dev, torch.bfloat16, memory_format=torch.channels_last)
         xn, xbn = x.permute(0, 3, 1, 2), xb.permute(0, 3, 1, 2)
-        with torch.no_grad():
-            cudnn16 = median_ms(lambda: blk16(xbn))
+        # both forms and the cuDNN block in turns, so that one drift of the
+        # host or the card cannot decide the comparison.  "naive" keeps the
+        # module on cuDNN: under the default schedule an eval bf16 block on the
+        # card would go through rdb5_bf16 itself
+        with torch.no_grad(), rdb5_schedule("naive"):
             cudnn_tf32 = median_ms(lambda: blk(xn))
+            count = rk.launches_bf16
+            turns = in_turns_ms({"bf16": lambda: rk.rdb5_bf16_fused(xb, wb),
+                                 "cudnn16": lambda: blk16(xbn),
+                                 "int8": lambda: rk.rdb5_int8_fused(x, w8)}, rounds=4)
+            check(rk.launches_bf16 - count == 4 * (WARMUP + REPS),
+                  "the cuDNN block in bf16 went through the rdb5_bf16 kernel")
             with config.precision("fp32"):
-                cudnn32 = median_ms(lambda: blk(xn))
+                turns["cudnn32"] = in_turns_ms({"cudnn32": lambda: blk(xn)}, rounds=2,
+                                               reps=10)["cudnn32"]
+        cudnn16, cudnn32 = (statistics.median(turns[k]) for k in ("cudnn16", "cudnn32"))
+        print(f"[rdb5] {shape} in turns, ms per round: rdb5_bf16 "
+              f"{' / '.join(f'{t:.4f}' for t in turns['bf16'])}, the cuDNN block in bf16 "
+              f"{' / '.join(f'{t:.4f}' for t in turns['cudnn16'])}, rdb5_int8 "
+              f"{' / '.join(f'{t:.4f}' for t in turns['int8'])}")
         for form, fn, plain, xin, wts, lib in (
                 ("int8", rk.rdb5_int8_fused, rk.rdb5_int8_reference, x, w8, cudnn32),
                 ("bf16", rk.rdb5_bf16_fused, rk.rdb5_bf16_reference, xb, wb, cudnn16)):
-            ms = median_ms(lambda: fn(xin, wts))
+            ms = statistics.median(turns[form])
             plain_ms = median_ms(lambda: plain(xin, wts), reps=5)
             on_device = device_us(lambda: fn(xin, wts), "rdb5_kernel")
+            count = rk.launches_bf16
+            with torch.no_grad(), rdb5_schedule("naive"), \
+                    config.precision("bf16" if form == "bf16" else "fp32"):
+                # every kernel of the cuDNN block (about fifteen launches) on the device
+                lib_device = device_us(
+                    (lambda: blk16(xbn)) if form == "bf16" else (lambda: blk(xn)), "")
+            check(rk.launches_bf16 == count, "the cuDNN block went through the rdb5_bf16 kernel")
             vectors = (wts.sw, wts.rq, wts.bias) if form == "int8" else (wts.bias,)
             nbytes = 2 * tensor_bytes(xin) + tensor_bytes(wts.frag, *vectors)
             least = least_time(nbytes, flop, form)
@@ -736,7 +799,9 @@ def phase_rdb5(dev, card: str):
                   f" at the {form} peak; {nbytes / 1e6:.2f} MB is "
                   f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); the cuDNN block (nn.Module): bf16 "
                   f"{cudnn16:.4f} ms, fp32 TF32 off {cudnn32:.4f} ms, fp32 TF32 on "
-                  f"{cudnn_tf32:.4f} ms")
+                  f"{cudnn_tf32:.4f} ms; its kernels on the device, "
+                  f"{'bf16' if form == 'bf16' else 'fp32 TF32 off'}: "
+                  f"{'not measured' if lib_device is None else f'{lib_device:.1f} us'} (profiler)")
             first[form] = {"ms": ms, "plain_ms": plain_ms, **least, "library_ms": lib}
     small = torch.zeros(1, 16, 100, NF, device=dev)
     try:
@@ -756,9 +821,11 @@ def phase_rdb5(dev, card: str):
 
 def phase_trunk(dev, card: str, sr, c) -> int:
     """The serving RDDBNet in bf16 with its nine blocks through rdb5_bf16
-    (rdb5_schedule("fused")), against the default forward (cuDNN): RDDBNet's
-    output within rel-L2 2e-2, the cascade's uint8 output within the serve
-    phase's 2 LSB mean.  Returns the rdb5_bf16 launches of one fused forward."""
+    (rdb5_schedule("fused"), and the forward with no schedule scoped, which on
+    the card takes the kernel too), against the naive forward (cuDNN,
+    rdb5_schedule("naive")): RDDBNet's output within rel-L2 2e-2, the
+    cascade's uint8 output within the serve phase's 2 LSB mean.  Returns the
+    rdb5_bf16 launches of one fused forward."""
     from srcgan_tpu_torch.models.blocks import rdb5_schedule
     from srcgan_tpu_torch.ops.kernels import rdb5_kernel as rk
     from srcgan_tpu_torch.serving import CascadePredictor
@@ -769,31 +836,42 @@ def phase_trunk(dev, card: str, sr, c) -> int:
     xin = (x.float() / 255).permute(0, 3, 1, 2).to(torch.bfloat16,
                                                    memory_format=torch.channels_last)
     with torch.no_grad():
-        plain = pred.sr_model(xin)
-        u8_plain = pred._run(x)
         rk.launches_bf16 = rk.launches_int8 = rk.reference_calls = 0
+        with rdb5_schedule("naive"):
+            plain = pred.sr_model(xin)
+            u8_plain = pred._run(x)
+        check(rk.launches_bf16 == 0, "rdb5_schedule(\"naive\") went through the kernel")
+        unscoped = pred.sr_model(xin)
+        torch.cuda.synchronize()
+        by_default = rk.launches_bf16
+        rk.launches_bf16 = 0
         with rdb5_schedule("fused"):
             fused = pred.sr_model(xin)
             torch.cuda.synchronize()
             launches = rk.launches_bf16
             u8_fused = pred._run(x)
-        # in turns: the default forward enqueues ~15 launches per block and is
+        # in turns: the naive forward enqueues ~15 launches per block and is
         # close to host-bound, so its time drifts with the host
         times = {"fused": [], "naive": []}
         for sched in ("naive", "fused", "fused", "naive"):
             with rdb5_schedule(sched):
                 times[sched].append(median_ms(lambda: pred.sr_model(xin)))
+        unscoped_ms = median_ms(lambda: pred.sr_model(xin))
     check(launches == 9 and rk.reference_calls == 0,
           f"a fused-schedule forward launched rdb5_bf16 {launches} times, not 9")
+    check(by_default == 9 and torch.equal(unscoped, fused),
+          f"the forward with no schedule scoped launched rdb5_bf16 {by_default} times, not 9, "
+          "or differs from the fused schedule's")
     rel = rel_l2(fused.float(), plain.float())
     lsb = (u8_fused.int() - u8_plain.int()).abs().float().mean().item()
     ok = rel <= 2e-2 and lsb <= 2
     print(f"[trunk] RDDBNet x4 bf16, batch {BATCH} of {LR}^2 on {card}: {launches} rdb5_bf16 "
-          f"launches per forward; fused vs default forward rel-L2 {rel:.3g} (bound 2e-2), "
-          f"cascade uint8 mean|diff| {lsb:.4f} LSB (bound 2); in turns, fused "
-          f"{' / '.join(f'{t:.3f}' for t in times['fused'])} ms, default (cuDNN) "
-          f"{' / '.join(f'{t:.3f}' for t in times['naive'])} ms {'PASS' if ok else 'FAIL'}")
-    check(ok, "the fused-schedule trunk strays from the default forward")
+          f"launches per forward (under rdb5_schedule(\"fused\") and with no schedule scoped); fused vs "
+          f"naive forward rel-L2 {rel:.3g} (bound 2e-2), cascade uint8 mean|diff| {lsb:.4f} LSB "
+          f"(bound 2); in turns, fused {' / '.join(f'{t:.3f}' for t in times['fused'])} ms, "
+          f"naive (cuDNN) {' / '.join(f'{t:.3f}' for t in times['naive'])} ms; no schedule "
+          f"scoped {unscoped_ms:.3f} ms {'PASS' if ok else 'FAIL'}")
+    check(ok, "the fused-schedule trunk strays from the naive forward")
     return launches
 
 
@@ -1102,7 +1180,7 @@ def phase_lab(dev, card: str, rgb_sr, rgb_c, x_small) -> dict:
     """The LAB slice at full width (see the module docstring).  Returns its
     launch counts: tail_x4 over the bf16 forwards, ssim over the eval."""
     from srcgan_tpu_torch.ops import color
-    from srcgan_tpu_torch.ops.kernels import tail_kernel
+    from srcgan_tpu_torch.ops.kernels import rdb5_kernel, tail_kernel
     from srcgan_tpu_torch.serving import CascadePredictor
 
     sr, c = lab_cascade(torch.Generator().manual_seed(12))
@@ -1119,12 +1197,15 @@ def phase_lab(dev, card: str, rgb_sr, rgb_c, x_small) -> dict:
     rgb = CascadePredictor(copy.deepcopy(rgb_sr), copy.deepcopy(rgb_c), 4, bf16=True, device=dev)
     rng = np.random.default_rng(13)
     gray = rng.integers(0, 256, (BATCH, LR, LR, 1), dtype=np.uint8)
-    tail_kernel.launches = 0
+    tail_kernel.launches = rdb5_kernel.launches_bf16 = 0
     y, y3 = pred.predict(gray), pred.predict(gray[:3])
     ys = list(pred.predict_stream(iter([gray, gray]), lookahead=2))
-    tail_launches, forwards = tail_kernel.launches, 4
-    print(f"[lab] {forwards} bf16 LAB forwards, tail_x4 launches {tail_launches}")
+    tail_launches, blocks, forwards = tail_kernel.launches, rdb5_kernel.launches_bf16, 4
+    print(f"[lab] {forwards} bf16 LAB forwards, tail_x4 launches {tail_launches}, rdb5_bf16 "
+          f"launches {blocks}")
     check(tail_launches == forwards, "a bf16 LAB forward did not go through the tail kernel once")
+    check(blocks == 9 * forwards, "a bf16 LAB forward did not run its nine RDB5 blocks through "
+          "the rdb5_bf16 kernel")
     full = (BATCH, 4 * LR, 4 * LR, 3)
     check(y.shape == full and y.dtype == np.uint8 and len(np.unique(y)) > 1,
           f"LAB output {y.shape} {y.dtype}")

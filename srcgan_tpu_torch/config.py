@@ -31,6 +31,17 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def cast_parameters(module: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
+    """Cast the module's floating parameters to ``dtype`` in place and leave
+    its buffers as they are: BatchNorm's running statistics stay fp32, as the
+    JAX package casts parameters only and keeps the model state in fp32
+    (``module.to(dtype)`` would round them too).  Strides are kept."""
+    for p in module.parameters():
+        if p.is_floating_point() and p.dtype != dtype:
+            p.data = p.data.to(dtype)
+    return module
+
+
 @contextlib.contextmanager
 def precision(mode: str):
     """Scope a numerics mode ("fp32" | "tf32" | "bf16") over the enclosed work."""

@@ -4,14 +4,20 @@ NCHW ``nn.Module``s whose attribute names are the reference torch names, so
 state_dicts exported by ``srcgan_tpu.interop.export_torch_state_dict`` load
 with ``strict=True``.
 
-ResidualDenseBlock5 has three forward schedules, scoped with
-``rdb5_schedule``: "naive" (the default: the literal concat chain), "grouped"
-(one convolution per source, the plain form of what the fused kernel
-computes) and "fused" (an eval block whose input the kernel's gate accepts
-goes through ``ops.kernels.rdb5_kernel.rdb5_bf16_fused``, everything else
-through the grouped form).  All three are the same function up to the order
-of float sums.  The JAX package's "paired" schedule shaped the work for the
-TPU's matrix unit and is not ported.
+ResidualDenseBlock5 has four forward schedules, scoped with
+``rdb5_schedule``: "naive" (the literal concat chain, cuDNN's convolutions on
+the card, and nothing else), "grouped" (one convolution per source, the plain
+form of what the fused kernel computes), "fused" (an eval block whose input
+the kernel's gate accepts goes through
+``ops.kernels.rdb5_kernel.rdb5_bf16_fused``, everything else through the
+grouped form) and "auto", the default, which is what runs when nothing is
+scoped: a forward on the card that the kernel can take (eval mode, bf16, a
+shape its gate accepts, no gradient asked for) goes through the kernel, the
+faster route there (PERF.md); every CPU forward and every fp32, training or
+other-shaped forward takes the naive form.  All are the same function up to
+the order of float sums.  A yardstick that means cuDNN scopes "naive".  The
+JAX package's "paired" schedule shaped the work for the TPU's matrix unit and
+is not ported.
 """
 from __future__ import annotations
 
@@ -27,8 +33,8 @@ from srcgan_tpu_torch import quant
 from srcgan_tpu_torch.ops.conv import to_nchw, to_nhwc
 from srcgan_tpu_torch.ops.kernels import rdb5_kernel
 
-DEFAULT_RDB5_SCHEDULE = "naive"
-_SCHEDULES = ("naive", "grouped", "fused")
+DEFAULT_RDB5_SCHEDULE = "auto"
+_SCHEDULES = ("auto", "naive", "grouped", "fused")
 _SCHED_TL = threading.local()
 
 
@@ -97,6 +103,13 @@ class ResidualDenseBlock5(nn.Module):
             if y is not None:  # int8 serving: the whole block in one kernel
                 return y
         sched = current_rdb5_schedule()
+        if sched == "auto":
+            # on the card the kernel, where it can take the forward; else the naive form
+            wants_grad = torch.is_grad_enabled() and (x.requires_grad
+                                                      or self.conv1.weight.requires_grad)
+            if x.is_cuda and not wants_grad and self._kernel_takes(x):
+                return self._forward_kernel(x, lemda)
+            sched = "naive"
         if sched == "fused":
             return self._forward_fused(x, lemda)
         if sched == "grouped":
@@ -141,11 +154,18 @@ class ResidualDenseBlock5(nn.Module):
         x5 = pre[4] if bs[4] is None else pre[4] + bs[4].view(1, -1, 1, 1)
         return x5 * lemda + x
 
-    def _forward_fused(self, x, lemda: float = 0.2):
+    def _kernel_takes(self, x) -> bool:
+        """The gate of the bf16 kernel: eval mode, bf16, a supported shape."""
         n, c, h, w = x.shape
-        if (self.training or x.dtype != torch.bfloat16
-                or not rdb5_kernel.supported((n, h, w, c), self.nf, self.gc)):
+        return (not self.training and x.dtype == torch.bfloat16
+                and rdb5_kernel.supported((n, h, w, c), self.nf, self.gc))
+
+    def _forward_fused(self, x, lemda: float = 0.2):
+        if not self._kernel_takes(x):
             return self._forward_grouped(x, lemda)
+        return self._forward_kernel(x, lemda)
+
+    def _forward_kernel(self, x, lemda: float = 0.2):
         key = self.weights_key()
         if self._prepared[0] != key:
             self._prepared = (key, rdb5_kernel.prep_bf16(self.convs()))

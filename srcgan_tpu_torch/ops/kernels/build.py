@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use into ``srcgan_tpu_torch/_build/lib<name>-<digest>.so`` (the digest covers
-the source and the flags, so an edited source rebuilds).  The build is atomic
+the source, the flags and the ``-D`` defines of a variant, so an edited source
+rebuilds and every variant has its own library).  The build is atomic
 (temporary file + rename), so concurrent processes can race on it safely.
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine with no CUDA toolkit.
@@ -41,19 +42,22 @@ def nvcc() -> str:
     return found
 
 
-def build(name: str) -> tuple:
-    """Compile csrc/<name>.cu unless its library exists.  Returns
-    (path, seconds spent compiling, compiler log); seconds is 0.0 and the log
-    the one kept from the earlier build when the library was already there."""
+def build(name: str, defines: tuple = ()) -> tuple:
+    """Compile csrc/<name>.cu unless its library exists.  ``defines`` are
+    compile-time switches of the source ("RDB5_WGMMA=0", ...), none for the
+    design that ships.  Returns (path, seconds spent compiling, compiler log);
+    seconds is 0.0 and the log the one kept from the earlier build when the
+    library was already there."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     log_path = out.with_suffix(".log")
     if out.exists():
         return out, 0.0, log_path.read_text() if log_path.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     t = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     seconds = time.perf_counter() - t
@@ -66,11 +70,12 @@ def build(name: str) -> tuple:
     return out, seconds, log
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built at first use."""
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu (of its variant ``defines``),
+    built at first use."""
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get((name, defines))
         if lib is None:
-            path, _, _ = build(name)
-            lib = _libs[name] = ctypes.CDLL(str(path))
+            path, _, _ = build(name, defines)
+            lib = _libs[(name, defines)] = ctypes.CDLL(str(path))
         return lib

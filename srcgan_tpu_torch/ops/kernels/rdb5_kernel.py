@@ -16,7 +16,7 @@ LeakyReLU(0.2) between them and ``out = conv5 * lemda + x``; NHWC tensors.
 (OIHW), once per weight set (and per calibration): callers cache them.  The
 packed per-source matrices are the JAX package's (rows in (dy, dx, c) order,
 columns = stages s..4); ``frag`` holds the same numbers in the order the
-kernel's tensor-core fragments read them.
+kernel's bulk copies, ``ldmatrix`` and ``wgmma`` descriptors read them.
 
 Each wrapper launches the kernel for a CUDA tensor and runs the plain version
 (``rdb5_bf16_reference`` / ``rdb5_int8_reference``) for a CPU tensor; there is
@@ -42,7 +42,9 @@ launches_int8 = 0
 reference_calls = 0
 
 NF, GC = 64, 32              # the widths csrc/rdb5.cu is written for
-TILE = 16                    # csrc/rdb5.cu kTile: outputs per block, each way
+TILE_H = TILE_W = 16         # csrc/rdb5.cu kTile: outputs per block, each way
+HALO = 5                     # csrc/rdb5.cu kHalo: one pixel per 3x3 convolution of the chain
+SLICE = 8192                 # csrc/rdb5.cu kSlice: bytes of one bulk copy of weights
 _WIDTHS = (GC, GC, GC, GC, NF)
 _MAX_GRID = 65535            # grid.y and grid.z
 
@@ -78,28 +80,32 @@ def _pack_sources(w_stage, nf: int, gc: int):
 
 
 def _fragments(wsrc, quant: bool) -> torch.Tensor:
-    """The per-source matrices as int32 words in the order the kernel reads
-    them: for stage i, for source j <= i, [tap][k-step][lane][n-tile][reg],
-    where one mma.sync B fragment (16x8 bf16 or 32x8 int8) gives lane
-    g*4 + t the words reg 0, 1 = elements k = t*E + reg*4*E .. + E - 1 of column
-    n-tile*8 + g (E = 2 bf16 or 4 int8 values per word).
-    csrc/rdb5.cu::frag_off walks the same order."""
-    e = 4 if quant else 2
+    """The per-source matrices as int32 words in the order the kernel streams
+    them: for stage i, for source j <= i, [tap][k-step][k half][n-group][row]
+    [16 bytes], a k-step being 32 bytes of a source pixel's channels (16 bf16
+    or 32 int8).  The 8 rows of a core matrix are columns n-group*8 + row of
+    the stage, its 16 bytes elements k = k-step*2E + half*E .. + E - 1 of the
+    tap (E = 8 bf16 or 16 int8 values per 16 bytes): one ldmatrix 8x8 matrix,
+    and one core matrix of a wgmma descriptor without swizzle (strides: n/8 *
+    128 bytes between the halves of k, 128 bytes between n-groups).  No
+    padding; stages and sources follow each other as csrc/rdb5.cu::stage_off
+    and src_off count them, so a slice of SLICE bytes is one contiguous copy."""
+    e = 16 if quant else 8
     parts = []
     for i in range(5):
         for j in range(i + 1):
             col0 = sum(_WIDTHS[j:i])
             w = wsrc[j][:, col0:col0 + _WIDTHS[i]]
             cj, ni = w.shape[0] // 9, _WIDTHS[i]
-            # k = ks*8E + reg*4E + t*E + e ; n = nt*8 + g
-            w = w.reshape(9, cj // (8 * e), 2, 4, e, ni // 8, 8)
-            parts.append(w.permute(0, 1, 6, 3, 5, 2, 4).reshape(-1))
+            # k = ks*2E + half*E + e ; n = group*8 + row
+            w = w.reshape(9, cj // (2 * e), 2, e, ni // 8, 8)
+            parts.append(w.permute(0, 1, 2, 4, 5, 3).reshape(-1))
     return torch.cat(parts).contiguous().view(torch.int32)
 
 
 class Bf16Weights(NamedTuple):
     """wsrc: five bf16 (9*Cs, N_s) per-source matrices; bias (5, 64) fp32;
-    frag: wsrc in fragment order, int32 words."""
+    frag: wsrc in the kernel's streaming order (``_fragments``), int32 words."""
     wsrc: tuple
     bias: torch.Tensor
     frag: torch.Tensor
@@ -108,7 +114,8 @@ class Bf16Weights(NamedTuple):
 class Int8Weights(NamedTuple):
     """wq: five int8 (9*Cs, N_s) per-source matrices; sw (5, 64) per-stage
     dequant scales, rq (5, 64) per-source reciprocal activation scales, bias
-    (5, 64), all fp32 and zero-padded to width 64; frag: wq in fragment order."""
+    (5, 64), all fp32 and zero-padded to width 64; frag: wq in the kernel's
+    streaming order (``_fragments``)."""
     wq: tuple
     sw: torch.Tensor
     rq: torch.Tensor
@@ -154,7 +161,7 @@ def supported(x_shape, nf: int, gc: int) -> bool:
     W <= 512, H >= 8) plus the card's own limits (the launch grid)."""
     n, h, w, c = x_shape
     return (c == nf and nf == NF and gc == GC and w % 128 == 0 and w <= 512 and h >= 8
-            and 0 < n <= _MAX_GRID and -(-h // TILE) <= _MAX_GRID)
+            and 0 < n <= _MAX_GRID and -(-h // TILE_H) <= _MAX_GRID)
 
 
 def _reference(x, weights, quant: bool, lemda: float, alpha: float):
@@ -218,18 +225,22 @@ def rdb5_bf16_reference(x, weights: Bf16Weights, lemda: float = 0.2, alpha: floa
     return _reference(x, weights, False, lemda, alpha)
 
 
-@functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    """csrc/rdb5.cu, built at first use, with its C signatures declared."""
-    from srcgan_tpu_torch.ops.kernels import build
-
-    lib = build.load("rdb5")
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C signatures of a build of csrc/rdb5.cu."""
     lib.rdb5_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.rdb5_launch.restype = ctypes.c_int
     lib.rdb5_error_string.argtypes = [ctypes.c_int]
     lib.rdb5_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """csrc/rdb5.cu as it ships (no compile-time switch), built at first use."""
+    from srcgan_tpu_torch.ops.kernels import build
+
+    return _declare(build.load("rdb5"))
 
 
 _FRAG_WORDS = {False: 9 * 26624 // 2, True: 9 * 26624 // 4}   # 239,616 weights
@@ -258,11 +269,12 @@ def _check(x, weights, quant: bool):
             raise ValueError(f"{name}: {label} must be contiguous")
 
 
-def _launch(x, weights, quant: bool, lemda: float, alpha: float):
-    global launches_bf16, launches_int8
+def _run(lib: ctypes.CDLL, x, weights, quant: bool, lemda: float, alpha: float):
+    """Check the operands and launch ``lib``'s kernel on x's stream.  The
+    wrappers hand it the build that ships; the ablation of
+    ``srcgan_tpu_torch.probes.rdb5_ablate`` its variants."""
     _check(x, weights, quant)
     name = "rdb5_int8" if quant else "rdb5_bf16"
-    lib = _library()
     x = x.contiguous()
     out = torch.empty_like(x)
     sw = weights.sw if quant else None
@@ -281,6 +293,12 @@ def _launch(x, weights, quant: bool, lemda: float, alpha: float):
                               int(quant), stream)
     if err:
         raise RuntimeError(f"{name} launch failed: {lib.rdb5_error_string(err).decode()}")
+    return out
+
+
+def _launch(x, weights, quant: bool, lemda: float, alpha: float):
+    global launches_bf16, launches_int8
+    out = _run(_library(), x, weights, quant, lemda, alpha)
     if quant:
         launches_int8 += 1
     else:

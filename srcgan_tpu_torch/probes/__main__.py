@@ -1,20 +1,28 @@
 """``python -m srcgan_tpu_torch.probes [matmul|mxu|layout ...] [abcd] [--device cpu]``:
 the named sweeps (all three by default); a trailing word of the letters abcd
-picks the parts of the layout sweep."""
+picks the parts of the layout sweep.
+
+``python -m srcgan_tpu_torch.probes rdb5 [--rounds N]``: the ablation of the
+RDB5 kernel's design (``rdb5_ablate``: every variant of ``csrc/rdb5.cu`` built,
+held against the plain version and timed in turns).  It runs only when named,
+and only on the card."""
 from __future__ import annotations
 
 import sys
 
-from srcgan_tpu_torch.probes import layout_probe3, matmul_probe, mxu_probe
+from srcgan_tpu_torch.probes import layout_probe3, matmul_probe, mxu_probe, rdb5_ablate
 
 SWEEPS = {"matmul": matmul_probe, "mxu": mxu_probe, "layout": layout_probe3}
+NAMED_ONLY = {"rdb5": rdb5_ablate}
+USAGE = (f"usage: python -m srcgan_tpu_torch.probes [{'|'.join(SWEEPS)} ...] [abcd] "
+         f"[--device cpu]  |  python -m srcgan_tpu_torch.probes {'|'.join(NAMED_ONLY)} [--rounds N]")
 
 
 def main(argv=None) -> dict:
     argv = list(sys.argv[1:] if argv is None else argv)
     flags, words, i = [], [], 0
     while i < len(argv):
-        if argv[i] == "--device":
+        if argv[i] in ("--device", "--rounds"):
             flags += argv[i:i + 2]
             i += 2
         elif argv[i].startswith("-"):
@@ -23,10 +31,17 @@ def main(argv=None) -> dict:
         else:
             words.append(argv[i])
             i += 1
+    if not words and ("-h" in flags or "--help" in flags):
+        print(__doc__)
+        print(USAGE)
+        return {}
+    if any(w in NAMED_ONLY for w in words):
+        if len(words) > 1:
+            raise SystemExit(f"{USAGE}; got {words}")
+        return {words[0]: NAMED_ONLY[words[0]].main(flags)}
     parts = [w for w in words if w not in SWEEPS]
     if len(parts) > 1:
-        raise SystemExit(f"usage: python -m srcgan_tpu_torch.probes [{'|'.join(SWEEPS)} ...] "
-                         f"[abcd] [--device cpu]; got {words}")
+        raise SystemExit(f"{USAGE}; got {words}")
     names = [w for w in words if w in SWEEPS] or list(SWEEPS)
     out = {}
     for name in names:

@@ -34,8 +34,8 @@ from srcgan_tpu_torch.train.state import parse_checkpoint_name
 class CascadePredictor:
     """SR -> colorize cascade.  Takes ownership of the two models: they are
     moved to ``device`` (default: the card; raises without one unless the
-    caller passes ``device="cpu"``), cast to the compute
-    dtype, put in channels_last memory and in eval mode."""
+    caller passes ``device="cpu"``), their parameters cast to the compute
+    dtype (buffers, BatchNorm's running statistics, stay fp32), put in channels_last memory and in eval mode."""
 
     def __init__(self, sr_model, c_model, up: int, *, lab: bool = False,
                  bf16: bool = False, pad_batch_to: int = 0, int8: bool = False,
@@ -58,8 +58,9 @@ class CascadePredictor:
                         if self.device.type == "cuda" else None)
 
     def _adopt(self, model):
-        model.to(device=self.device, dtype=self.dtype, memory_format=torch.channels_last)
-        return model.eval().requires_grad_(False)
+        model.to(device=self.device, memory_format=torch.channels_last)
+        # parameters only: BatchNorm's running statistics stay fp32
+        return config.cast_parameters(model, self.dtype).eval().requires_grad_(False)
 
     # -- constructors --------------------------------------------------------
 

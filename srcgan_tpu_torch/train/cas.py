@@ -283,10 +283,11 @@ class CasTrainer:
     @staticmethod
     def _eval_forward(net: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
         """Eval-mode forward on NHWC x at x's dtype (as the JAX ops compute at
-        the activation's dtype): the module itself for fp32, a cast copy
-        otherwise, so the fp32 masters are never cast in place."""
+        the activation's dtype): the module itself for fp32, a copy with
+        cast parameters otherwise, so the fp32 masters are never cast in place
+        and BatchNorm's running statistics stay fp32."""
         if x.dtype != next(net.parameters()).dtype:
-            net = copy.deepcopy(net).to(x.dtype)
+            net = config.cast_parameters(copy.deepcopy(net), x.dtype)
         with _eval_mode(net):
             return to_nhwc(net(to_nchw(x)))
 

@@ -369,10 +369,15 @@ def rdb5_case(seed, shape, dev):
     return blk, x, cat.abs().amax(dim=(0, 2, 3))
 
 
-@pytest.mark.parametrize("shape", [(8, 128, 128, 64), (1, 15, 128, 64), (2, 40, 512, 64)])
+@pytest.mark.parametrize("shape", [(8, 128, 128, 64), (1, 15, 128, 64), (2, 24, 512, 64),
+                                   (2, 40, 512, 64)])
 def test_rdb5_kernel_matches_plain_versions(dev, shape):
-    """The serving shape, a ragged one-tile-row image and a 512-wide one with
-    three tile rows: every image edge and a ragged last tile."""
+    """The serving shape, a ragged one-tile-row image and two 512-wide ones
+    whose heights are no multiples of the tile's (two and three tile rows):
+    every image edge and a ragged last tile.  The int8 form sums exact
+    integers and rounds the same fp32 steps as its plain version: no element
+    differs."""
+    assert 15 % rdb5_kernel.TILE_H and 24 % rdb5_kernel.TILE_H and 40 % rdb5_kernel.TILE_H
     blk, x, absmax = rdb5_case(sum(shape), shape, dev)
     w8, wb = rdb5_kernel.prep_int8(blk.convs(), absmax), rdb5_kernel.prep_bf16(blk.convs())
     before = rdb5_kernel.launches_int8, rdb5_kernel.launches_bf16, rdb5_kernel.reference_calls
@@ -386,11 +391,89 @@ def test_rdb5_kernel_matches_plain_versions(dev, shape):
     assert got8.shape == ref8.shape == shape and got8.dtype == torch.float32
     assert got16.shape == shape and got16.dtype == torch.bfloat16
     assert ((got8 - ref8).norm() / ref8.norm()).item() <= 1e-2
+    assert int((got8 != ref8).sum()) == 0
     assert ((got16.float() - ref16.float()).norm() / ref16.float().norm()).item() <= 2e-2
     with torch.no_grad():
         fp32 = blk(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     assert ((got8 - fp32).norm() / fp32.norm()).item() <= 0.06
     assert ((got16.float() - fp32).norm() / fp32.norm()).item() <= 2e-2
+
+
+def test_rdb5_design_variants_match_plain_versions(dev):
+    """Every compile-time variant of csrc/rdb5.cu that the ablation times
+    (weights from L2 or staged, scalar A reads or ldmatrix, mma.sync or
+    wgmma) computes the same block: int8 bit-equal, bf16 rel-L2 <= 2e-2."""
+    from srcgan_tpu_torch.probes import rdb5_ablate
+
+    shape = (1, 40, 128, 64)
+    blk, x, absmax = rdb5_case(5, shape, dev)
+    w8, wb = rdb5_kernel.prep_int8(blk.convs(), absmax), rdb5_kernel.prep_bf16(blk.convs())
+    ref8 = rdb5_kernel.rdb5_int8_reference(x, w8)
+    ref16 = rdb5_kernel.rdb5_bf16_reference(x.bfloat16(), wb).float()
+    for label, defines in rdb5_ablate.VARIANTS:
+        got8 = rdb5_ablate.launch_variant(x, w8, True, defines)
+        got16 = rdb5_ablate.launch_variant(x.bfloat16(), wb, False, defines).float()
+        torch.cuda.synchronize()
+        assert int((got8 != ref8).sum()) == 0, label
+        assert ((got16 - ref16).norm() / ref16.norm()).item() <= 2e-2, label
+
+
+def test_no_schedule_scoped_takes_the_kernel_on_the_card(dev):
+    """An eval bf16 block on a supported shape with no schedule scoped: one
+    rdb5_bf16 launch, the fused schedule's output; rdb5_schedule("naive"),
+    fp32, training mode or a gradient asked for keep the cuDNN forms."""
+    from srcgan_tpu_torch.models.blocks import rdb5_schedule
+
+    blk, x, _ = rdb5_case(7, (1, 16, 128, 64), dev)
+    blk = blk.to(torch.bfloat16)
+    xb = x.bfloat16().permute(0, 3, 1, 2)
+    with torch.no_grad():
+        before = rdb5_kernel.launches_bf16
+        got = blk(xb)
+        assert rdb5_kernel.launches_bf16 == before + 1
+        with rdb5_schedule("fused"):
+            assert torch.equal(blk(xb), got)
+        before = rdb5_kernel.launches_bf16
+        with rdb5_schedule("naive"):
+            naive = blk(xb)
+        blk.float()(x.permute(0, 3, 1, 2))
+        blk.to(torch.bfloat16).train()(xb)
+        blk.eval()
+    leaf = xb.clone().requires_grad_(True)
+    blk(leaf).sum().backward()
+    assert leaf.grad is not None and rdb5_kernel.launches_bf16 == before
+    assert ((got.float() - naive.float()).norm() / naive.float().norm()).item() <= 2e-2
+
+
+def test_bf16_predictor_keeps_batchnorm_statistics_fp32(dev):
+    """bf16 serving casts parameters only: BatchNorm's running statistics stay
+    fp32 on the card, and the output is that of the CPU predictor."""
+    import copy
+
+    import numpy as np
+
+    from srcgan_tpu_torch.serving import CascadePredictor
+
+    g = torch.Generator().manual_seed(3)
+    sr, c = models.RDDBNet(1, 1, 4, nf=16, nb=1, generator=g), models.ResDeconv(1, 3, BN="BN",
+                                                                                 generator=g)
+    with torch.no_grad():
+        c.pred.weight.mul_(0.01)
+        for name, b in c.named_buffers():
+            if name.endswith("running_mean"):
+                b.normal_(0, 0.3, generator=g)
+            elif name.endswith("running_var"):
+                b.uniform_(0.5, 2.0, generator=g)
+    mean = c.bn1.running_mean.clone()
+    on_cpu = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, bf16=True, device="cpu")
+    pred = CascadePredictor(sr, c, 4, bf16=True, device=dev)
+    buffers = [b for b in pred.c_model.buffers() if b.is_floating_point()]
+    assert buffers and all(b.dtype == torch.float32 and b.is_cuda for b in buffers)
+    assert pred.c_model.conv1.weight.dtype == torch.bfloat16
+    assert torch.equal(pred.c_model.bn1.running_mean.cpu(), mean)
+    x = np.random.default_rng(4).integers(0, 256, (2, 16, 16, 1), dtype=np.uint8)
+    diff = np.abs(pred.predict(x).astype(int) - on_cpu.predict(x).astype(int))
+    assert diff.mean() <= 1.0, (diff.mean(), diff.max())
 
 
 def test_rdb5_kernel_rejects_what_it_cannot_run(dev):
@@ -411,8 +494,9 @@ def test_rdb5_kernel_rejects_what_it_cannot_run(dev):
 
 
 def test_fused_schedule_runs_the_trunk_through_the_kernel(dev):
-    """RDDBNet nb=3 in bf16 under rdb5_schedule("fused"): 9 launches per eval
-    forward, none in training mode, fp32 or at an unsupported width."""
+    """RDDBNet nb=3 in bf16 under rdb5_schedule("fused"), and with no schedule
+    scoped: 9 launches per eval forward, none in training mode, fp32 or at an
+    unsupported width, and none under rdb5_schedule("naive")."""
     from srcgan_tpu_torch.models.blocks import rdb5_schedule
 
     g = torch.Generator().manual_seed(11)
@@ -420,8 +504,10 @@ def test_fused_schedule_runs_the_trunk_through_the_kernel(dev):
     x = torch.rand(2, 1, 16, 128, generator=g).to(dev, torch.bfloat16,
                                                    memory_format=torch.channels_last)
     with torch.no_grad():
-        plain = net(x)
         before = rdb5_kernel.launches_bf16
+        with rdb5_schedule("naive"):
+            plain = net(x)
+        assert rdb5_kernel.launches_bf16 == before
         with rdb5_schedule("fused"):
             fused = net(x)
             assert rdb5_kernel.launches_bf16 == before + 9
@@ -431,8 +517,8 @@ def test_fused_schedule_runs_the_trunk_through_the_kernel(dev):
             net(x)
             net.eval()
             assert rdb5_kernel.launches_bf16 == before + 9
-        net(x)
-        assert rdb5_kernel.launches_bf16 == before + 9
+        assert torch.equal(net(x), fused)
+        assert rdb5_kernel.launches_bf16 == before + 18
     torch.cuda.synchronize()
     assert ((fused.float() - plain.float()).norm() / plain.float().norm()).item() <= 2e-2
 

@@ -278,3 +278,29 @@ def test_entry_points_raise_without_a_card(monkeypatch, capsys):
     with pytest.raises(SystemExit):
         probes_main.main(["layout", "ab", "cd", "--device", "cpu"])
     assert probes.__doc__ and "python -m srcgan_tpu_torch.probes" in probes.__doc__
+
+
+@pytest.mark.parametrize("argv,match", [(["rdb5"], "no CUDA card"),
+                                        (["rdb5", "--device", "cpu"], "no CPU mode")],
+                         ids=["default-device", "cpu-asked"])
+def test_rdb5_ablation_runs_only_on_the_card(monkeypatch, argv, match):
+    """The ablation of csrc/rdb5.cu's variants is a named subcommand; it
+    raises without a card, and names the card when asked for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=match):
+        probes_main.main(argv)
+
+
+def test_entry_point_lists_the_rdb5_ablation(capsys):
+    from srcgan_tpu_torch.ops.kernels import rdb5_kernel
+    from srcgan_tpu_torch.probes import rdb5_ablate
+
+    assert probes_main.main(["--help"]) == {}
+    out = capsys.readouterr().out
+    assert "probes rdb5" in out and "matmul|mxu|layout" in out
+    with pytest.raises(SystemExit):
+        probes_main.main(["rdb5", "mxu"])
+    # the last variant is the default build, the one the wrappers launch
+    assert rdb5_ablate.VARIANTS[-1][1] == () and len(rdb5_ablate.VARIANTS) == 5
+    assert rdb5_ablate.SHAPE[3] == rdb5_kernel.NF
+    assert rdb5_kernel.supported(rdb5_ablate.SHAPE, rdb5_kernel.NF, rdb5_kernel.GC)

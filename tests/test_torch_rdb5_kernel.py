@@ -11,10 +11,10 @@ int8 weights bit-equal, scales rtol 1e-6; the fp32 block forms atol 1e-5
 (the order of float sums).
 
 The CUDA kernel itself runs only on a card (tests/test_torch_cuda.py).  What
-surrounds its arithmetic is held here: a torch repeat of its tiling (16x16
-tiles with a 5-pixel halo, by stage, zero outside the image, ragged last
-tile), the order in which it reads the weight fragments, and its
-shared-memory swizzle.
+surrounds its arithmetic is held here: a torch repeat of its tiling (tiles of
+TILE_H x TILE_W outputs with a HALO-pixel halo, by stage, zero outside the
+image, ragged last tile), the order in which its bulk copies, ldmatrix and the
+wgmma descriptor read the weights, and its shared-memory swizzle.
 """
 import numpy as np
 import pytest
@@ -165,13 +165,20 @@ def test_forward_with_sources_matches_jax(case):
 def test_schedule_context():
     from srcgan_tpu_torch.models import blocks
 
-    assert blocks.current_rdb5_schedule() == "naive"
+    # nothing scoped is the default by its name: "naive" means cuDNN only, the
+    # default takes the kernel where it can
+    assert blocks.DEFAULT_RDB5_SCHEDULE == "auto"
+    assert blocks.current_rdb5_schedule() == "auto"
     with rdb5_schedule("fused"):
         assert blocks.current_rdb5_schedule() == "fused"
         with rdb5_schedule("grouped"):
             assert blocks.current_rdb5_schedule() == "grouped"
+        with rdb5_schedule("auto"):
+            assert blocks.current_rdb5_schedule() == "auto"
         assert blocks.current_rdb5_schedule() == "fused"
-    assert blocks.current_rdb5_schedule() == "naive"
+    with rdb5_schedule("naive"):
+        assert blocks.current_rdb5_schedule() == "naive"
+    assert blocks.current_rdb5_schedule() == "auto"
     with pytest.raises(ValueError, match="paired"):
         with rdb5_schedule("paired"):
             pass
@@ -210,6 +217,24 @@ def test_fused_schedule_takes_the_bf16_wrapper_only_where_it_may(case):
     assert blk._prepared[1] is not prepared
 
 
+def test_no_schedule_scoped_stays_naive_on_the_cpu(case):
+    """With no schedule scoped the kernel is the route only for a CUDA
+    tensor: a CPU forward of an eval bf16 block on a supported shape runs the
+    naive form, bit for bit, and no plain version of the kernel."""
+    blk = ResidualDenseBlock5(64, 32).requires_grad_(False)
+    blk.load_state_dict(case[2].state_dict())
+    blk = blk.to(torch.bfloat16).eval()
+    xb = torch.from_numpy(case[3]).to(torch.bfloat16).permute(0, 3, 1, 2)
+    assert blk._kernel_takes(xb)
+    before = T.reference_calls, T.launches_bf16
+    with torch.no_grad():
+        got = blk(xb)
+        with rdb5_schedule("naive"):
+            want = blk(xb)
+    assert (T.reference_calls, T.launches_bf16) == before
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("shape,ok", [
     ((1, 16, 100, 64), False),     # w % 128 != 0
     ((1, 4, 128, 64), False),      # h too small
@@ -230,32 +255,35 @@ def test_supported(shape, ok):
 # -- the kernel's tiling, repeated in torch -----------------------------------
 
 def tiled_block(x, w, quant, lemda=0.2, alpha=0.2):
-    """What csrc/rdb5.cu computes, tile by tile: x with a 5-pixel halo, zero
-    outside the image; stage i on its (24 - 2i)^2 region as the sum over
-    sources j <= i of a VALID 3x3 convolution of source j's tile; x_{i+1}
-    zero outside the image; the 16x16 centre written where it is inside."""
+    """What csrc/rdb5.cu computes, tile by tile (TILE_H x TILE_W outputs): x
+    with a HALO-pixel halo, zero outside the image; stage i on its region, the
+    tile grown by HALO - 1 - i pixels each way, as the sum over sources
+    j <= i of a VALID 3x3 convolution of source j's tile; x_{i+1} zero outside
+    the image; the tile's centre written where it is inside."""
+    th, tw, halo = T.TILE_H, T.TILE_W, T.HALO
     n, h, wd, _ = x.shape
     mats = w.wq if quant else w.wsrc
     dt = torch.float64 if quant else torch.float32
     x32 = x.float()
     out = torch.zeros_like(x32)
-    xp = F.pad(x32, (0, 0, 5, 5 + 16, 5, 5 + 16))
+    xp = F.pad(x32, (0, 0, halo, halo + tw, halo, halo + th))
 
     def as_source(v, s):
         if quant:
             return torch.round(v * w.rq[s, :v.shape[-1]]).clamp(-127, 127)
         return v.to(torch.bfloat16).float()
 
-    for ty0 in range(0, h, 16):
-        for tx0 in range(0, wd, 16):
-            tiles = [as_source(xp[:, ty0:ty0 + 26, tx0:tx0 + 26], 0)]
+    for ty0 in range(0, h, th):
+        for tx0 in range(0, wd, tw):
+            tiles = [as_source(xp[:, ty0:ty0 + th + 2 * halo, tx0:tx0 + tw + 2 * halo], 0)]
             for i in range(5):
-                r = 24 - 2 * i
+                grow = halo - 1 - i                 # the stage's region around the tile
+                rh, rw = th + 2 * grow, tw + 2 * grow
                 pre = 0
                 for j in range(i + 1):
                     cj, col0 = (64 if j == 0 else 32), sum(WIDTHS[j:i])
                     wij = mats[j][:, col0:col0 + WIDTHS[i]].reshape(3, 3, cj, -1)
-                    crop = tiles[j][:, i - j:i - j + r + 2, i - j:i - j + r + 2]
+                    crop = tiles[j][:, i - j:i - j + rh + 2, i - j:i - j + rw + 2]
                     y = F.conv2d(crop.permute(0, 3, 1, 2).to(dt),
                                  wij.permute(3, 2, 0, 1).to(dt)).permute(0, 2, 3, 1)
                     pre = pre + (y.round().to(torch.int64) if quant else y)
@@ -265,14 +293,14 @@ def tiled_block(x, w, quant, lemda=0.2, alpha=0.2):
                 v = v + w.bias[i, :WIDTHS[i]]
                 if i == 4:
                     break
-                gy = torch.arange(ty0 - (4 - i), ty0 - (4 - i) + r).view(1, r, 1, 1)
-                gx = torch.arange(tx0 - (4 - i), tx0 - (4 - i) + r).view(1, 1, r, 1)
+                gy = torch.arange(ty0 - grow, ty0 - grow + rh).view(1, rh, 1, 1)
+                gx = torch.arange(tx0 - grow, tx0 - grow + rw).view(1, 1, rw, 1)
                 inside = (gy >= 0) & (gy < h) & (gx >= 0) & (gx < wd)
                 v = torch.where(inside, torch.where(v >= 0, v, alpha * v), torch.zeros(()))
                 tiles.append(as_source(v, i + 1))
-            rows = min(16, h - ty0)
-            out[:, ty0:ty0 + rows, tx0:tx0 + 16] = (v[:, :rows] * lemda
-                                                    + x32[:, ty0:ty0 + rows, tx0:tx0 + 16])
+            rows = min(th, h - ty0)
+            out[:, ty0:ty0 + rows, tx0:tx0 + tw] = (v[:, :rows] * lemda
+                                                    + x32[:, ty0:ty0 + rows, tx0:tx0 + tw])
     return out.to(x.dtype)
 
 
@@ -281,7 +309,8 @@ def tiled_block(x, w, quant, lemda=0.2, alpha=0.2):
                          ids=["ragged-one-row-of-tiles", "three-rows-of-tiles"])
 def test_kernel_tiling_matches_plain_version(shape, quant):
     """Every image edge falls inside some tile's halo, and the last tile row
-    is ragged (15 and 40 are no multiples of 16)."""
+    is ragged (15 and 40 are no multiples of the tile's height)."""
+    assert 15 % T.TILE_H and 40 % T.TILE_H and 128 % T.TILE_W == 0
     _, _, blk, x, absmax = setup(shape, seed=3)
     # with zero biases a missing border mask would not show (lrelu(0) = 0)
     assert all(b.abs().max() > 0.01 for _, b in blk.convs())
@@ -296,48 +325,136 @@ def test_kernel_tiling_matches_plain_version(shape, quant):
         assert rel_l2(got.float().numpy(), want.float().numpy()) < 2e-3   # sum order, bf16 flips
 
 
+# -- the kernel's layouts, restated in numpy ------------------------------------
+
+def stage_stream(quant):
+    """(i, j, byte offset in stage i's weights, channels of source j, width of
+    stage i) for every (stage, source) block of frag, and each stage's offset
+    in frag: csrc/rdb5.cu::stage_off / src_off."""
+    es = 1 if quant else 2
+    blocks, stage_off, off = [], [], 0
+    for i in range(5):
+        stage_off.append(off)
+        src = 0
+        for j in range(i + 1):
+            cj = 64 if j == 0 else 32
+            blocks.append((i, j, src, cj, WIDTHS[i]))
+            src += 9 * cj * es * WIDTHS[i]
+        off += src
+    return blocks, stage_off, off
+
+
 @pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
 def test_fragment_order(case, quant):
-    """frag, read the way the kernel reads it ([stage i][source j][tap][k-step]
-    [lane][n-tile][reg], lane = g*4 + t holding elements k = t*E + reg*4E + e of
-    column n-tile*8 + g), gives back the per-source matrices."""
+    """frag, read the way the kernel reads it, gives back the per-source
+    matrices.  A k-step (32 bytes of a pixel: 16 bf16 or 32 int8 values) of
+    a tap is a block of width(i) * 32 bytes, [k half][n-group][row][16 bytes]:
+    ldmatrix.x4 lane l gives the address of row l % 8 of matrix l / 8
+    (matrices: (k half 0, group 2q), (half 1, 2q), (half 0, 2q + 1), (half 1,
+    2q + 1)) and lane g*4 + t receives word t of row g of each, the mma.sync B
+    fragment b0, b1 of two n-tiles; the wgmma descriptor names the same core
+    matrices by LBO = width(i) / 8 * 128 bytes (between the halves of k) and
+    SBO = 128 bytes (between n-groups)."""
     _, _, blk, _, absmax = case
     w = T.prep_int8(blk.convs(), torch.from_numpy(absmax)) if quant else T.prep_bf16(blk.convs())
-    mats = w.wq if quant else w.wsrc
-    e = 4 if quant else 2
+    mats = [m.float().numpy() for m in (w.wq if quant else w.wsrc)]
+    es = 1 if quant else 2
+    e16 = 16 // es                      # values per 16 bytes
     flat = w.frag.view(torch.int8 if quant else torch.bfloat16).float().numpy()
-    assert w.frag.dtype == torch.int32 and w.frag.numel() == 9 * 26624 // e
-    off = 0
+    blocks, stage_off, total = stage_stream(quant)
+    assert w.frag.dtype == torch.int32 and w.frag.numel() * 4 == total == 9 * 26624 * es
+    for i, j, src, cj, ni in blocks:
+        col0, ksteps, kb = sum(WIDTHS[j:i]), cj * es // 32, ni * 32
+        base = stage_off[i] + src
+        # ldmatrix: (tap, k-step, pair q, lane l) -> row address; the lane that
+        # receives (register r, word t of row g) holds 4 bytes of it
+        tap, ks, q, r, g, t, b = np.meshgrid(
+            np.arange(9), np.arange(ksteps), np.arange(ni // 16), np.arange(4), np.arange(8),
+            np.arange(4), np.arange(4 // es), indexing="ij")
+        lane = r * 8 + g                                   # the lane that gave this row's address
+        row = (((lane >> 3) & 1) * (ni // 8) + (lane >> 4)) * 8 + (lane & 7)
+        addr = base + (tap * ksteps + ks) * kb + q * 256 + row * 16 + t * 4 + b * es
+        half, ntile = r & 1, 2 * q + (r >> 1)             # b0/b1 of n-tile 2q, then of 2q + 1
+        k = ks * 2 * e16 + half * e16 + t * (4 // es) + b  # the mma.sync B fragment's k
+        want = mats[j][tap * cj + k, col0 + ntile * 8 + g]
+        np.testing.assert_array_equal(flat[addr // es], want)
+        # the descriptor: element (k, n) of a k-step's block
+        tap, ks, k, n = np.meshgrid(np.arange(9), np.arange(ksteps), np.arange(2 * e16),
+                                    np.arange(ni), indexing="ij")
+        lbo, sbo = ni // 8 * 128, 128
+        addr = (base + (tap * ksteps + ks) * kb + (k // e16) * lbo + (n // 8) * sbo
+                + (n % 8) * 16 + (k % e16) * es)
+        np.testing.assert_array_equal(flat[addr // es],
+                                      mats[j][tap * cj + ks * 2 * e16 + k, col0 + n])
+
+
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
+def test_slices_cut_between_taps(quant):
+    """The producer copies each stage's weights in slices of SLICE bytes (the
+    last one short): no tap's block straddles a slice, every slice is a
+    multiple of 16 bytes, and a tile takes 60 (bf16) or 32 (int8) of them."""
+    blocks, stage_off, total = stage_stream(quant)
+    es = 1 if quant else 2
+    n_slices = 0
     for i in range(5):
-        for j in range(i + 1):
-            cj, ni, col0 = (64 if j == 0 else 32), WIDTHS[i], sum(WIDTHS[j:i])
-            ksteps, nt = cj // (8 * e), ni // 8
-            tap, ks, lane, ntile, reg, el = np.meshgrid(
-                np.arange(9), np.arange(ksteps), np.arange(32), np.arange(nt), np.arange(2),
-                np.arange(e), indexing="ij")
-            g, t = lane // 4, lane % 4
-            k = ks * 8 * e + reg * 4 * e + t * e + el
-            n = ntile * 8 + g
-            word = off + ((((tap * ksteps + ks) * 32 + lane) * nt + ntile) * 2 + reg)
-            want = mats[j].float().numpy()[tap * cj + k, col0 + n]
-            np.testing.assert_array_equal(flat[word * e + el], want)
-            off += 9 * cj * ni // e
-    assert off == w.frag.numel()
+        size = (stage_off[i + 1] if i < 4 else total) - stage_off[i]
+        n_slices += -(-size // T.SLICE)
+        assert stage_off[i] % 16 == 0 and size % 16 == 0
+    assert n_slices == (32 if quant else 60)
+    for i, j, src, cj, ni in blocks:
+        tap_bytes = cj * es * ni
+        for tap in range(9):
+            lo = src + tap * tap_bytes
+            assert lo // T.SLICE == (lo + tap_bytes - 1) // T.SLICE, (i, j, tap)
 
 
-@pytest.mark.parametrize("wpp", [32, 16, 8])
-def test_swizzle_is_conflict_free(wpp):
-    """csrc/rdb5.cu::swz: a bijection within each pixel, and the 8 pixels x 4
-    words one fragment register reads fall in 32 different banks."""
-    def swz(p, w):
-        return p * wpp + (w ^ (((p // (32 // wpp)) % (wpp // 4)) << 2))
+def tile_offsets(quant):
+    """Byte offset of each source's tile in shared memory, and its pixel bytes
+    and side: x on a (TILE + 2 HALO)^2 region, x_k on one k pixels smaller."""
+    es, off, out = (1 if quant else 2), 0, []
+    for j in range(5):
+        side, pixb = T.TILE_H + 2 * (T.HALO - j), (64 if j == 0 else 32) * es
+        out.append((off, pixb, side))
+        off += side * side * pixb
+    return out, off
 
-    for p in range(64):
-        assert sorted(swz(p, w) for w in range(wpp)) == list(range(p * wpp, (p + 1) * wpp))
-    for p0 in range(0, 64, 3):
-        for w0 in range(0, wpp, 4):
-            banks = {swz(p0 + g, w0 + t) % 32 for g in range(8) for t in range(4)}
-            assert len(banks) == 32, (p0, w0)
+
+def swz(off, pixb):
+    """csrc/rdb5.cu::swz: where byte ``off`` of the tiles really lies."""
+    return off ^ ((off >> 3) & ((pixb // 16 - 1) << 4))
+
+
+@pytest.mark.parametrize("quant,j", [(False, 0), (False, 3), (True, 0), (True, 2)],
+                         ids=["bf16-x", "bf16-x3", "int8-x", "int8-x2"])
+def test_swizzle_is_conflict_free(quant, j):
+    """The swizzle permutes the 16-byte pieces within each pixel; the eight
+    row addresses of every ldmatrix matrix of an A fragment (8 consecutive
+    pixels of a tile row, one 16-byte piece of a k-step, at any tap's shift)
+    fall in eight different 16-byte columns of the banks; and the epilogue's
+    stores of one instruction (8 pixels x 4 lanes x 4 bytes, or 2 bytes in
+    int8) hit each bank at most once."""
+    tiles, total = tile_offsets(quant)
+    assert total == (100352 if quant else 200704)
+    base, pixb, side = tiles[j]
+    for p in range(side * side):
+        lo = base + p * pixb
+        assert sorted(swz(lo + c, pixb) for c in range(0, pixb, 16)) == list(
+            range(lo, lo + pixb, 16))
+    for y in range(0, side, 5):
+        for x0 in range(side - 7):
+            p0 = y * side + x0
+            for piece in range(pixb // 16):        # (k-step, half) of the fragment
+                rows = [swz(base + (p0 + r) * pixb + piece * 16, pixb) for r in range(8)]
+                assert all(a % 16 == 0 for a in rows)
+                assert len({(a >> 4) & 7 for a in rows}) == 8, (p0, piece)
+    if j == 0:
+        return                                     # x is written 16 bytes (4 in int8) at a time
+    width = 2 if quant else 4                      # bytes a lane stores: channels c, c + 1
+    for m0 in range(0, side * side - 7, 8):        # rows g = 0..7 of a slab half
+        for ntile in range(32 // 8):
+            banks = [swz(base + (m0 + g) * pixb + (ntile * 8 + 2 * t) * (width // 2), pixb) // 4
+                     % 32 for g in range(8) for t in range(4)]
+            assert max(banks.count(b) for b in set(banks)) <= (2 if quant else 1)
 
 
 def bad_operands():

@@ -217,6 +217,62 @@ def test_checkpoint_names_match_jax(args):
         state.parse_checkpoint_name("RDDBNet_x4.npz")
 
 
+# -- a BatchNorm colorizer in bf16: running statistics stay fp32, as JAX's model state --
+
+def float_buffers(pred):
+    return [b for m in (pred.sr_model, pred.c_model) for b in m.buffers() if b.is_floating_point()]
+
+
+def test_bf16_batchnorm_colorizer_keeps_fp32_statistics(tmp_path):
+    """ResDeconv(BN="BN") with running statistics that bf16 cannot hold
+    (mean ~ N(0, 0.3), var ~ U(0.5, 2)): the JAX predictor casts parameters only
+    and applies the statistics in fp32, and so does the port's, at construction
+    and after a hot reload; uint8 mean|diff| <= 1 LSB, the bound of
+    test_bf16_matches_jax."""
+    rng = np.random.default_rng(60)
+    sr, c = jax_models.RDDBNet(1, 1, 4, nf=16, nb=1), jax_models.ResDeconv(1, 3, BN="BN")
+    pA = jax.jit(sr.init)(jax.random.PRNGKey(8))
+    pB = jax.jit(c.init)(jax.random.PRNGKey(9))
+    # with these statistics 0.01 brings the output std to ~0.2 (0.03 does for GroupNorm)
+    pB = {**pB, "pred": {"w": pB["pred"]["w"] * 0.01}}
+    c_state = jax.tree_util.tree_map_with_path(
+        lambda path, a: (rng.uniform(0.5, 2.0, a.shape) if "var" in jax.tree_util.keystr(path)
+                         else rng.normal(0, 0.3, a.shape)).astype(np.float32), c.init_state())
+    npA, npB = jax.device_get(pA), jax.device_get(pB)
+
+    def modules():
+        psr, pc = models.RDDBNet(1, 1, 4, nf=16, nb=1), models.ResDeconv(1, 3, BN="BN")
+        psr.load_state_dict(interop.state_dict_from_jax(psr, npA), strict=True)
+        pc.load_state_dict(interop.state_dict_from_jax(pc, npB, c_state), strict=True)
+        return psr, pc
+
+    psr, pc = modules()
+    mean = pc.bn1.running_mean.clone()
+    assert not torch.equal(mean.bfloat16().float(), mean)      # bf16 would lose these
+    pthA, pthB = str(tmp_path / "RDDBNet_A2C_x4_0003.pth"), str(tmp_path / "ResDeconv_C2B_x4_0003.pth")
+    torch.save(psr.state_dict(), pthA)
+    torch.save(pc.state_dict(), pthB)
+
+    pred = CascadePredictor(psr, pc, 4, bf16=True, device="cpu")
+    assert pred.c_model.conv1.weight.dtype == torch.bfloat16
+    assert len(float_buffers(pred)) > 0
+    assert all(b.dtype == torch.float32 for b in float_buffers(pred))
+    assert torch.equal(pred.c_model.bn1.running_mean, mean)
+    x = u8(61, (2, 16, 16, 1))
+    want = jax_serving.CascadePredictor(sr, pA, c, pB, up=4, bf16=True, c_state=c_state).predict(x)
+    got = pred.predict(x)
+    assert got.shape == want.shape == (2, 64, 64, 3) and len(np.unique(got)) > 8
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert diff.mean() <= 1.0, (diff.mean(), diff.max())
+
+    fresh = CascadePredictor(models.RDDBNet(1, 1, 4, nf=16, nb=1),
+                             models.ResDeconv(1, 3, BN="BN"), 4, bf16=True, device="cpu")
+    fresh.reload_checkpoints(pthA, pthB)()
+    assert all(b.dtype == torch.float32 for b in float_buffers(fresh))
+    assert torch.equal(fresh.c_model.bn1.running_mean, mean)
+    np.testing.assert_array_equal(fresh.predict(x), got)
+
+
 # -- G2LAB serving: the SR net's output is L, the colorizer's two channels ab ----
 
 @pytest.fixture(scope="module")

@@ -303,6 +303,44 @@ def test_batchnorm_colorizer_step_matches_jax():
         np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6, err_msg=k)
 
 
+def test_bf16_transfer_with_batchnorm_keeps_fp32_statistics():
+    """transfer on a bf16 input with a BatchNorm colorizer whose running
+    statistics bf16 cannot hold: the eval copy casts parameters only, as the
+    JAX ops compute at the activation's dtype and leave the model state in
+    fp32.  fake_AB
+    within rel-L2 2e-2 of JAX's (bf16 rounds at other places in the two
+    frameworks), the trainer's own fp32 model untouched."""
+    rng = np.random.default_rng(21)
+    tr = port_trainer("ResDeconvBN")
+    jtr = jax_trainer()
+    jtr.netG_C2B = jax_models.ResDeconv(1, 3, BN="BN")
+    state = tr.init(3)
+    with torch.no_grad():
+        for name, b in state.c.model.named_buffers():
+            if name.endswith("running_mean"):
+                b.copy_(torch.from_numpy(rng.normal(0, 0.3, b.shape).astype(np.float32)))
+            elif name.endswith("running_var"):
+                b.copy_(torch.from_numpy(rng.uniform(0.5, 2.0, b.shape).astype(np.float32)))
+    jst = jax_state_of(jtr, state)
+    jst = jst._replace(c_model_state=to_jax(interop.jax_tree_from_module(state.c.model)[1]))
+    realA = rng.uniform(0, 1, (N, HW, HW, 1)).astype(np.float32)
+    copies = []
+    deepcopy = copy.deepcopy
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(copy, "deepcopy", lambda obj, *a: copies.append(deepcopy(obj, *a)) or copies[-1])
+        _, fake_ac, fake_ab = tr.transfer(state, torch.from_numpy(realA).bfloat16())
+    nets = [m for m in copies if isinstance(m, torch.nn.Module)]
+    assert len(nets) == 2                                     # one cast copy per network
+    bn = [b for b in nets[1].buffers() if b.is_floating_point()]
+    assert len(bn) > 0 and all(b.dtype == torch.float32 for b in bn)
+    assert all(p.dtype == torch.bfloat16 for p in nets[1].parameters())
+    assert all(p.dtype == torch.float32 for p in state.c.model.parameters())
+    assert fake_ab.dtype == torch.bfloat16
+    _, want_ac, want_ab = jtr.transfer(jst, jnp.asarray(realA).astype(jnp.bfloat16))
+    assert rel_l2(fake_ac.float().numpy(), np.asarray(want_ac, np.float32)) <= 2e-2
+    assert rel_l2(fake_ab.float().numpy(), np.asarray(want_ab, np.float32)) <= 2e-2
+
+
 # -- the LAB cascade (lab=True): L to the SR net, 2-channel ab from the colorizer --
 
 @pytest.fixture(scope="module")
