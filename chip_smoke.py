@@ -11,7 +11,11 @@ Phases, in order; the first failure raises and the script exits non-zero:
                shapes the main paths give it, with both times (CUDA events,
                median of 25 calls after 3 warm-up calls) and its bound: the
                least time the card could take, from the bytes the function
-               must move and the operations it does; the two host-bound
+               must move and the operations it does; the tail's two kernels
+               (the three GEMMs, the finish) each on the device (profiler),
+               the wrapper in rounds, and the main kernel in turns with its
+               first design (csrc/tail_x4_wmma.cu, built for this reading
+               only, through ``probes.tail_ablate``); the two host-bound
                wrappers (gray_degrade, ssim) in five rounds in turns with
                their plain versions, with the spread; the RDB5 kernel in both
                forms (bf16, int8) at the serving shape (8,128,128,64), a
@@ -20,9 +24,9 @@ Phases, in order; the first failure raises and the script exits non-zero:
   4. fp32    - the full-width serving cascade on the card against the same
                cascade on the CPU, in fp32 with TF32 off;
   5. serve   - the bf16 CascadePredictor at full width answers requests, every
-               forward goes through the tail kernel once and the rdb5_bf16
-               kernel nine times (launch counters), and the steady batch-8
-               throughput is measured;
+               forward goes through the tail's main kernel and its finish once
+               each and the rdb5_bf16 kernel nine times (launch counters), and
+               the steady batch-8 throughput is measured;
   6. trunk   - the serving RDDBNet in bf16 under rdb5_schedule("fused") and
                with no schedule scoped: 9 rdb5_bf16 launches per forward,
                against the naive forward (cuDNN), in turns;
@@ -48,12 +52,15 @@ Phases, in order; the first failure raises and the script exits non-zero:
                versions at their full shapes (int8 forms and the roll bit-equal,
                bf16 dots rel-L2 1e-3, probe_matmul's bf16 output 1e-2), each
                with its time, its bound and, where one PyTorch call computes
-               the same function, that call's time; then the three sweeps
+               the same function, that call's time (probe_matmul's bf16 form,
+               its build without products and torch.matmul also in turns, x
+               warm in L2 and x from HBM);
+               then the three sweeps
                through ``python -m srcgan_tpu_torch.probes``'s entry points,
                which must reach every kernel (launch counters);
  11. lab     - the LAB cascade at full width: CascadePredictor(lab=True) in
-               fp32 on the card against the CPU and in bf16 through the tail
-               and rdb5_bf16 kernels, beside the RGB predictor; three bf16 CasTrainer(lab=True)
+               fp32 on the card against the CPU and in bf16 through the tail's
+               two kernels and rdb5_bf16, beside the RGB predictor; three bf16 CasTrainer(lab=True)
                steps; cli.train_cas --lab for a short epoch and cli.test_cas on
                its @G2LAB checkpoints (the ssim kernel once per eval batch, the
                PNGs decode, the row agrees with --device cpu).
@@ -83,6 +90,9 @@ NF = 64
 PRED_SCALE = 0.03
 WARMUP, REPS = 3, 25         # calls per timing: warm-up, then the median of REPS
 KERNELS = ("tail_x4", "gray_degrade", "ssim", "rdb5", "probes")
+# builds timed beside a kernel and never on a path: the tail's first design;
+# probe_matmul's bf16 form with its products left out (loads and stores only)
+YARDSTICKS = (("tail_x4_wmma", ()), ("probes", ("PROBES_MM_PRODUCTS=0",)))
 # The card's published peaks (H100 SXM, dense): what a bound is taken against.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -138,25 +148,6 @@ def spread(ts) -> str:
             f"{len(ts)} rounds in turns")
 
 
-def device_us(fn, match: str, calls: int = 10):
-    """Mean device time in microseconds, per call of ``fn``, of the kernels
-    whose name contains ``match`` ("" for every kernel; torch.profiler over
-    ``calls`` calls); None where the profiler reports no device time."""
-    from torch import profiler
-
-    fn()
-    torch.cuda.synchronize()
-    with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
-                                      profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    # kernels only: an operator's own entry repeats the time of the kernels it launched
-    total = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-                if match in e.key and e.device_type == torch.autograd.DeviceType.CUDA)
-    return total / calls if total > 0 else None
-
-
 def least_time(nbytes: float, flop: float, dtype: str) -> dict:
     """The least time the card could take for a function that must move
     ``nbytes`` (each input read once, each output written once) and do
@@ -188,17 +179,25 @@ def tail_inputs(gen, ou, dev):
 
 
 def phase_kernels(dev, card: str) -> dict:
+    """The tail: its wrapper (the main kernel, then the finish) against the
+    plain version at ou = 1 and 3; at ou=1 the wrapper in rounds, each kernel
+    alone and on the device, and the main kernel in turns with its first
+    design (graph timing, 4 rounds)."""
     from srcgan_tpu_torch.ops import fused
     from srcgan_tpu_torch.ops.kernels import tail_kernel
+    from srcgan_tpu_torch.probes import common, tail_ablate
 
     gen = torch.Generator().manual_seed(0)
     result = None
     for ou in (1, 3):
         t0, d1, d2, lw, lb = tail_inputs(gen, ou, dev)
         tw = tail_kernel.prepare(d1, d2, lw)
+        before = tail_kernel.launches, tail_kernel.finish_launches
         got = tail_kernel.tail_x4_fused(t0, tw, lb)
         ref = tail_kernel.tail_x4_reference(t0, d1, d2, lw, lb)
         torch.cuda.synchronize()
+        check((tail_kernel.launches, tail_kernel.finish_launches) == (before[0] + 1, before[1] + 1),
+              "tail_x4_fused did not launch its main kernel and its finish once each")
         check(got.shape == ref.shape == (BATCH, 4 * LR, 4 * LR, ou),
               f"tail_x4 shape {tuple(got.shape)}")
         err = (got.float() - ref.float()).abs().max().item()
@@ -208,31 +207,61 @@ def phase_kernels(dev, card: str) -> dict:
               f"(bound 0.02*max(max|ref|,1) = {bound:.6g}) "
               f"{'PASS' if err <= bound else 'FAIL'}")
         check(err <= bound, f"tail_x4 ou={ou} disagrees with its plain version")
-
-        ms = median_ms(lambda: tail_kernel.tail_x4_fused(t0, tw, lb))
-        plain_ms = median_ms(lambda: tail_kernel.tail_x4_reference(t0, d1, d2, lw, lb))
         t0m = t0.reshape(-1, NF)
+        zall = tail_kernel.zall_reference(t0m, tw)
+        fin = tail_kernel._finish_kernel(zall, BATCH, LR, LR, ou, lb)
+        check(torch.equal(fin, tail_kernel.finish_reference(zall, BATCH, LR, LR, ou, lb)),
+              f"the tail's finish pass ou={ou} is not bit-equal to its plain version")
+        print(f"[kernels] tail_x4 finish ou={ou}: bit-equal to its plain version PASS")
+        if ou != 1:
+            continue
+
+        turns = in_turns_ms({"wrapper": lambda: tail_kernel.tail_x4_fused(t0, tw, lb)}, rounds=4)
+        ms = statistics.median(turns["wrapper"])
+        plain_ms = median_ms(lambda: tail_kernel.tail_x4_reference(t0, d1, d2, lw, lb), reps=5)
         k_ms = median_ms(lambda: tail_kernel._zall_kernel(t0m, tw, 0.2))
-        kp_ms = median_ms(lambda: tail_kernel.zall_reference(t0m, tw))
+        f_ms = median_ms(lambda: tail_kernel._finish_kernel(zall, BATCH, LR, LR, ou, lb))
+        k_us = common.device_us(lambda: tail_kernel._zall_kernel(t0m, tw, 0.2), "tail_x4_kernel")
+        f_us = common.device_us(lambda: tail_kernel._finish_kernel(zall, BATCH, LR, LR, ou, lb),
+                         "finish_kernel")
         dws = [d.permute(2, 3, 0, 1) for d in (d1, d2)]
         lw_hwio = lw.permute(2, 3, 1, 0)
         wf = fused.fold_last_weight(fused.tail_phases(2), lw_hwio, 4, NF, torch.bfloat16)
         fold_ms = median_ms(lambda: fused.phasefold_deconv_tail(t0, dws, lw_hwio, lb, wf=wf))
-        flop = 4 * 2 * (NF * NF + NF * 4 * NF + 4 * NF * 144 * ou) * t0m.shape[0]
+        flop = tail_ablate.flop(t0m.shape[0], NF, ou)
         least = least_time(tensor_bytes(t0, d1, d2, lw, lb, got), flop, "bf16")
-        print(f"[kernels] tail_x4 ou={ou} on {card}: wrapper {ms:.4f} ms, plain "
-              f"version {plain_ms:.4f} ms; kernel alone {k_ms:.4f} ms "
-              f"({flop / k_ms / 1e9:.1f} TFLOP/s), its plain zall {kp_ms:.4f} ms; "
-              f"bf16 phase-folded tail (cuDNN, a chain of calls) {fold_ms:.4f} ms; "
-              f"bound {least['bound_ms']:.4f} ms by {least['bound_by']} "
-              f"({flop / 1e9:.1f} GFLOP at the bf16 peak)")
-        if ou == 1:
-            # no single PyTorch call computes the tail: library_ms is null
-            result = {"name": "tail_x4", "route": "cuda",
-                      "source": "srcgan_tpu_torch/csrc/tail_x4.cu",
-                      "replaces": "srcgan_tpu/ops/pallas/tail_kernel.py:66",
-                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **least,
-                      "library_ms": None}
+        fin_least = least_time(tensor_bytes(zall, got), 0, "bf16")
+        # the main kernel in turns with its first design, both under graph
+        # timing (4 launches a replay)
+        first = {"ships": lambda: tail_kernel._zall_kernel(t0m, tw, 0.2),
+                 "first design": lambda: tail_ablate.first_design(t0m, tw)}
+        graph = {k: [] for k in first}
+        order = list(first)
+        for _ in range(4):
+            for k in order:
+                graph[k].append(common.graph_ms([first[k]] * 4))
+            order.reverse()
+        first_us = common.device_us(first["first design"], "tail_x4_kernel")
+        fmt = lambda v: "not measured" if v is None else f"{v:.1f} us"
+        print(f"[kernels] tail_x4 ou={ou} on {card}: wrapper {spread(turns['wrapper'])}; plain "
+              f"version {plain_ms:.4f} ms; main kernel alone {k_ms:.4f} ms, on the device "
+              f"{fmt(k_us)} ({flop / 1e6 / k_us if k_us else 0:.1f} TFLOP/s on the device); "
+              f"finish alone {f_ms:.4f} ms, on the device {fmt(f_us)} (bound "
+              f"{fin_least['bound_ms'] * 1e3:.2f} us by bytes); bf16 phase-folded tail (cuDNN, a "
+              f"chain of calls) {fold_ms:.4f} ms; bound {least['bound_ms']:.4f} ms by "
+              f"{least['bound_by']} ({flop / 1e9:.1f} GFLOP at the bf16 peak)")
+        print(f"[kernels] tail_x4 main kernel in turns with its first design (graph of 4 "
+              f"launches, ms per launch): ships {' / '.join(f'{t:.4f}' for t in graph['ships'])}; "
+              f"first design {' / '.join(f'{t:.4f}' for t in graph['first design'])} (on the "
+              f"device {fmt(first_us)})")
+        # no single PyTorch call computes the tail: library_ms is null
+        result = {"name": "tail_x4", "route": "cuda",
+                  "source": "srcgan_tpu_torch/csrc/tail_x4.cu",
+                  "replaces": "srcgan_tpu/ops/pallas/tail_kernel.py:66",
+                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **least,
+                  "library_ms": None, "device_us": k_us, "finish_device_us": f_us,
+                  "first_design_graph_ms": statistics.median(graph["first design"]),
+                  "graph_ms": statistics.median(graph["ships"])}
     return result
 
 
@@ -301,6 +330,7 @@ def phase_ssim(dev, card: str) -> dict:
     1.8e-7 was the most seen on an H100)."""
     from srcgan_tpu_torch import config
     from srcgan_tpu_torch.ops.kernels import ssim_kernel as sk
+    from srcgan_tpu_torch.probes import common
 
     modes = [dict(size_average=True), dict(size_average=False),
              dict(size_average=True, full=True),
@@ -351,7 +381,7 @@ def phase_ssim(dev, card: str) -> dict:
         n, h, w, c = shape
         ranges, dims = sk.plane_ranges(x, True), sk._check(x, y, 11)
         kernel_ms = median_ms(lambda: sk._kernel(x, y, ranges, dims, 11))
-        on_device = device_us(lambda: sk._kernel(x, y, ranges, dims, 11), "ssim_kernel")
+        on_device = common.device_us(lambda: sk._kernel(x, y, ranges, dims, 11), "ssim_kernel")
         least = least_time(tensor_bytes(x, y) + 4 * n, ssim_flop(n, h, w, c), "fp32")
         print(f"[kernels] ssim per-sample {shape} on {card}: wrapper {ms:.4f} ms (launch "
               f"and the sum of its partials alone {kernel_ms:.4f} ms; the kernel on the device "
@@ -411,15 +441,19 @@ def phase_serve(dev, card, sr, c, x_small, fp32_small) -> int:
     stream_in = [rng.integers(0, 256, (BATCH, LR, LR, 1), dtype=np.uint8)
                  for _ in range(3)]
 
-    tail_kernel.launches = rdb5_kernel.launches_bf16 = rdb5_kernel.reference_calls = 0
+    tail_kernel.launches = tail_kernel.finish_launches = 0
+    rdb5_kernel.launches_bf16 = rdb5_kernel.reference_calls = 0
     y = pred.predict(gray)
     y3 = pred.predict(gray[:3])             # ragged: padded to 8 with the last row
     yrgb = pred.predict(rgb)
     ys = list(pred.predict_stream(iter(stream_in), lookahead=2))
     launches, blocks = tail_kernel.launches, rdb5_kernel.launches_bf16
+    finishes = tail_kernel.finish_launches
     forwards = 6
-    print(f"[serve] {forwards} forwards, tail_x4 launches {launches}, rdb5_bf16 launches {blocks}")
-    check(launches == forwards, "a bf16 forward did not go through the tail kernel once")
+    print(f"[serve] {forwards} forwards, tail_x4 launches {launches} (finish {finishes}), "
+          f"rdb5_bf16 launches {blocks}")
+    check(launches == finishes == forwards,
+          "a bf16 forward did not go through the tail's main kernel and finish once each")
     check(blocks == 9 * forwards and rdb5_kernel.reference_calls == 0,
           "a bf16 forward did not run its nine RDB5 blocks through the rdb5_bf16 kernel")
 
@@ -440,14 +474,14 @@ def phase_serve(dev, card, sr, c, x_small, fp32_small) -> int:
     print("[serve] shapes, dtype, non-constant output, padding and stream: PASS")
 
     x = torch.from_numpy(gray).to(dev)
-    before = tail_kernel.launches
+    before = tail_kernel.launches, tail_kernel.finish_launches
     ms = median_ms(lambda: pred._run(x))
     xin = (x.float() / 255).permute(0, 3, 1, 2).to(torch.bfloat16,
                                                    memory_format=torch.channels_last)
     with torch.no_grad():
         sr_ms = median_ms(lambda: pred.sr_model(xin))
-    check(tail_kernel.launches - before == 2 * (WARMUP + REPS),
-          "a timed forward missed the tail kernel")
+    check(tail_kernel.launches - before[0] == tail_kernel.finish_launches - before[1]
+          == 2 * (WARMUP + REPS), "a timed forward missed a tail kernel")
     mp = BATCH * (4 * LR) ** 2 / 1e6
     print(f"[serve] steady batch-8 128^2 -> 512^2 bf16 on {card}: cascade "
           f"{ms:.3f} ms = {mp / ms * 1e3:.2f} MP/s; RDDBNet x4 alone {sr_ms:.3f} ms "
@@ -711,6 +745,7 @@ def phase_rdb5(dev, card: str):
     from srcgan_tpu_torch import config
     from srcgan_tpu_torch.models.blocks import ResidualDenseBlock5, rdb5_schedule
     from srcgan_tpu_torch.ops.kernels import rdb5_kernel as rk
+    from srcgan_tpu_torch.probes import common
 
     gen = torch.Generator().manual_seed(9)
     blk = ResidualDenseBlock5(64, 32).eval().requires_grad_(False)
@@ -780,12 +815,12 @@ def phase_rdb5(dev, card: str):
                 ("bf16", rk.rdb5_bf16_fused, rk.rdb5_bf16_reference, xb, wb, cudnn16)):
             ms = statistics.median(turns[form])
             plain_ms = median_ms(lambda: plain(xin, wts), reps=5)
-            on_device = device_us(lambda: fn(xin, wts), "rdb5_kernel")
+            on_device = common.device_us(lambda: fn(xin, wts), "rdb5_kernel")
             count = rk.launches_bf16
             with torch.no_grad(), rdb5_schedule("naive"), \
                     config.precision("bf16" if form == "bf16" else "fp32"):
                 # every kernel of the cuDNN block (about fifteen launches) on the device
-                lib_device = device_us(
+                lib_device = common.device_us(
                     (lambda: blk16(xbn)) if form == "bf16" else (lambda: blk(xn)), "")
             check(rk.launches_bf16 == count, "the cuDNN block went through the rdb5_bf16 kernel")
             vectors = (wts.sw, wts.rq, wts.bias) if form == "int8" else (wts.bias,)
@@ -1025,7 +1060,7 @@ def phase_probes(dev, card: str) -> list:
     it); the time in the kernels line is one whole call (all its dependent
     steps).  Returns the six entries of the kernels line."""
     from srcgan_tpu_torch import config
-    from srcgan_tpu_torch.ops.kernels import probe_kernels as pk
+    from srcgan_tpu_torch.ops.kernels import build, probe_kernels as pk
     from srcgan_tpu_torch.probes import __main__ as probes_main
     from srcgan_tpu_torch.probes import common
 
@@ -1085,6 +1120,27 @@ def phase_probes(dev, card: str) -> list:
                     times("probe_matmul", f"bf16 K={k} N={n}", lambda: pk.probe_matmul(x, w),
                           lambda: pk.probe_matmul_reference(x, w), tensor_bytes(x, w, got),
                           2 * PROBE_M * k * n, "bf16", lib=lambda: torch.matmul(x, w))
+        # probe_matmul's bf16 form, its ablation build and torch.matmul in
+        # turns, graph timing: the same x every launch (warm in L2), then
+        # copies of x rotating over three times the L2 (read from HBM)
+        x, w = pair(PROBE_M, 576, 192, bf16)
+        xs = [x.clone() for _ in range(-(-3 * common.L2_BYTES // tensor_bytes(x)))]
+        loads = pk.declare(build.load(*YARDSTICKS[1]))
+        fns = {"kernel": pk.probe_matmul,
+               "loads and stores only": lambda v, u: pk.matmul_bf16(loads, v, u),
+               "torch.matmul": torch.matmul}
+        calls = {f"{k}, {where}": ([lambda f=f: f(x, w)] * 4 if where == "x in L2"
+                                   else [lambda f=f, v=v: f(v, w) for v in xs])
+                 for where in ("x in L2", "x from HBM") for k, f in fns.items()}
+        rounds, order = {k: [] for k in calls}, list(calls)
+        for _ in range(4):
+            for k in order:
+                rounds[k].append(common.graph_ms(calls[k]))
+            order.reverse()
+        print(f"[probes] probe_matmul bf16 K=576 N=192 against torch.matmul in turns on {card}, "
+              f"ms per call in 4 rounds: " + "; ".join(
+                  f"{k} {' / '.join(f'{t:.4f}' for t in v)}" for k, v in rounds.items()))
+        del xs
         # 6b probe_mxu: B=16 dependent dots on a resident tile
         for dtype, tname in ((bf16, "bf16"), (int8, "int8")):
             for k, n in ((192, 128), (576, 192)):
@@ -1197,13 +1253,15 @@ def phase_lab(dev, card: str, rgb_sr, rgb_c, x_small) -> dict:
     rgb = CascadePredictor(copy.deepcopy(rgb_sr), copy.deepcopy(rgb_c), 4, bf16=True, device=dev)
     rng = np.random.default_rng(13)
     gray = rng.integers(0, 256, (BATCH, LR, LR, 1), dtype=np.uint8)
-    tail_kernel.launches = rdb5_kernel.launches_bf16 = 0
+    tail_kernel.launches = tail_kernel.finish_launches = rdb5_kernel.launches_bf16 = 0
     y, y3 = pred.predict(gray), pred.predict(gray[:3])
     ys = list(pred.predict_stream(iter([gray, gray]), lookahead=2))
     tail_launches, blocks, forwards = tail_kernel.launches, rdb5_kernel.launches_bf16, 4
-    print(f"[lab] {forwards} bf16 LAB forwards, tail_x4 launches {tail_launches}, rdb5_bf16 "
-          f"launches {blocks}")
-    check(tail_launches == forwards, "a bf16 LAB forward did not go through the tail kernel once")
+    finishes = tail_kernel.finish_launches
+    print(f"[lab] {forwards} bf16 LAB forwards, tail_x4 launches {tail_launches} (finish "
+          f"{finishes}), rdb5_bf16 launches {blocks}")
+    check(tail_launches == finishes == forwards,
+          "a bf16 LAB forward did not go through the tail's main kernel and finish once each")
     check(blocks == 9 * forwards, "a bf16 LAB forward did not run its nine RDB5 blocks through "
           "the rdb5_bf16 kernel")
     full = (BATCH, 4 * LR, 4 * LR, 3)
@@ -1272,12 +1330,13 @@ def main() -> int:
     print(f"[device] {card}; nvidia-smi name, power.limit: {smi}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        built = list(pool.map(build.build, KERNELS))
+    builds = [(k, ()) for k in KERNELS] + list(YARDSTICKS)
+    with ThreadPoolExecutor(len(builds)) as pool:
+        built = list(pool.map(lambda b: build.build(*b), builds))
     for path, seconds, log in built:
         print(f"[build] {path.name}: nvcc {seconds:.1f} s")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("registers", "spill", "wgmma", "C75")):
                 print(f"[build]   {line.strip()}")
 
     where = f"{card} ({smi})"

@@ -46,14 +46,32 @@
 // tile.  int8: the operand is x or clip(x + 1, -127, 127) by the parity of
 // y00, applied as a saturating byte add to each A fragment.
 //
-// Modes of the template: plain (make_matmul with B=1 and the output cast to
-// the input type, make, probe_dots); concat and twodots (probe_concat_dot:
+// Modes of the template: plain (make_matmul's int8 form with B=1 and the
+// output cast to int8, make, probe_dots); concat and twodots (probe_concat_dot:
 // the stacked form rebuilds the [a, a/2] tile in shared memory every step,
 // the other halves the A fragments of the second dot in registers); im2col
 // and shifted (probe_stage1: a block holds its rows with a halo of stride+1
 // rows each way, wrapped modulo M; im2col copies the nine shifted views into
 // a 64 x 576 tile as the TPU kernel does in VMEM, shifted reads the A
 // fragments at shifted rows and builds nothing).
+//
+// make_matmul in bf16 has a kernel of its own, matmul_kernel.  One dot fed
+// from HBM is bound by its bytes (25.4 MB at (16384,576)@(576,192): 7.6 us at
+// 3.35 TB/s), so what counts is keeping loads in flight and nothing else in
+// the way.  A producer warp starts TMA loads through two tensor maps with the
+// 128-byte swizzle into a ring of five stages on mbarriers: per stage a box of
+// 128 rows x 64 k of x (the K-major A) and N/64 boxes of 64 k x 64 n of w,
+// read as it lies, (K,N) row-major, as an MN-major B (the wgmma transpose
+// bit): no transpose launch, no scratch.  Two consumer warpgroups each run
+// m64nNk16 from both descriptors on their 64 of the block's 128 rows, keep one
+// group in flight and release a stage once the group that read it is done.
+// The fp32 sums are rounded to bf16 and exchanged within each quad of lanes,
+// so that every thread stores 16 bytes.  At M = 16384, 128 blocks fill the
+// 132 SMs in one wave.  The tensor maps are built per call on the host by
+// cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint (so the
+// library needs no -lcuda), and passed as __grid_constant__ parameters.  The
+// int8 form stays on dots_kernel (plain mode, one dot, the int32 sum cast to
+// int8): it is already faster than torch._int_mm.
 //
 // probe_roll has no dot: B steps of out[i] = bf16(in[(i - shift) mod M] + c)
 // between two buffers that stay in L2, with a grid-wide barrier between
@@ -67,7 +85,11 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kBM = 64;            // rows of x a block owns
 constexpr int kThreads = 256;      // eight warps: 2 along rows x 4 along columns
@@ -122,49 +144,6 @@ __device__ __forceinline__ void cp_async_commit() {
 
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// One-thread bulk copies (the TMA unit, no tensor map) that complete on an
-// mbarrier: the copy of a slice costs the block one instruction, so the warps
-// that run mma.sync never wait for room in the load queue.
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// The one arrival a phase of `bar` waits for, and the bytes its copies bring.
-// The stage was last read through ldmatrix by warps that have since passed a
-// block barrier, which is all a copy that overwrites it needs (a proxy fence
-// here made every slice slower and ordered nothing more).
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_addr(smem)),
-      "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
 }
 
 __device__ __forceinline__ float2 unpack(uint32_t v) {
@@ -244,9 +223,8 @@ dots_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ wt, void*
   const bool chained = !(B == 1 && cast_out);       // make_matmul reads no y[0,0]
 
   if (tid == 0) {
-    for (int s = 0; s < stages; ++s) mbar_init(full + s);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async;\n" ::: "memory");
+    for (int s = 0; s < stages; ++s) mbar_init(full + s, 1);
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -292,7 +270,10 @@ dots_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ wt, void*
 
   // ---- w streams in slices, each one bulk copy of N padded rows as wt holds
   // them; in plain mode x arrives with the first dot's slices, a copy per row.
-  // Warp 0 starts them all.
+  // Warp 0 starts them all.  A stage was last read through ldmatrix by warps
+  // that have since passed a block barrier, which is all a copy that
+  // overwrites it needs (a proxy fence made every slice slower and ordered
+  // nothing more).
   constexpr unsigned kWsBytes = N * kSliceStride * 4;
   auto load_slice = [&](int s) {
     const int ks = s % nslices;
@@ -542,6 +523,175 @@ int launch_plain(int N, const uint8_t* x, const uint8_t* wt, void* out, int M, i
   return cudaErrorInvalidValue;
 }
 
+// ---- make_matmul in bf16 (see the header): a warp-specialised wgmma GEMM
+// The switch of the ablation in chip_smoke.py (the default is the design that
+// ships): PROBES_MM_PRODUCTS=0 leaves the products out (loads and stores only;
+// the result is wrong).
+#ifndef PROBES_MM_PRODUCTS
+#define PROBES_MM_PRODUCTS 1
+#endif
+constexpr int kMmRows = 128;                     // rows of x per block: two warpgroups of 64
+constexpr int kMmK = 64;                         // k per stage: one 128-byte swizzled row
+constexpr int kMmStages = 5;
+constexpr int kMmThreads = 288;                  // two consumer warpgroups, one producer warp
+constexpr int kMmXBytes = kMmRows * kMmK * 2;    // the stage's box of x, 16 KB
+constexpr int kMmWBox = kMmK * 64 * 2;           // one 64 x 64 box of w, 8 KB
+
+template <int N> __host__ __device__ constexpr int mm_stage_bytes() {
+  return kMmXBytes + (N / 64) * kMmWBox;
+}
+// the ring, its 2 x 5 barriers, and room to align the ring to 1024 bytes
+template <int N> __host__ __device__ constexpr int mm_smem_bytes() {
+  return 1024 + kMmStages * mm_stage_bytes<N>() + 2 * kMmStages * 8;
+}
+
+// Four threads of a quad hold words v[j] = columns 2q, 2q+1 of column block j
+// of one row; afterwards thread q holds v[p] = columns 2p, 2p+1 of block q,
+// i.e. the eight columns of block q in order.  Two exchanges: the off-diagonal
+// 2 x 2 blocks with lane q ^ 2, then the off-diagonal elements with q ^ 1.
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int q) {
+  const bool hi = q & 2, odd = q & 1;
+  uint32_t r0 = __shfl_xor_sync(0xffffffffu, hi ? v[0] : v[2], 2);
+  uint32_t r1 = __shfl_xor_sync(0xffffffffu, hi ? v[1] : v[3], 2);
+  if (hi) { v[0] = r0; v[1] = r1; } else { v[2] = r0; v[3] = r1; }
+  r0 = __shfl_xor_sync(0xffffffffu, odd ? v[0] : v[1], 1);
+  r1 = __shfl_xor_sync(0xffffffffu, odd ? v[2] : v[3], 1);
+  if (odd) { v[0] = r0; v[2] = r1; } else { v[1] = r0; v[3] = r1; }
+}
+
+template <int N>
+__global__ void __launch_bounds__(kMmThreads, 1)
+matmul_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+              __nv_bfloat16* __restrict__ out, int M, int K) {
+  extern __shared__ uint8_t mm_smem[];
+  constexpr int kStage = mm_stage_bytes<N>();
+  uint8_t* const ring = mm_smem + ((1024u - (smem_addr(mm_smem) & 1023u)) & 1023u);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(ring + kMmStages * kStage);
+  uint64_t* const empty = full + kMmStages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m0 = blockIdx.x * kMmRows, nk = (K + kMmK - 1) / kMmK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kMmStages; ++s) {
+      mbar_init(full + s, 1);                     // the producer's arrival, with the bytes
+      mbar_init(empty + s, 8);                    // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    // ---- the producer: stage kb % 5 once the consumers have let go of kb - 5
+    if (lane == 0) {
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % kMmStages;
+        uint8_t* const st = ring + s * kStage;
+        mbar_wait(empty + s, ((kb / kMmStages) & 1) ^ 1);
+        mbar_expect(full + s, kStage);
+        tma_load_2d(st, &xmap, kb * kMmK, m0, full + s);
+#pragma unroll
+        for (int j = 0; j < N / 64; ++j)
+          tma_load_2d(st + kMmXBytes + j * kMmWBox, &wmap, j * 64, kb * kMmK, full + s);
+      }
+    }
+  } else {
+    // ---- the consumers: warpgroup wg owns rows m0 + 64 wg .. + 63
+    const int wg = warp >> 2;
+    float d[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+    for (int kb = 0; kb < nk; ++kb) {
+      const int s = kb % kMmStages;
+      mbar_wait(full + s, (kb / kMmStages) & 1);
+      const unsigned xs = smem_addr(ring + s * kStage) + wg * 64 * 128;
+      const unsigned ws = smem_addr(ring + s * kStage + kMmXBytes);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kMmK / 16; ++k)   // a k16 step: 32 bytes along x's rows, 16 rows of w
+        if (PROBES_MM_PRODUCTS)
+          SsT<N>::mma(d, descriptor(xs + k * 32, 16, 1024, true),
+                      descriptor(ws + k * 16 * 128, kMmWBox, 1024, true), 1);
+      wgmma_commit();
+      wgmma_wait<1>();                      // the group of stage kb - 1 is done reading it
+      if (kb > 0 && lane == 0) mbar_arrive(empty + (kb - 1) % kMmStages);
+    }
+    wgmma_wait<0>();
+    keep(d);
+
+    // ---- rounded to bf16, 16 bytes per thread and row half
+    const int g = lane >> 2, q = lane & 3;
+    const int row = m0 + wg * 64 + (warp & 3) * 16 + g;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int t = 0; t < N / 32; ++t) {
+        uint32_t v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v[j] = pack(d[(4 * t + j) * 4 + 2 * h], d[(4 * t + j) * 4 + 2 * h + 1]);
+        quad_transpose(v, q);
+        if (row + 8 * h < M)
+          *reinterpret_cast<uint4*>(out + size_t(row + 8 * h) * N + 32 * t + 8 * q) =
+              make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, a function of the CUDA driver API, fetched through
+// the runtime so that the library needs no -lcuda; null where the installed
+// CUDA driver lacks it.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                      : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major (outer, inner) bf16 tensor in boxes of (box_outer, box_inner)
+// with the 128-byte swizzle (box_inner * 2 == 128).
+int bf16_map(CUtensorMap* map, const void* ptr, uint64_t inner, uint64_t outer, uint32_t box_inner,
+             uint32_t box_outer) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {inner, outer}, strides[1] = {inner * 2};
+  const cuuint32_t box[2] = {box_inner, box_outer}, steps[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                            strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int N>
+int launch_matmul(const void* x, const void* w, void* out, int M, int K, cudaStream_t stream) {
+  CUtensorMap xmap, wmap;
+  int err = bf16_map(&xmap, x, K, M, kMmK, kMmRows);
+  if (err == cudaSuccess) err = bf16_map(&wmap, w, N, K, 64, kMmK);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = mm_smem_bytes<N>();
+  err = cudaFuncSetAttribute(matmul_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (M + kMmRows - 1) / kMmRows;
+  matmul_kernel<N><<<blocks, kMmThreads, smem, stream>>>(xmap, wmap,
+                                                         static_cast<__nv_bfloat16*>(out), M, K);
+  return cudaGetLastError();
+}
+
 // One roll step per grid barrier.  counter counts arrivals and is 0 at launch.
 __device__ __forceinline__ void grid_barrier(unsigned* counter, unsigned target) {
   __syncthreads();
@@ -619,6 +769,23 @@ int probes_dots_launch(const void* x, const void* w, void* wt, void* out, int M,
     case kIm2col: return launch_dots<6, false, kIm2col>(xb, wb, out, M, kb, B, 0, stride, s);
     default: return launch_dots<6, false, kShifted>(xb, wb, out, M, kb, B, 0, stride, s);
   }
+}
+
+// make_matmul in bf16: x (M, K) and w (K, N), row-major bf16, into out (M, N)
+// bf16, the fp32 sums rounded once.  M > 0, K > 0 and K % 32 == 0, N in {64,
+// 128, 192}; every pointer 16-byte aligned.  Launches on `stream`; returns
+// cudaGetLastError(), cudaErrorInvalidValue where a tensor map is refused, or
+// cudaErrorNotSupported where the CUDA driver has no cuTensorMapEncodeTiled.
+int probes_matmul_launch(const void* x, const void* w, void* out, int M, int K, int N,
+                         void* stream) {
+  if (M <= 0 || K <= 0 || K % 32 != 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (N) {
+    case 64: return launch_matmul<64>(x, w, out, M, K, s);
+    case 128: return launch_matmul<128>(x, w, out, M, K, s);
+    case 192: return launch_matmul<192>(x, w, out, M, K, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // B dependent rolls of a (M, C) bf16 tensor along rows by `shift` in [0, M),

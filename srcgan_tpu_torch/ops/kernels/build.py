@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use into ``srcgan_tpu_torch/_build/lib<name>-<digest>.so`` (the digest covers
-the source, the flags and the ``-D`` defines of a variant, so an edited source
-rebuilds and every variant has its own library).  The build is atomic
+the source, the headers of ``csrc/`` it includes, the flags and the ``-D``
+defines of a variant, so an edited source or included header rebuilds and
+every variant has its own library).  The build is atomic
 (temporary file + rename), so concurrent processes can race on it safely.
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine with no CUDA toolkit.
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict = {}
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def nvcc() -> str:
@@ -42,22 +45,46 @@ def nvcc() -> str:
     return found
 
 
+def headers(src: bytes) -> list:
+    """The headers of csrc/ that ``src`` includes with quotes, and those they
+    include in turn, each once, in the order first met."""
+    found, todo = [], [src]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop()):
+            path = CSRC / inc.decode()
+            if path not in found and path.is_file():
+                found.append(path)
+                todo.append(path.read_bytes())
+    return found
+
+
+def flags(defines: tuple = ()) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines: tuple = ()) -> Path:
+    """Where the library of csrc/<name>.cu (of its variant ``defines``) is
+    built: the name holds a digest of the source, the headers it includes
+    and the flags."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    included = b"".join(p.read_bytes() for p in headers(src))
+    digest = hashlib.sha256(src + included + " ".join(flags(defines)).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
 def build(name: str, defines: tuple = ()) -> tuple:
     """Compile csrc/<name>.cu unless its library exists.  ``defines`` are
     compile-time switches of the source ("RDB5_WGMMA=0", ...), none for the
     design that ships.  Returns (path, seconds spent compiling, compiler log);
     seconds is 0.0 and the log the one kept from the earlier build when the
     library was already there."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    out = library_path(name, defines)
     log_path = out.with_suffix(".log")
     if out.exists():
         return out, 0.0, log_path.read_text() if log_path.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     t = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     seconds = time.perf_counter() - t

@@ -11,8 +11,11 @@ wrapper per probe function and beside each its plain PyTorch version:
     probe_stage1      scripts/pallas_layout_probe3.py::probe_stage1
 
 Each is one call of ``csrc/probes.cu``: the loop of B dependent steps runs
-inside the kernel, because it is what the probe measures.  A wrapper
-launches its kernel for a CUDA tensor (and raises where the kernel does not
+inside the kernel, because it is what the probe measures.  ``probe_matmul``
+in bf16 has a kernel of its own (a warp-specialised ``wgmma`` GEMM fed by TMA
+loads, w read as it lies); its int8 form and the other dot probes share one
+``mma.sync`` template, which first rearranges w into a scratch tensor.  A
+wrapper launches its kernel for a CUDA tensor (and raises where the kernel does not
 take the shape) and runs the plain version for a CPU tensor; there is no
 fallback from one to the other.  ``launches[name]`` counts kernel launches.
 
@@ -148,10 +151,17 @@ def _library() -> ctypes.CDLL:
     """csrc/probes.cu, built at first use, with its C signatures declared."""
     from srcgan_tpu_torch.ops.kernels import build
 
-    lib = build.load("probes")
+    return declare(build.load("probes"))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a build of csrc/probes.cu (of a variant too)."""
     lib.probes_dots_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     lib.probes_dots_launch.restype = ctypes.c_int
+    lib.probes_matmul_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    lib.probes_matmul_launch.restype = ctypes.c_int
     lib.probes_roll_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_void_p]
     lib.probes_roll_launch.restype = ctypes.c_int
@@ -168,17 +178,27 @@ def _check_pair(name: str, x: torch.Tensor, w: torch.Tensor, dtypes):
         raise ValueError(f"{name}: operands on {x.device} and {w.device}")
 
 
-def _launch_dots(name: str, x: torch.Tensor, w: torch.Tensor, steps: int, cast_out: bool,
-                 mode: str, stride: int = 0) -> torch.Tensor:
-    """Check what csrc/probes.cu takes, allocate, launch, count."""
-    m, (k, n) = x.shape[0], w.shape
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError(f"{name}: the operands must be contiguous")
+def check_shape(name: str, m: int, k: int, n: int, steps: int = 1, mode: str = "plain"):
+    """Raise ValueError where csrc/probes.cu does not take the shape: M % 64,
+    K % 32, N in (64, 128, 192), N = 192 in the forms other than plain."""
     if m % _ROWS or k % 32 or n not in _WIDTHS or steps < 1:
         raise ValueError(f"{name}: the kernel takes M % {_ROWS} == 0, K % 32 == 0 and N in "
                          f"{_WIDTHS}; got M={m}, K={k}, N={n}")
     if mode != "plain" and n != 192:
         raise ValueError(f"{name}: the kernel's {mode} form is built for N=192, got {n}")
+
+
+def _check_contiguous(name: str, *tensors):
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: the operands must be contiguous")
+
+
+def _launch_dots(name: str, x: torch.Tensor, w: torch.Tensor, steps: int, cast_out: bool,
+                 mode: str, stride: int = 0) -> torch.Tensor:
+    """Check what csrc/probes.cu takes, allocate, launch, count."""
+    m, (k, n) = x.shape[0], w.shape
+    _check_contiguous(name, x, w)
+    check_shape(name, m, k, n, steps, mode)
     lib = _library()
     is_int = x.dtype == torch.int8
     out_dtype = x.dtype if cast_out else (torch.int32 if is_int else torch.float32)
@@ -197,11 +217,36 @@ def _launch_dots(name: str, x: torch.Tensor, w: torch.Tensor, steps: int, cast_o
     return out
 
 
+def matmul_bf16(lib: ctypes.CDLL, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """probe_matmul's bf16 kernel in the build ``lib`` (the same shapes as the
+    other dots, no scratch); no launch counted."""
+    m, (k, n) = x.shape[0], w.shape
+    _check_contiguous("probe_matmul", x, w)
+    check_shape("probe_matmul", m, k, n)
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("probe_matmul: the operands must be 16-byte aligned")
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.probes_matmul_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, stream)
+    if err:
+        raise RuntimeError(f"probe_matmul launch failed: {lib.probes_error_string(err).decode()}")
+    return out
+
+
+def _launch_matmul_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    out = matmul_bf16(_library(), x, w)
+    launches["probe_matmul"] += 1
+    return out
+
+
 def probe_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """One (M,K) @ (K,N) dot fed from device memory, bf16 -> bf16 or int8 ->
     int8 (the int32 sum wraps).  CUDA tensors: the kernel; CPU: the plain version."""
     _check_pair("probe_matmul", x, w, (torch.bfloat16, torch.int8))
     if x.is_cuda:
+        if x.dtype == torch.bfloat16:
+            return _launch_matmul_bf16(x, w)
         return _launch_dots("probe_matmul", x, w, 1, True, "plain")
     return probe_matmul_reference(x, w)
 

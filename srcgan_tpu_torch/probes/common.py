@@ -1,5 +1,5 @@
-"""What the three probe sweeps share: the device flag, the header line, seeded
-operands and the timing."""
+"""What the probe sweeps and ablations share: the device flag, the header
+line, seeded operands and the timing."""
 from __future__ import annotations
 
 import argparse
@@ -78,6 +78,25 @@ def graph_ms(calls, reps: int = 15, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / len(calls))
     return statistics.median(times)
+
+
+def device_us(fn, match: str, calls: int = 10):
+    """Mean device microseconds per call of ``fn`` of the kernels whose name
+    holds ``match`` ("" for every kernel; torch.profiler over ``calls``
+    calls); None where the profiler reports no device time."""
+    from torch import profiler
+
+    fn()
+    torch.cuda.synchronize()
+    with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
+                                      profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    # kernels only: an operator's own entry repeats the time of the kernels it launched
+    total = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+                if match in e.key and e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / calls if total > 0 else None
 
 
 def rate(ops: float, ms: float) -> float:

@@ -64,6 +64,51 @@ def test_tail_kernel_matches_plain_version(dev, n, h, w, nf, ou):
     assert err <= 0.02 * max(scale, 1.0), (err, scale)
 
 
+@pytest.mark.parametrize("ou", [1, 3])
+@pytest.mark.parametrize("nf", [16, 32, 48, 64])
+@pytest.mark.parametrize("size", ["small", "full"])
+def test_tail_kernel_every_width(dev, size, nf, ou):
+    """Every nf the gate takes (padded to 16) and ou in {1, 3}, at a small
+    shape with a ragged last tile and at the serving shape (8,128,128,nf)."""
+    n, h, w = (3, 8, 16) if size == "small" else (8, 128, 128)
+    t0, d1, d2, lw, lb = tail_args(nf + ou, n, h, w, nf, ou, dev)
+    before = tail_kernel.launches, tail_kernel.finish_launches
+    got = tail_kernel.tail_x4_fused(t0, tail_kernel.prepare(d1, d2, lw), lb)
+    ref = tail_kernel.tail_x4_reference(t0, d1, d2, lw, lb)
+    torch.cuda.synchronize()
+    assert (tail_kernel.launches, tail_kernel.finish_launches) == (before[0] + 1, before[1] + 1)
+    assert got.shape == ref.shape == (n, 4 * h, 4 * w, ou)
+    err, scale = (got.float() - ref.float()).abs().max().item(), ref.float().abs().max().item()
+    assert err <= 0.02 * max(scale, 1.0), (err, scale)
+
+
+@pytest.mark.parametrize("nf", [16, 32, 48, 64])
+def test_tail_accumulator_chains_into_the_next_product(dev, nf):
+    """GEMM 1's wgmma accumulator, through LeakyReLU and bf16, is GEMM 2's A
+    operand in registers: the first 64 rows and the first z2 chunk alone."""
+    from srcgan_tpu_torch.probes import tail_ablate
+
+    t0m, tw = tail_ablate.inputs(torch.Generator().manual_seed(nf), 1, dev, (1, 8, 8, nf))
+    got, ref = tail_ablate.chain(t0m, tw), tail_ablate.chain_reference(t0m, tw)
+    torch.cuda.synchronize()
+    assert ((got - ref).norm() / ref.norm()).item() <= 1e-3
+
+
+@pytest.mark.parametrize("ou", [1, 3])
+def test_tail_finish_kernel_equals_plain_version(dev, ou):
+    """The finish pass sums the taps in fp32 in the plain version's order and
+    rounds once: the two agree bit for bit."""
+    g = torch.Generator().manual_seed(ou)
+    n, h, w = 2, 16, 24
+    zall = torch.randn(n * h * w, 144 * ou, generator=g).to(dev, torch.bfloat16)
+    lb = torch.randn(ou, generator=g).to(dev)
+    for bias in (None, lb):
+        got = tail_kernel._finish_kernel(zall, n, h, w, ou, bias)
+        ref = tail_kernel.finish_reference(zall, n, h, w, ou, bias)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+
+
 def test_tail_kernel_rejects_what_it_cannot_run(dev):
     t0, d1, d2, lw, lb = tail_args(0, 1, 16, 16, 16, 1, dev)
     tw = tail_kernel.prepare(d1, d2, lw)
@@ -74,21 +119,23 @@ def test_tail_kernel_rejects_what_it_cannot_run(dev):
 
 
 def test_rddbnet_gate(dev):
-    """Eval bf16 x4 on the card takes the kernel, once per forward; fp32,
-    training mode and x2 take the phase-folded tail.  Both tails agree."""
+    """Eval bf16 x4 on the card takes the kernels, the main one and the
+    finish once each per forward; fp32, training mode and x2 take the
+    phase-folded tail.  Both tails agree."""
     g = torch.Generator().manual_seed(3)
     net = models.RDDBNet(1, 1, 4, nf=16, nb=1, device=dev, generator=g).eval()
     x = torch.rand(2, 1, 16, 16, generator=g).to(dev, memory_format=torch.channels_last)
     with torch.no_grad():
         before = tail_kernel.launches
+        finish = tail_kernel.finish_launches
         y32 = net(x)
         assert tail_kernel.launches == before
         net.to(torch.bfloat16)
         y16 = net(x.bfloat16())
-        assert tail_kernel.launches == before + 1
+        assert tail_kernel.launches == before + 1 and tail_kernel.finish_launches == finish + 1
         net.train()
         y16_fold = net(x.bfloat16())
-        assert tail_kernel.launches == before + 1
+        assert tail_kernel.launches == before + 1 and tail_kernel.finish_launches == finish + 1
     torch.cuda.synchronize()
     assert y16.shape == y32.shape == (2, 1, 64, 64)
     scale = y16_fold.float().abs().max().item()
@@ -591,6 +638,23 @@ def test_probe_matmul_matches_plain_version(dev, dtype, m, k, n):
     torch.cuda.synchronize()
     assert probe_kernels.launches["probe_matmul"] == before + 1
     assert got.dtype == ref.dtype == dtype and got.shape == ref.shape == (m, n)
+    if dtype == torch.int8:
+        assert torch.equal(got, ref)
+    else:
+        assert probe_rel_l2(got, ref) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("n", [64, 128, 192])
+@pytest.mark.parametrize("k", [64, 192, 576])
+def test_probe_matmul_every_sweep_shape(dev, k, n, dtype):
+    """Every (K, N) of the matmul sweep at M = 16384: the bf16 form (its own
+    wgmma kernel) within rel-L2 1e-2, the int8 form bit-equal."""
+    x, w = probe_operand(k + n, (16384, k), dtype, dev), probe_operand(n, (k, n), dtype, dev)
+    before = probe_kernels.launches["probe_matmul"]
+    got, ref = probe_kernels.probe_matmul(x, w), probe_kernels.probe_matmul_reference(x, w)
+    torch.cuda.synchronize()
+    assert probe_kernels.launches["probe_matmul"] == before + 1
     if dtype == torch.int8:
         assert torch.equal(got, ref)
     else:

@@ -32,7 +32,8 @@ def test_module_list_covers_the_slice():
                  "srcgan_tpu_torch.ops.kernels.probe_kernels", "srcgan_tpu_torch.probes",
                  "srcgan_tpu_torch.probes.common", "srcgan_tpu_torch.probes.matmul_probe",
                  "srcgan_tpu_torch.probes.mxu_probe", "srcgan_tpu_torch.probes.layout_probe3",
-                 "srcgan_tpu_torch.probes.__main__", "srcgan_tpu_torch.probes.rdb5_ablate"):
+                 "srcgan_tpu_torch.probes.__main__", "srcgan_tpu_torch.probes.rdb5_ablate",
+                 "srcgan_tpu_torch.probes.tail_ablate"):
         assert name in MODULES
 
 

@@ -304,3 +304,26 @@ def test_entry_point_lists_the_rdb5_ablation(capsys):
     assert rdb5_ablate.VARIANTS[-1][1] == () and len(rdb5_ablate.VARIANTS) == 5
     assert rdb5_ablate.SHAPE[3] == rdb5_kernel.NF
     assert rdb5_kernel.supported(rdb5_ablate.SHAPE, rdb5_kernel.NF, rdb5_kernel.GC)
+
+
+@pytest.mark.parametrize("m,k,n,ok", [(16384, 576, 192, True), (64, 32, 64, True),
+                                      (128, 192, 128, True), (100, 64, 64, False),
+                                      (64, 48, 64, False), (64, 64, 96, False)])
+def test_probe_matmul_shape_gate(m, k, n, ok):
+    """What the card takes for probe_matmul, in both types: M % 64, K % 32, N in
+    (64, 128, 192), as before the bf16 form had a kernel of its own."""
+    if ok:
+        pk.check_shape("probe_matmul", m, k, n)
+    else:
+        with pytest.raises(ValueError, match="N in"):
+            pk.check_shape("probe_matmul", m, k, n)
+
+
+@pytest.mark.parametrize("argv,match", [(["tail"], "no CUDA card"),
+                                        (["tail", "--device", "cpu"], "no CPU mode")],
+                         ids=["default-device", "cpu-asked"])
+def test_tail_ablation_runs_only_on_the_card(monkeypatch, argv, match):
+    """The tail kernel against its first design is a named subcommand too."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=match):
+        probes_main.main(argv)
