@@ -15,9 +15,13 @@ Phases, in order; the first failure raises and the script exits non-zero:
                (the three GEMMs, the finish) each on the device (profiler),
                the wrapper in rounds, and the main kernel in turns with its
                first design (csrc/tail_x4_wmma.cu, built for this reading
-               only, through ``probes.tail_ablate``); the two host-bound
-               wrappers (gray_degrade, ssim) in five rounds in turns with
-               their plain versions, with the spread; the RDB5 kernel in both
+               only, through ``probes.tail_ablate``); gray_degrade (one
+               device kernel a call) and ssim (at most two: the range pass
+               and the main pass with its finish; every mode three calls
+               bit-equal, the range it wrote against the plain version's),
+               each with its device time beside its first design's recorded
+               one, and its wrapper in five rounds in turns with its plain
+               version, with the spread; the RDB5 kernel in both
                forms (bf16, int8) at the serving shape (8,128,128,64), a
                ragged one (1,15,128,64) and a 512-wide one, timed in turns
                with the cuDNN block;
@@ -46,7 +50,7 @@ Phases, in order; the first failure raises and the script exits non-zero:
                pairs on disk, cli.train_cas for one short epoch (RDDBNet x2 +
                ResDeconv, bf16 activations, 4 steps per dispatch), then
                cli.test_cas on its checkpoints (batch 8, fp32): every eval
-               batch launches the ssim kernel once, the PNGs decode, and the
+               batch calls the ssim kernels once, the PNGs decode, and the
                Performs.csv row agrees with the same tool on the CPU.
  10. probes  - the six probe kernels (csrc/probes.cu) against their plain
                versions at their full shapes (int8 forms and the roll bit-equal,
@@ -62,7 +66,7 @@ Phases, in order; the first failure raises and the script exits non-zero:
                fp32 on the card against the CPU and in bf16 through the tail's
                two kernels and rdb5_bf16, beside the RGB predictor; three bf16 CasTrainer(lab=True)
                steps; cli.train_cas --lab for a short epoch and cli.test_cas on
-               its @G2LAB checkpoints (the ssim kernel once per eval batch, the
+               its @G2LAB checkpoints (the ssim kernels once per eval batch, the
                PNGs decode, the row agrees with --device cpu).
 Then one JSON line of kernel results, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Weights are random, from fixed seeds.
@@ -265,11 +269,21 @@ def phase_kernels(dev, card: str) -> dict:
     return result
 
 
+# Device times of the first designs of gray_degrade and ssim, recorded by
+# chip_smoke.py runs on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6):
+# the yardsticks of the redesigned kernels, whose old sources are gone.
+GRAY_DEGRADE_FIRST_US = 6.93
+SSIM_FIRST_US = 28.92
+
+
 def phase_gray_degrade(dev, card: str) -> dict:
     """gray_degrade against its plain version at the training shape (up=2),
     at up=4, and at a ragged shape; bound 1e-6 on both outputs, the Pallas
-    kernel's own (tests/test_fused.py)."""
+    kernel's own (tests/test_fused.py).  At the training shape: one device
+    kernel a call, its device time (profiler) beside its first design's, the wrapper in
+    five rounds in turns with the plain version."""
     from srcgan_tpu_torch.ops.kernels import preprocess_kernel as pk
+    from srcgan_tpu_torch.probes import common
 
     rng = np.random.default_rng(5)
     worst, first = 0.0, None
@@ -288,24 +302,35 @@ def phase_gray_degrade(dev, card: str) -> dict:
         print(f"[kernels] gray_degrade {shape} up={up}: max|kernel - plain| over both "
               f"outputs = {err:.3g} (bound 1e-6) {'PASS' if err <= 1e-6 else 'FAIL'}")
         check(err <= 1e-6, f"gray_degrade {shape} up={up} disagrees with its plain version")
-        # host-bound (two launches' worth of Python around a 7 us kernel): the
-        # wrapper's time moves with the host, so the training shape is read in
-        # rounds, in turns with the plain version, and its spread is printed
+        # the wrapper's time moves with the host: the training shape is read
+        # in rounds, in turns with the plain version, and its spread printed
         turns = in_turns_ms({"kernel": lambda: pk.fused_gray_degrade(x, up),
                              "plain": lambda: pk.gray_degrade_reference(x, up)},
                             rounds=5 if first is None else 1)
         ms, plain_ms = (statistics.median(turns[k]) for k in ("kernel", "plain"))
-        if first is None:
-            print(f"[kernels] gray_degrade {shape} up={up} wrapper: {spread(turns['kernel'])}; "
-                  f"plain version: {spread(turns['plain'])}")
         nbytes = tensor_bytes(x, *got)
         # per pixel 3 divides, 3 multiplies, 2 adds; per output two 2-tap stencils
         least = least_time(nbytes, 8 * n * h * w + 6 * n * (h // up) * (w // up), "fp32")
         print(f"[kernels] gray_degrade {shape} up={up} on {card}: kernel {ms:.4f} ms "
               f"({nbytes / 1e6 / ms:.1f} GB/s of {nbytes / 1e6:.2f} MB), plain version "
               f"{plain_ms:.4f} ms; bound {least['bound_ms']:.5f} ms by {least['bound_by']}")
-        if first is None:
-            first = {"ms": ms, "plain_ms": plain_ms, **least}
+        if first is not None:
+            continue
+        names = common.device_kernels(lambda: pk.fused_gray_degrade(x, up))
+        per_call = sum(names.values())
+        check(per_call == 1 and all("gray_degrade_kernel" in k for k in names),
+              f"gray_degrade ran {per_call} device kernels a call: {names}")
+        on_device = common.device_us(lambda: pk.fused_gray_degrade(x, up), "")
+        graph_ms = common.graph_ms([lambda: pk.fused_gray_degrade(x, up)] * 10)
+        print(f"[kernels] gray_degrade {shape} up={up} wrapper: {spread(turns['kernel'])}; "
+              f"plain version: {spread(turns['plain'])}")
+        print(f"[kernels] gray_degrade {shape} up={up} on {card}: {per_call:g} device kernel a "
+              f"call; on the device {'not measured' if on_device is None else f'{on_device:.2f} us'}"
+              f" (profiler; the first design {GRAY_DEGRADE_FIRST_US} us, recorded), graph of 10 calls "
+              f"{graph_ms * 1e3:.2f} us a call; bound {least['bound_ms'] * 1e3:.2f} us by "
+              f"{least['bound_by']}")
+        first = {"ms": ms, "plain_ms": plain_ms, **least, "device_us": on_device,
+                 "graph_us": graph_ms * 1e3, "kernels_per_call": per_call}
     # no single PyTorch call computes luma + degradation: library_ms is null
     return {"name": "gray_degrade", "route": "cuda",
             "source": "srcgan_tpu_torch/csrc/gray_degrade.cu",
@@ -321,21 +346,26 @@ def ssim_flop(n: int, h: int, w: int, c: int, ws: int = 11) -> int:
     return n * c * (3 * h * w + 5 * (2 * ws - 1) * (h * vw + vh * vw) + 20 * vh * vw)
 
 
+SSIM_MODES = [dict(size_average=True), dict(size_average=False),
+              dict(size_average=True, full=True),
+              dict(size_average=False, per_sample_range=True),
+              dict(size_average=False, full=True, per_sample_range=True)]
+
+
 def phase_ssim(dev, card: str) -> dict:
     """The ssim wrapper against its plain version (the depthwise-conv form,
     fp32 with TF32 off) at the eval shape, at 512^2 and at a ragged shape; in
     [0,1], in [0,255] and with mixed per-sample ranges; every mode of the
-    wrapper.  Bound 1e-6 absolute on SSIM and cs, the bound the JAX package
-    holds its two forms to on the CPU (they sum 121 taps in different orders;
-    1.8e-7 was the most seen on an H100)."""
+    wrapper, each three times bit-equal, and the range the kernel wrote
+    against the plain version's.  Bound 1e-6 absolute on SSIM and cs, the
+    bound the JAX package holds its two forms to on the CPU (they sum 121
+    taps in different orders).  At the eval shape: the device kernels a call
+    (at most two), their device time (profiler) beside the first design's, a graph of
+    calls, and the wrapper in five rounds in turns with the plain version."""
     from srcgan_tpu_torch import config
     from srcgan_tpu_torch.ops.kernels import ssim_kernel as sk
     from srcgan_tpu_torch.probes import common
 
-    modes = [dict(size_average=True), dict(size_average=False),
-             dict(size_average=True, full=True),
-             dict(size_average=False, per_sample_range=True),
-             dict(size_average=False, full=True, per_sample_range=True)]
     rng = np.random.default_rng(8)
     worst, first = 0.0, None
     for shape in ((EVAL_BATCH, EVAL_HW, EVAL_HW, 3), (8, 512, 512, 3), (3, 250, 198, 1)):
@@ -343,54 +373,74 @@ def phase_ssim(dev, card: str) -> dict:
         # y is x plus noise, as a prediction is to its target: SSIM near 0.5
         noisy = np.clip(base + rng.normal(0, 0.1, shape), 0, 1).astype(np.float32)
         mixed = np.where(np.arange(shape[0]).reshape(-1, 1, 1, 1) % 2 == 0, 255.0, 1.0)
+        n, h, w, c = shape
+        key = (n, h, w, c, 11, sk.strip_width(c), sk.TILE)
         for label, scale in (("[0,1]", 1.0), ("[0,255]", 255.0), ("mixed ranges", mixed)):
             x = torch.from_numpy((base * scale).astype(np.float32)).to(dev)
             y = torch.from_numpy((noisy * scale).astype(np.float32)).to(dev)
             err = 0.0
-            for kw in modes:
+            for kw in SSIM_MODES:
+                full = kw.get("full", False)
                 before = sk.launches
-                got = sk.ssim_fused(x, y, **kw)
-                check(sk.launches == before + 1, "ssim_fused did not launch its kernel")
+                runs = [sk.ssim_fused(x, y, **kw) for _ in range(3)]
+                check(sk.launches == before + 3, "ssim_fused did not launch its kernels")
+                written = sk.sample_ranges(dev.index or 0, torch.cuda.current_stream().cuda_stream,
+                                           key).clone()
                 with config.precision("fp32"):
                     ref = sk.ssim_reference(x, y, **kw)
                 torch.cuda.synchronize()
-                for g, r in zip(got if kw.get("full") else (got,),
-                                ref if kw.get("full") else (ref,)):
+                check(torch.equal(written, sk.dynamic_range(x, kw.get("per_sample_range", False))),
+                      f"ssim {shape} {label} {kw}: the range pass wrote {written.tolist()}")
+                for again in runs[1:]:
+                    check(all(torch.equal(a, b) for a, b in
+                              zip(again if full else (again,), runs[0] if full else (runs[0],))),
+                          f"ssim {shape} {label} {kw}: three calls are not bit-equal")
+                for g, r in zip(runs[0] if full else (runs[0],), ref if full else (ref,)):
                     check(g.shape == r.shape and bool(torch.isfinite(g).all()),
                           f"ssim {shape} {label} {kw}: shape {tuple(g.shape)} or not finite")
                     err = max(err, (g - r).abs().max().item())
             worst = max(worst, err)
             print(f"[kernels] ssim {shape} {label}: max|kernel - plain| over SSIM and cs, "
-                  f"{len(modes)} modes = {err:.3g} (bound 1e-6) "
+                  f"{len(SSIM_MODES)} modes = {err:.3g} (bound 1e-6), each mode 3 calls "
+                  f"bit-equal, the range pass's L = the plain version's "
                   f"{'PASS' if err <= 1e-6 else 'FAIL'}")
             check(err <= 1e-6, f"ssim {shape} {label} disagrees with its plain version")
         x = torch.from_numpy(base).to(dev)
         y = torch.from_numpy(noisy).to(dev)
-        # host-bound too (about twenty small torch calls around a 29 us kernel):
-        # the eval shape in rounds, in turns with the plain version
+        call = lambda: sk.ssim_fused(x, y, size_average=False, per_sample_range=True)
+        # the wrapper's time moves with the host: the eval shape in rounds,
+        # in turns with the plain version
         with config.precision("fp32"):
             turns = in_turns_ms(
-                {"kernel": lambda: sk.ssim_fused(x, y, size_average=False, per_sample_range=True),
+                {"kernel": call,
                  "plain": lambda: sk.ssim_reference(x, y, size_average=False,
                                                     per_sample_range=True)},
                 rounds=5 if first is None else 1)
         ms, plain_ms = (statistics.median(turns[k]) for k in ("kernel", "plain"))
+        least = least_time(tensor_bytes(x, y) + 4 * n, ssim_flop(n, h, w, c), "fp32")
+        names = common.device_kernels(call)
+        per_call = sum(names.values())
+        check(1 <= per_call <= 2, f"ssim ran {per_call} device kernels a call: {names}")
+        on_device = common.device_us(call, "")
+        range_us = common.device_us(call, "range_kernel")
+        main_us = common.device_us(call, "ssim_kernel")
+        graph_ms = common.graph_ms([call] * 10)
+        fmt = lambda v: "not measured" if v is None else f"{v:.2f} us"
         if first is None:
             print(f"[kernels] ssim per-sample {shape} wrapper: {spread(turns['kernel'])}; "
                   f"plain version: {spread(turns['plain'])}")
-        n, h, w, c = shape
-        ranges, dims = sk.plane_ranges(x, True), sk._check(x, y, 11)
-        kernel_ms = median_ms(lambda: sk._kernel(x, y, ranges, dims, 11))
-        on_device = common.device_us(lambda: sk._kernel(x, y, ranges, dims, 11), "ssim_kernel")
-        least = least_time(tensor_bytes(x, y) + 4 * n, ssim_flop(n, h, w, c), "fp32")
-        print(f"[kernels] ssim per-sample {shape} on {card}: wrapper {ms:.4f} ms (launch "
-              f"and the sum of its partials alone {kernel_ms:.4f} ms; the kernel on the device "
-              f"{'not measured' if on_device is None else f'{on_device:.2f} us'}, profiler), plain "
-              f"version {plain_ms:.4f} ms; bound {least['bound_ms']:.5f} ms by "
-              f"{least['bound_by']} ({tensor_bytes(x, y) / 1e6:.2f} MB, "
-              f"{ssim_flop(n, h, w, c) / 1e9:.3f} GFLOP at the fp32 rate)")
+        print(f"[kernels] ssim per-sample {shape} on {card}: wrapper {ms:.4f} ms, plain "
+              f"version {plain_ms:.4f} ms; {per_call:g} device kernels a call, on the device "
+              f"{fmt(on_device)} (range pass {fmt(range_us)}, main pass and finish "
+              f"{fmt(main_us)}; profiler; the first design {SSIM_FIRST_US} us at the eval shape, "
+              f"recorded), graph of 10 calls {graph_ms * 1e3:.2f} us a call; bound "
+              f"{least['bound_ms'] * 1e3:.2f} us by {least['bound_by']} "
+              f"({tensor_bytes(x, y) / 1e6:.2f} MB, {ssim_flop(n, h, w, c) / 1e9:.3f} GFLOP "
+              f"at the fp32 rate)")
         if first is None:
-            first = {"ms": ms, "plain_ms": plain_ms, **least}
+            first = {"ms": ms, "plain_ms": plain_ms, **least, "device_us": on_device,
+                     "range_device_us": range_us, "main_device_us": main_us,
+                     "graph_us": graph_ms * 1e3, "kernels_per_call": per_call}
     small = torch.zeros(1, 8, 32, 3, device=dev)
     try:
         sk.ssim_fused(small, small)
@@ -674,7 +724,7 @@ def phase_eval(dev, card: str, lab: bool = False) -> int:
               f"{on_card['device']}, ssim launches {launches}")
         check(on_card["images"] == n_test and on_card["batches"] == n_batches
               and on_card["device"].startswith("cuda"), "the eval did not run on the card")
-        check(launches == n_batches, "an eval batch did not launch the ssim kernel exactly once")
+        check(launches == n_batches, "an eval batch did not call the ssim kernels exactly once")
 
         row = read_performs(os.path.join(tmp, "result"))
         means = {k: float(row[k]) for k in ("MSE", "PSNR", "AE", "SSIM")}

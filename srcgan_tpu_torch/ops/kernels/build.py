@@ -106,3 +106,15 @@ def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
             path, _, _ = build(name, defines)
             lib = _libs[(name, defines)] = ctypes.CDLL(str(path))
         return lib
+
+
+def call_on_device(index: int, fn, *args):
+    """``fn(*args)`` with CUDA device ``index`` current: a kernel launches on
+    the current device, and entering ``torch.cuda.device`` costs more than
+    the launch where it is already current."""
+    import torch
+
+    if torch.cuda.current_device() == index:
+        return fn(*args)
+    with torch.cuda.device(index):
+        return fn(*args)

@@ -10,7 +10,11 @@ input path of ``CasTrainer``'s uint8 steps with ``fused_input=True``:
 with mh, mw the bilinear sampling matrices of ``ops.resize``.  Each matrix
 row has at most two non-zeros, so the wrapper turns the matrices into tap
 tables (``taps``) and ``csrc/gray_degrade.cu`` applies them as two 2-tap
-stencils, rows first and then columns, as the matrix products sum.
+stencils, rows first and then columns, as the matrix products sum.  Block o
+of image n owns output row o and the input rows ``strip(o, h, h2)``; it
+forms low from the gray values it holds wherever a tap row is one of its
+rows (``in_strip``: always, for an integer ratio) and from the bytes where
+it is not.
 
 ``fused_gray_degrade`` launches the kernel for a CUDA tensor and runs the
 plain version (``gray_degrade_reference``) for a CPU tensor; there is no
@@ -30,9 +34,7 @@ from srcgan_tpu_torch.ops.resize import _apply_separable, _bilinear_matrix
 # Kernel launches since import (or since a caller last set it to 0).
 launches = 0
 
-_MAX_WIDTH = 12 * 1024       # csrc/gray_degrade.cu kMaxSmem: one fp32 row
-_ROWS_TARGET_BLOCKS = 512    # about four blocks per SM of an H100
-
+_MAX_SMEM = 232448         # csrc/gray_degrade.cu kMaxSmem: a block's rows of gray
 
 def _check(tar_u8: torch.Tensor, up: int):
     if tar_u8.dtype != torch.uint8 or tar_u8.dim() != 4 or tar_u8.shape[-1] != 3:
@@ -70,10 +72,33 @@ def taps(in_size: int, out_size: int):
     return idx, wts
 
 
+def strip(o: int, h: int, h2: int):
+    """The input rows [begin, end) that the kernel's block of output row o
+    owns: the blocks partition the image, the last one down to row h."""
+    return o * h // h2, h if o + 1 == h2 else (o + 1) * h // h2
+
+
+def in_strip(h: int, h2: int) -> np.ndarray:
+    """(h2, 2) bool: whether output row o's (lo, hi) tap rows lie in its own
+    block's rows, so that the block reads them from what it holds."""
+    idx, _ = taps(h, h2)
+    bounds = np.array([strip(o, h, h2) for o in range(h2)])
+    return (idx >= bounds[:, :1]) & (idx < bounds[:, 1:])
+
+
+def smem_bytes(h: int, w: int, h2: int) -> int:
+    """Shared memory of a block: the most input rows a block owns
+    (ceil(h / h2)) of w floats, and 3 of alignment (csrc/gray_degrade.cu
+    gray_degrade_smem_bytes)."""
+    return (-(-h // h2) * w + 4) * 4
+
+
 @functools.lru_cache(maxsize=64)
-def _device_taps(in_size: int, out_size: int, device: torch.device):
-    idx, wts = taps(in_size, out_size)
-    return torch.from_numpy(idx).to(device), torch.from_numpy(wts).to(device)
+def _tables(h: int, w: int, h2: int, w2: int, index: int):
+    """The row and column tap tables on device ``index``, and their pointers."""
+    dev = torch.device("cuda", index)
+    tables = [torch.from_numpy(t).to(dev) for t in (*taps(h, h2), *taps(w, w2))]
+    return tables, tuple(t.data_ptr() for t in tables)
 
 
 @functools.lru_cache(maxsize=1)
@@ -82,7 +107,7 @@ def _library() -> ctypes.CDLL:
     from srcgan_tpu_torch.ops.kernels import build
 
     lib = build.load("gray_degrade")
-    lib.gray_degrade_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    lib.gray_degrade_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     lib.gray_degrade_launch.restype = ctypes.c_int
     lib.gray_degrade_error_string.argtypes = [ctypes.c_int]
@@ -90,33 +115,32 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _rows_per_block(n: int, h2: int) -> int:
-    """Output rows per block: enough blocks to fill the card, at least one row."""
-    return max(1, (n * h2) // _ROWS_TARGET_BLOCKS)
-
-
 def _kernel(tar_u8: torch.Tensor, up: int):
     global launches
     n, h, w, h2, w2 = _check(tar_u8, up)
-    if w > _MAX_WIDTH:
-        raise ValueError(f"gray_degrade: width {w} exceeds the kernel's {_MAX_WIDTH}")
+    if smem_bytes(h, w, h2) > _MAX_SMEM:
+        raise ValueError(f"gray_degrade: {-(-h // h2)} rows of width {w} exceed a block's "
+                         f"{_MAX_SMEM} bytes of shared memory")
+    if n > 65535:
+        raise ValueError(f"gray_degrade: a batch of {n} exceeds the kernel's 65535")
     lib = _library()
     dev = tar_u8.device
-    row_taps, row_w = _device_taps(h, h2, dev)
-    col_taps, col_w = _device_taps(w, w2, dev)
-    gray = torch.empty((n, h, w, 1), dtype=torch.float32, device=dev)
-    low = torch.empty((n, h2, w2, 1), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.gray_degrade_launch(
-            tar_u8.data_ptr(), row_taps.data_ptr(), row_w.data_ptr(), col_taps.data_ptr(),
-            col_w.data_ptr(), gray.data_ptr(), low.data_ptr(), n, h, w, h2, w2,
-            _rows_per_block(n, h2), stream)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    _, ptrs = _tables(h, w, h2, w2, index)
+    # both outputs in one allocation: gray, then low
+    buf = torch.empty(n * h * w + n * h2 * w2, dtype=torch.float32, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+
+    from srcgan_tpu_torch.ops.kernels import build
+
+    at = buf.data_ptr()
+    err = build.call_on_device(index, lib.gray_degrade_launch, tar_u8.data_ptr(), *ptrs, at,
+                               at + 4 * n * h * w, n, h, w, h2, w2, stream)
     if err:
         raise RuntimeError(
             f"gray_degrade launch failed: {lib.gray_degrade_error_string(err).decode()}")
     launches += 1
-    return gray, low
+    return buf[:n * h * w].view(n, h, w, 1), buf[n * h * w:].view(n, h2, w2, 1)
 
 
 def fused_gray_degrade(tar_u8: torch.Tensor, up: int):

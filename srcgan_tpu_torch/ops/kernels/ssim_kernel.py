@@ -5,20 +5,25 @@ the evaluation protocol.  NHWC tensors; an 11-tap Gaussian window (sigma 1.5)
 applied as a *valid* separable filter to x, y, x², y² and xy of every (image,
 channel) plane; the SSIM and contrast-structure maps; their means.
 
-``csrc/ssim.cu`` computes, per 32x32 tile of outputs of one plane, the two
-sums over the tile; this wrapper detects the dynamic range L (max > 128 ->
-255 else 1, min < -0.5 -> -1 else 0, over the batch or per sample) on the
-device without a host round trip, adds a plane's partial sums with
-``torch.sum`` and finishes the means as the Pallas wrapper does.
+``csrc/ssim.cu`` does the whole call on the device in two launches: the
+dynamic range L (max > 128 -> 255 else 1, min < -0.5 -> -1 else 0, over the
+batch or per sample), then the filters and maps over strips of output
+columns of all channels of one image (``strip_width`` columns by ``TILE``
+rows a block), whose last block of each sample, and then the last of those,
+sum the blocks' partials in a fixed order and write the returned means.  The wrapper checks its
+arguments, makes one allocation for the result and launches; the workspace
+(tickets, ranges, partials) is kept per device, stream and shape.
 
 ``ssim_fused`` launches the kernel for a CUDA tensor and runs the plain
 version (``ssim_reference``, the depthwise-convolution form) for a CPU
 tensor; there is no fallback from one to the other.  ``launches`` counts the
-kernel launches.  Neither the TPU kernel nor this one has a backward: a
-tensor that requires grad is refused (losses take ``ssim_reference``).
+wrapper's calls that launched the kernel pair.  Neither the TPU kernel nor
+this one has a backward: a tensor that requires grad is refused (losses take
+``ssim_reference``).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -27,12 +32,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# Kernel launches since import (or since a caller last set it to 0).
+# Calls that launched the kernel pair since import (or since a caller last
+# set it to 0).
 launches = 0
 
-TILE = 32                     # csrc/ssim.cu kTile: outputs per block, each way
+TILE = 32                     # output rows per block; output columns per strip where C <= 4
 _WINDOWS = (3, 5, 7, 9, 11)   # the window sizes csrc/ssim.cu instantiates
-_MAX_PLANES = 65535           # grid.z
+_MAX_PLANES = 65535           # N * C, as the first design's grid held it
+_MAX_PAIRS = 128              # (column, channel) pairs a block, one a thread
+_MAX_SMEM = 232448            # csrc/ssim.cu kMaxSmem: a block's ring of input rows
+_WORKSPACES = 16              # workspaces kept, the most recently used
 
 
 def _gauss(w_size: int, sigma: float) -> np.ndarray:
@@ -53,15 +62,29 @@ def gaussian_window(w_size: int = 11, sigma: float = 1.5) -> np.ndarray:
     return np.outer(g, g).astype(np.float32)
 
 
-def tiling(h: int, w: int, w_size: int = 11):
-    """(valid_h, valid_w, tiles_y, tiles_x) of one plane: the valid region of
-    the filter and the kernel's grid over it.  Raises where a plane is
-    smaller than the window (no valid region)."""
+def strip_width(c: int) -> int:
+    """Output columns of a block's strip: all C channels of each, so that a
+    block has at most 128 (column, channel) pairs, one a thread."""
+    return TILE if c <= 4 else max(1, _MAX_PAIRS // c)
+
+
+def smem_bytes(c: int, w_size: int = 11) -> int:
+    """Shared memory of a block (csrc/ssim.cu smem_bytes): two slots of
+    w_size input rows of its strip, x and y, each row padded to 16 bytes."""
+    pitch = -(-(strip_width(c) + w_size - 1) * c // 4) * 4
+    return 2 * 2 * w_size * pitch * 4
+
+
+def tiling(h: int, w: int, w_size: int = 11, strip: int = TILE):
+    """(valid_h, valid_w, tiles_y, tiles_x) of one image: the valid region of
+    the filter and the kernel's grid over it (``TILE`` rows by ``strip``
+    columns a block).  Raises where a plane is smaller than the window (no
+    valid region)."""
     vh, vw = h - w_size + 1, w - w_size + 1
     if vh < 1 or vw < 1:
         raise ValueError(f"ssim: a {h}x{w} plane has no valid region under a "
                          f"{w_size}-tap window")
-    return vh, vw, -(-vh // TILE), -(-vw // TILE)
+    return vh, vw, -(-vh // TILE), -(-vw // strip)
 
 
 def dynamic_range(y_pred: torch.Tensor, per_sample: bool) -> torch.Tensor:
@@ -74,14 +97,6 @@ def dynamic_range(y_pred: torch.Tensor, per_sample: bool) -> torch.Tensor:
     max_val = torch.where(mx > 128.0, 255.0 * one, one)
     min_val = torch.where(mn < -0.5, -one, 0.0 * one)
     return (max_val - min_val).expand(y_pred.shape[0])
-
-
-def plane_ranges(y_pred: torch.Tensor, per_sample: bool) -> torch.Tensor:
-    """The kernel's range argument: one L per (image, channel) plane, (N*C,)
-    float32, materialized (an expanded view has stride 0 and ONE element in
-    memory, and the kernel indexes it by plane)."""
-    n, c = y_pred.shape[0], y_pred.shape[-1]
-    return dynamic_range(y_pred, per_sample)[:, None].expand(n, c).contiguous().view(-1)
 
 
 def _check(y_pred: torch.Tensor, y_true: torch.Tensor, w_size: int):
@@ -97,17 +112,7 @@ def _check(y_pred: torch.Tensor, y_true: torch.Tensor, w_size: int):
                          "none either); detach the inputs, or take ssim_reference "
                          "for a loss")
     n, h, w, c = y_pred.shape
-    return (n, h, w, c) + tiling(h, w, w_size)
-
-
-def _finish(ssim_sums, cs_sums, n, c, valid, size_average, full):
-    """Means from per-plane sums (N*C,), as the Pallas wrapper finishes them."""
-    cs = cs_sums.sum() / (n * c * valid)
-    if size_average:
-        ret = ssim_sums.sum() / (n * c * valid)
-    else:
-        ret = (ssim_sums.reshape(n, c) / valid).mean(dim=1)
-    return (ret, cs) if full else ret
+    return (n, h, w, c) + tiling(h, w, w_size, strip_width(c))
 
 
 def ssim_reference(y_pred: torch.Tensor, y_true: torch.Tensor, w_size: int = 11,
@@ -147,40 +152,99 @@ def _library() -> ctypes.CDLL:
     """csrc/ssim.cu, built at first use, with its C signatures declared."""
     from srcgan_tpu_torch.ops.kernels import build
 
-    lib = build.load("ssim")
-    lib.ssim_launch.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_float)]
-                                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+    return _declare(build.load("ssim"))
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """csrc/ssim.cu's C signatures, on a build of it (the default one, or a
+    variant of the ablation's switches)."""
+    lib.ssim_launch.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_float)]
+                                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
                                 + [ctypes.c_void_p])
     lib.ssim_launch.restype = ctypes.c_int
+    lib.ssim_workspace_bytes.argtypes = [ctypes.c_int] * 7
+    lib.ssim_workspace_bytes.restype = ctypes.c_longlong
+    lib.ssim_range_offset.argtypes = []
+    lib.ssim_range_offset.restype = ctypes.c_longlong
     lib.ssim_error_string.argtypes = [ctypes.c_int]
     lib.ssim_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _kernel(y_pred, y_true, dyn_planes, dims, w_size):
-    """Per-plane (ssim_sum, cs_sum), each (N*C,), from one launch."""
+@functools.lru_cache(maxsize=None)
+def _host_taps(w_size: int):
+    return (ctypes.c_float * w_size)(*gauss_taps(w_size))
+
+
+_workspaces: collections.OrderedDict = collections.OrderedDict()
+
+
+def _workspace(lib, index: int, stream: int, key: tuple) -> torch.Tensor:
+    """The zeroed workspace of (device, stream, shape), kept for the next
+    call: the kernels' last blocks reset its tickets.  A stream has its own,
+    since two calls on two streams may overlap."""
+    ws = _workspaces.get((index, stream) + key)
+    if ws is None:
+        nbytes = lib.ssim_workspace_bytes(*key)
+        if nbytes <= 0:
+            raise ValueError(f"ssim: the kernel refuses (n, h, w, c, w_size, strip, rows) = {key}")
+        ws = torch.zeros(nbytes, dtype=torch.uint8, device=torch.device("cuda", index))
+        _workspaces[(index, stream) + key] = ws
+        if len(_workspaces) > _WORKSPACES:
+            _workspaces.popitem(last=False)
+    else:
+        _workspaces.move_to_end((index, stream) + key)
+    return ws
+
+
+def sample_ranges(index: int, stream: int, key: tuple) -> torch.Tensor:
+    """The L of every sample that the last kernel call at (device, stream,
+    shape) used, (N,) float32: a view of its workspace, for checks on the card."""
+    ws = _workspaces[(index, stream) + key]
+    off = _library().ssim_range_offset()
+    return ws[off:off + 4 * key[0]].view(torch.float32)
+
+
+def _kernel(y_pred, y_true, dims, w_size, size_average=True, full=False,
+            per_sample_range=False, lib=None, rows=TILE):
+    """The two launches of one call and the views of its result.  ``lib`` and
+    ``rows``: another build of csrc/ssim.cu and another count of output rows
+    a block, for the ablation (``probes.ssim_ablate``); the call is counted
+    all the same."""
     global launches
-    n, h, w, c, _, _, tiles_y, tiles_x = dims
+    n, h, w, c, _, _, _, _ = dims
     if w_size not in _WINDOWS:
         raise ValueError(f"ssim: the kernel is built for windows {_WINDOWS}, not {w_size}")
     if n * c > _MAX_PLANES:
         raise ValueError(f"ssim: {n * c} planes exceed the kernel's {_MAX_PLANES}")
-    lib = _library()
-    dev = y_pred.device
-    x = y_pred.float().contiguous()
-    y = y_true.float().contiguous()
-    parts = torch.empty((2, n * c, tiles_y * tiles_x), dtype=torch.float32, device=dev)
-    taps = (ctypes.c_float * w_size)(*gauss_taps(w_size))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.ssim_launch(x.data_ptr(), y.data_ptr(), dyn_planes.data_ptr(), taps,
-                              parts[0].data_ptr(), parts[1].data_ptr(), n, h, w, c, w_size,
-                              stream)
+    if c > _MAX_PAIRS:
+        raise ValueError(f"ssim: {c} channels exceed the kernel's {_MAX_PAIRS} a block")
+    if smem_bytes(c, w_size) > _MAX_SMEM:
+        raise ValueError(f"ssim: {c} channels need {smem_bytes(c, w_size)} bytes of shared "
+                         f"memory a block, more than the card's {_MAX_SMEM}")
+    lib = _library() if lib is None else lib
+    x = y_pred if y_pred.dtype == torch.float32 and y_pred.is_contiguous() else (
+        y_pred.float().contiguous())
+    y = y_true if y_true.dtype == torch.float32 and y_true.is_contiguous() else (
+        y_true.float().contiguous())
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    key = (n, h, w, c, w_size, strip_width(c), rows)
+    ws = _workspace(lib, index, stream, key)
+    out = torch.empty(2 if size_average else n + 1, dtype=torch.float32, device=x.device)
+
+    from srcgan_tpu_torch.ops.kernels import build
+
+    err = build.call_on_device(index, lib.ssim_launch, x.data_ptr(), y.data_ptr(),
+                               _host_taps(w_size), ws.data_ptr(), out.data_ptr(), *key[:5],
+                               key[5], rows, int(per_sample_range), int(size_average), stream)
     if err:
         raise RuntimeError(f"ssim launch failed: {lib.ssim_error_string(err).decode()}")
     launches += 1
-    sums = parts.sum(dim=2)
-    return sums[0], sums[1]
+    ret = out[0] if size_average else out[:n]
+    if not full:
+        return ret
+    return ret, out[-1]
 
 
 def ssim_fused(y_pred: torch.Tensor, y_true: torch.Tensor, w_size: int = 11,
@@ -191,11 +255,14 @@ def ssim_fused(y_pred: torch.Tensor, y_true: torch.Tensor, w_size: int = 11,
     contrast-structure mean.  ``per_sample_range`` detects the dynamic range
     per sample, as a one-sample-at-a-time evaluation would, and not over the
     batch.  CUDA tensors: the sm_90a kernel (raises if it cannot run).  CPU
-    tensors: the plain version."""
+    tensors: the plain version.
+
+    The kernel takes w_size in {3, 5, 7, 9, 11}, N * C <= 65535 and, since
+    its strips hold all C channels of a column, C <= 128 (a block's pairs),
+    and at w_size = 11 C <= 120 (two chunks of 11 input rows of one column's
+    C channels, x and y, fill a block's 232,448 bytes of shared memory
+    beyond that).  It refuses the rest before it loads the library."""
     dims = _check(y_pred, y_true, w_size)
     if not y_pred.is_cuda:
         return ssim_reference(y_pred, y_true, w_size, size_average, full, per_sample_range)
-    n, _, _, c, vh, vw, _, _ = dims
-    dyn_planes = plane_ranges(y_pred, per_sample_range)
-    ssim_sums, cs_sums = _kernel(y_pred, y_true, dyn_planes, dims, w_size)
-    return _finish(ssim_sums, cs_sums, n, c, vh * vw, size_average, full)
+    return _kernel(y_pred, y_true, dims, w_size, size_average, full, per_sample_range)

@@ -6,16 +6,18 @@ picks the parts of the layout sweep.
 RDB5 kernel's design (``rdb5_ablate``: every variant of ``csrc/rdb5.cu`` built,
 held against the plain version and timed in turns).  ``... probes tail
 [--rounds N]``: the x4 tail's main kernel against its first design
-(``tail_ablate``).  Each runs only when named, and only on the card."""
+(``tail_ablate``).  ``... probes ssim [--rounds N]``: the ablation of the SSIM
+kernel (``ssim_ablate``: its variants and its main pass with parts left out).
+Each runs only when named, and only on the card."""
 from __future__ import annotations
 
 import sys
 
 from srcgan_tpu_torch.probes import (layout_probe3, matmul_probe, mxu_probe, rdb5_ablate,
-                                     tail_ablate)
+                                     ssim_ablate, tail_ablate)
 
 SWEEPS = {"matmul": matmul_probe, "mxu": mxu_probe, "layout": layout_probe3}
-NAMED_ONLY = {"rdb5": rdb5_ablate, "tail": tail_ablate}
+NAMED_ONLY = {"rdb5": rdb5_ablate, "tail": tail_ablate, "ssim": ssim_ablate}
 USAGE = (f"usage: python -m srcgan_tpu_torch.probes [{'|'.join(SWEEPS)} ...] [abcd] "
          f"[--device cpu]  |  python -m srcgan_tpu_torch.probes {'|'.join(NAMED_ONLY)} [--rounds N]")
 

@@ -99,6 +99,22 @@ def device_us(fn, match: str, calls: int = 10):
     return total / calls if total > 0 else None
 
 
+def device_kernels(fn, calls: int = 5) -> dict:
+    """Device kernels a call of ``fn`` runs: kernel name -> launches a call
+    (torch.profiler over ``calls`` calls, after one that builds and warms it)."""
+    from torch import profiler
+
+    fn()
+    torch.cuda.synchronize()
+    with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
+                                      profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count / calls for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def rate(ops: float, ms: float) -> float:
     """Tera-operations per second of ``ops`` operations in ``ms`` milliseconds."""
     return ops / ms / 1e9

@@ -28,6 +28,7 @@ import torch
 from srcgan_tpu_torch import models
 from srcgan_tpu_torch.ops.kernels import (preprocess_kernel, probe_kernels, rdb5_kernel,
                                           ssim_kernel, tail_kernel)
+from srcgan_tpu_torch.probes import common
 
 pytestmark = pytest.mark.cuda
 
@@ -205,6 +206,30 @@ def test_gray_degrade_rejects_what_it_cannot_take(dev):
     assert preprocess_kernel.launches == before
 
 
+@pytest.mark.parametrize("shape,up", [((3, 25, 41, 3), 2), ((2, 17, 18, 3), 2),
+                                      ((2, 36, 22, 3), 3), ((1, 40, 198, 3), 4)])
+def test_gray_degrade_widths_that_are_no_multiple_of_4(dev, shape, up):
+    """Rows that start and end off a 4-pixel group (the scalar head and tail),
+    ragged heights whose blocks read a tap row from the bytes, and an input
+    whose address is not 4-byte aligned (the scalar path throughout)."""
+    n = shape[0]
+    big = u8(sum(shape), (n + 1,) + shape[1:], dev)
+    for x in (big[:n], big[1:]):
+        assert x.is_contiguous()
+        got = preprocess_kernel.fused_gray_degrade(x, up)
+        ref = preprocess_kernel.gray_degrade_reference(x, up)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape
+            assert (g - r).abs().max().item() <= 1e-6
+
+
+def test_gray_degrade_is_one_kernel_a_call(dev):
+    x = u8(7, (8, 256, 256, 3), dev)
+    names = common.device_kernels(lambda: preprocess_kernel.fused_gray_degrade(x, 2))
+    assert sum(names.values()) == 1 and all("gray_degrade_kernel" in k for k in names), names
+
+
 @pytest.fixture
 def small_rddbnet(monkeypatch):
     """The registry's RDDBNet at nf=16, nb=1, gc=8 for the trainers of a test."""
@@ -324,6 +349,48 @@ def test_ssim_other_windows_and_determinism(dev):
     runs = [ssim_kernel.ssim_fused(x, y, size_average=False, full=True) for _ in range(3)]
     for again in runs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(runs[0], again))    # no float atomics
+
+
+SSIM_MODES = [dict(size_average=True), dict(size_average=False),
+              dict(size_average=True, full=True),
+              dict(size_average=False, per_sample_range=True),
+              dict(size_average=False, full=True, per_sample_range=True)]
+
+
+@pytest.mark.parametrize("mode", range(len(SSIM_MODES)))
+def test_ssim_is_two_kernels_a_call_and_bit_equal(dev, mode):
+    """At the eval shape with mixed per-sample ranges: at most two device
+    kernels a call (the range pass, the main pass with its finish), three
+    calls bit-equal, and the L the range pass wrote is the plain version's."""
+    kw = SSIM_MODES[mode]
+    x, y = ssim_pair(11, (8, 256, 256, 3), 255.0, dev)
+    x[1::2], y[1::2] = x[1::2] / 255.0, y[1::2] / 255.0
+    names = common.device_kernels(lambda: ssim_kernel.ssim_fused(x, y, **kw))
+    assert 1 <= sum(names.values()) <= 2, names
+    runs = [ssim_kernel.ssim_fused(x, y, **kw) for _ in range(3)]
+    for again in runs[1:]:
+        for a, b in zip(again if kw.get("full") else (again,), runs[0] if kw.get("full") else (runs[0],)):
+            assert torch.equal(a, b)
+    per_sample = kw.get("per_sample_range", False)
+    key = (8, 256, 256, 3, 11, ssim_kernel.strip_width(3), ssim_kernel.TILE)
+    stream = torch.cuda.current_stream().cuda_stream
+    written = ssim_kernel.sample_ranges(torch.cuda.current_device(), stream, key)
+    assert torch.equal(written, ssim_kernel.dynamic_range(x, per_sample))
+
+
+def test_ssim_bf16_inputs_are_filtered_in_fp32(dev):
+    from srcgan_tpu_torch import config
+
+    x, y = ssim_pair(12, (2, 64, 64, 3), 1.0, dev)
+    xb, yb = x.bfloat16(), y.bfloat16()
+    for kw in SSIM_MODES:
+        got = ssim_kernel.ssim_fused(xb, yb, **kw)
+        same = ssim_kernel.ssim_fused(xb.float(), yb.float(), **kw)
+        with config.precision("fp32"):
+            ref = ssim_kernel.ssim_reference(xb.float(), yb.float(), **kw)
+        for g, s, r in zip(*((t if kw.get("full") else (t,)) for t in (got, same, ref))):
+            assert g.dtype == torch.float32 and torch.equal(g, s)
+            assert (g - r).abs().max().item() <= 1e-6
 
 
 def test_ssim_dispatch_and_refusals(dev):
@@ -668,8 +735,6 @@ def test_probe_mxu_and_dots_match_plain_versions(dev, dtype, k, n):
     odd for x and even for clip(x + 1)."""
     x, w = probe_operand(k, (8320, k), dtype, dev), probe_operand(n, (k, n), dtype, dev)
     if dtype == torch.int8:
-        from srcgan_tpu_torch.probes import common
-
         common.alternate_int8(x, w)
         y = int(probe_kernels._dot(x[:1], w[:, :1])[0, 0])
         y2 = int(probe_kernels._dot(probe_kernels._int8_next(x[:1]), w[:, :1])[0, 0])

@@ -159,3 +159,92 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(bad, match):
     t = torch.from_numpy(u8(6, 2, 16, 16, 3))
     with pytest.raises(ValueError, match=match):
         preprocess_kernel.fused_gray_degrade(bad(t), 2)
+
+
+def emulate_gray_degrade(tar: np.ndarray, up: int):
+    """csrc/gray_degrade.cu in numpy, block by block: block o of image n
+    converts its own input rows (``strip``) once, keeps them, and forms low
+    row o from them, or from the bytes where a tap row is not one of its rows
+    (``in_strip``); each pixel's luma in the plain version's order."""
+    n, h, w, _ = tar.shape
+    h2, w2 = h // up, w // up
+    ri, rw = preprocess_kernel.taps(h, h2)
+    ci, cw = preprocess_kernel.taps(w, w2)
+    held = preprocess_kernel.in_strip(h, h2)
+
+    def luma(px):
+        f = px.astype(np.float32) / np.float32(255.0)
+        wts = np.float32([0.2125, 0.7154, 0.0721])
+        return (f[..., 0] * wts[0] + f[..., 1] * wts[1]) + f[..., 2] * wts[2]
+
+    gray = np.full((n, h, w), np.nan, np.float32)
+    low = np.full((n, h2, w2), np.nan, np.float32)
+    for img in range(n):
+        for o in range(h2):
+            hb, he = preprocess_kernel.strip(o, h, h2)
+            assert np.isnan(gray[img, hb:he]).all()           # each row once
+            rows = luma(tar[img, hb:he])
+            gray[img, hb:he] = rows
+            lo, hi = (rows[r - hb] if held[o, k] else luma(tar[img, r])
+                      for k, r in enumerate(ri[o]))
+            tmp = rw[o, 1] * hi + rw[o, 0] * lo
+            low[img, o] = cw[:, 1] * tmp[ci[:, 1]] + cw[:, 0] * tmp[ci[:, 0]]
+    return gray[..., None], low[..., None]
+
+
+@pytest.mark.parametrize("h,h2", [(256, 128), (256, 64), (250, 62), (198, 49), (25, 12),
+                                  (9, 4), (37, 18), (30, 7)])
+def test_strip_plan_partitions_the_image(h, h2):
+    """The blocks' input rows cover [0, h) once each, and no block holds more
+    than ceil(h / h2) rows, what its shared memory is sized for."""
+    bounds = [preprocess_kernel.strip(o, h, h2) for o in range(h2)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == h
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert max(e - b for b, e in bounds) <= -(-h // h2)
+    assert preprocess_kernel.smem_bytes(h, 64, h2) == (-(-h // h2) * 64 + 4) * 4
+
+
+@pytest.mark.parametrize("up", [2, 3, 4])
+@pytest.mark.parametrize("h2", [128, 12, 3])
+def test_integer_ratio_taps_lie_in_their_own_rows(h2, up):
+    """For h = up * h2 output row o's taps are rows up*o + up/2 - 1 and
+    up*o + up/2 (even up, weights 1/2) or up*o + (up-1)/2 alone (odd up),
+    all inside the block's own up rows: the kernel never reads the bytes
+    twice."""
+    h = up * h2
+    idx, wts = preprocess_kernel.taps(h, h2)
+    o = np.arange(h2)
+    if up % 2 == 0:
+        np.testing.assert_array_equal(idx, np.stack([up * o + up // 2 - 1, up * o + up // 2], 1))
+        np.testing.assert_array_equal(wts, np.full((h2, 2), 0.5, np.float32))
+    else:
+        np.testing.assert_array_equal(idx, np.stack([up * o + (up - 1) // 2] * 2, 1))
+        np.testing.assert_array_equal(wts, np.stack([np.ones(h2), np.zeros(h2)], 1))
+    assert preprocess_kernel.in_strip(h, h2).all()
+    assert all(preprocess_kernel.strip(k, h, h2) == (up * k, up * k + up) for k in o)
+
+
+@pytest.mark.parametrize("shape,up", [((2, 32, 32, 3), 2), ((2, 36, 24, 3), 3),
+                                      ((2, 32, 40, 3), 4), ((1, 25, 41, 3), 2),
+                                      ((3, 30, 22, 3), 4), ((1, 17, 18, 3), 2)])
+def test_strip_emulation_matches_pallas_interpret(shape, up):
+    """The kernel's block plan against the Pallas kernel (interpret mode):
+    integer ratios at up 2, 3, 4, and ragged heights (25, 17 at up=2), whose
+    blocks read some tap rows from the bytes, with widths that are no
+    multiple of 4 (41, 22, 18)."""
+    tar = u8(sum(shape) * up, *shape)
+    h, h2 = shape[1], shape[1] // up
+    assert preprocess_kernel.in_strip(h, h2).all() == (h not in (25, 17))
+    gray, low = emulate_gray_degrade(tar, up)
+    k_gray, k_low = jax_fused(jnp.asarray(tar), up, interpret=True)
+    close(torch.from_numpy(gray), k_gray)
+    close(torch.from_numpy(low), k_low)
+
+
+def test_wrapper_refuses_rows_beyond_shared_memory():
+    """A block's rows must fit its shared memory: checked before the
+    library is loaded."""
+    t = torch.zeros(1, 8, 8000, 3, dtype=torch.uint8)
+    assert preprocess_kernel.smem_bytes(8, 8000, 1) > preprocess_kernel._MAX_SMEM
+    with pytest.raises(ValueError, match="shared memory"):
+        preprocess_kernel._kernel(t, 8)

@@ -291,6 +291,31 @@ def test_rdb5_ablation_runs_only_on_the_card(monkeypatch, argv, match):
         probes_main.main(argv)
 
 
+@pytest.mark.parametrize("argv,match", [(["ssim"], "no CUDA card"),
+                                        (["ssim", "--device", "cpu"], "no CPU mode")],
+                         ids=["default-device", "cpu-asked"])
+def test_ssim_ablation_runs_only_on_the_card(monkeypatch, argv, match):
+    """The ablation of csrc/ssim.cu is a named subcommand, like rdb5's."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=match):
+        probes_main.main(argv)
+
+
+def test_ssim_ablation_times_the_shipped_design_first():
+    """Its first variant is the default build at the wrapper's rows a block,
+    the one ssim_fused launches; the others change one choice each, and
+    every build with work left out keeps the shipped grid."""
+    from srcgan_tpu_torch.ops.kernels import ssim_kernel
+    from srcgan_tpu_torch.probes import ssim_ablate
+
+    assert ssim_ablate.VARIANTS[0][1:] == ((), ssim_kernel.TILE)
+    assert all(len(d) + (r != ssim_kernel.TILE) == 1 for _, d, r in ssim_ablate.VARIANTS[1:])
+    assert [d for _, d, _ in ssim_ablate.LEAVE_OUT] == [(f"SSIM_LEAVE_OUT={k}",) for k in (1, 2, 3)]
+    assert all(r == ssim_kernel.TILE for _, _, r in ssim_ablate.LEAVE_OUT)
+    n, h, w, c = ssim_ablate.SHAPE
+    assert ssim_kernel.strip_width(c) == 32 and (h, w) == (256, 256)
+
+
 def test_entry_point_lists_the_rdb5_ablation(capsys):
     from srcgan_tpu_torch.ops.kernels import rdb5_kernel
     from srcgan_tpu_torch.probes import rdb5_ablate
