@@ -58,7 +58,11 @@ Phases, in order; the first failure raises and the script exits non-zero:
                with its time, its bound and, where one PyTorch call computes
                the same function, that call's time (probe_matmul's bf16 form,
                its build without products and torch.matmul also in turns, x
-               warm in L2 and x from HBM);
+               warm in L2 and x from HBM; its int8 form beside
+               torch._int_mm); probe_mxu (both types) and probe_dots at every
+               shape of their sweeps through the chain kernel, three calls
+               bit-equal, in turns with the first design (the PROBES_CHAIN=0
+               build), and 48 dots taking more than twice 16 at K=576, N=192;
                then the three sweeps
                through ``python -m srcgan_tpu_torch.probes``'s entry points,
                which must reach every kernel (launch counters);
@@ -95,8 +99,10 @@ PRED_SCALE = 0.03
 WARMUP, REPS = 3, 25         # calls per timing: warm-up, then the median of REPS
 KERNELS = ("tail_x4", "gray_degrade", "ssim", "rdb5", "probes")
 # builds timed beside a kernel and never on a path: the tail's first design;
-# probe_matmul's bf16 form with its products left out (loads and stores only)
-YARDSTICKS = (("tail_x4_wmma", ()), ("probes", ("PROBES_MM_PRODUCTS=0",)))
+# probe_matmul's bf16 form with its products left out (loads and stores only);
+# probe_mxu's and probe_dots' chain on the first design's mma.sync dots_kernel
+YARDSTICKS = (("tail_x4_wmma", ()), ("probes", ("PROBES_MM_PRODUCTS=0",)),
+              ("probes", ("PROBES_CHAIN=0",)))
 # The card's published peaks (H100 SXM, dense): what a bound is taken against.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -1112,12 +1118,12 @@ def phase_probes(dev, card: str) -> list:
     from srcgan_tpu_torch import config
     from srcgan_tpu_torch.ops.kernels import build, probe_kernels as pk
     from srcgan_tpu_torch.probes import __main__ as probes_main
-    from srcgan_tpu_torch.probes import common
+    from srcgan_tpu_torch.probes import common, layout_probe3, mxu_probe
 
     bf16, int8 = torch.bfloat16, torch.int8
     rng = np.random.default_rng(11)
     worst = dict.fromkeys(pk.NAMES, 0.0)
-    timed = {}
+    timed, timed_int8 = {}, {}
 
     def compare(name, label, got, ref, bound):
         """bound None: bit-equal; else rel-L2 in float64."""
@@ -1136,7 +1142,7 @@ def phase_probes(dev, card: str) -> list:
                   f"max|diff| {err:.3g} {'PASS' if rel <= bound else 'FAIL'}")
             check(rel <= bound, f"{name} {label} disagrees with its plain version")
 
-    def times(name, label, fn, plain, nbytes, ops, dtype, lib=None, steps=1):
+    def times(name, label, fn, plain, nbytes, ops, dtype, lib=None, steps=1, into=timed):
         ms = common.graph_ms([fn] * 4)
         with config.precision("fp32"):
             plain_ms = median_ms(plain, reps=5)
@@ -1148,7 +1154,7 @@ def phase_probes(dev, card: str) -> list:
               + f", plain version {plain_ms:.4f} ms, "
               + ("no single PyTorch call" if lib_ms is None else f"the PyTorch call {lib_ms:.4f} ms")
               + f"; bound {least['bound_ms']:.5f} ms by {least['bound_by']}")
-        timed[name] = {"ms": ms, "plain_ms": plain_ms, **least, "library_ms": lib_ms}
+        into[name] = {"ms": ms, "plain_ms": plain_ms, **least, "library_ms": lib_ms}
 
     def pair(m, k, n, dtype):
         x, w = common.operand(rng, (m, k), dtype, dev), common.operand(rng, (k, n), dtype, dev)
@@ -1170,6 +1176,11 @@ def phase_probes(dev, card: str) -> list:
                     times("probe_matmul", f"bf16 K={k} N={n}", lambda: pk.probe_matmul(x, w),
                           lambda: pk.probe_matmul_reference(x, w), tensor_bytes(x, w, got),
                           2 * PROBE_M * k * n, "bf16", lib=lambda: torch.matmul(x, w))
+                elif (k, n) == (576, 192):      # the int8 form, beside torch._int_mm (int32 out)
+                    times("probe_matmul", f"int8 K={k} N={n}", lambda: pk.probe_matmul(x, w),
+                          lambda: pk.probe_matmul_reference(x, w), tensor_bytes(x, w, got),
+                          2 * PROBE_M * k * n, "int8", lib=lambda: torch._int_mm(x, w),
+                          into=timed_int8)
         # probe_matmul's bf16 form, its ablation build and torch.matmul in
         # turns, graph timing: the same x every launch (warm in L2), then
         # copies of x rotating over three times the L2 (read from HBM)
@@ -1191,40 +1202,54 @@ def phase_probes(dev, card: str) -> list:
               f"ms per call in 4 rounds: " + "; ".join(
                   f"{k} {' / '.join(f'{t:.4f}' for t in v)}" for k, v in rounds.items()))
         del xs
-        # 6b probe_mxu: B=16 dependent dots on a resident tile
-        for dtype, tname in ((bf16, "bf16"), (int8, "int8")):
-            for k, n in ((192, 128), (576, 192)):
-                x, w = pair(MXU_M, k, n, dtype)
-                got, ref = pk.probe_mxu(x, w, 16), pk.probe_mxu_reference(x, w, 16)
-                compare("probe_mxu", f"{tname} M={MXU_M} K={k} N={n}", got, ref,
-                        None if dtype == int8 else 1e-3)
-                if dtype == int8:
-                    check(not torch.equal(got, 16 * pk._dot(x, w)),
-                          "the int8 chain never switched operands")
-                if (k, n) == (576, 192) and dtype == bf16:
-                    times("probe_mxu", f"bf16 K={k} N={n}", lambda: pk.probe_mxu(x, w, 16),
-                          lambda: pk.probe_mxu_reference(x, w, 16), tensor_bytes(x, w, got),
-                          16 * 2 * MXU_M * k * n, "bf16", steps=16)
-                if (k, n) == (576, 192):
-                    # the dots are executed, not hoisted: the time grows with their number
-                    t16, t48 = (common.graph_ms([lambda b=b: pk.probe_mxu(x, w, b)] * 4)
-                                for b in (16, 48))
-                    per = (t48 - t16) / 32
-                    print(f"[probes] probe_mxu {tname} K={k} N={n} on {card}: 16 dots {t16:.4f} ms, "
-                          f"48 dots {t48:.4f} ms: {per * 1e3:.2f} us per added dot = "
-                          f"{common.rate(2 * MXU_M * k * n, per):.1f} "
-                          f"{'TOP/s' if dtype == int8 else 'TFLOP/s'}")
-                    check(t48 > 2 * t16, "probe_mxu's time does not grow with its dots")
-        # 6c probe_dots: the same chain at shallow K
-        for k, n in ((32, 192), (64, 192), (576, 192)):
-            x, w = pair(PROBE_M, k, n, bf16)
-            got = pk.probe_dots(x, w, 16)
-            compare("probe_dots", f"bf16 M={PROBE_M} K={k} N={n}", got,
-                    pk.probe_dots_reference(x, w, 16), 1e-3)
-            if (k, n) == (64, 192):
-                times("probe_dots", f"bf16 K={k} N={n}", lambda: pk.probe_dots(x, w, 16),
-                      lambda: pk.probe_dots_reference(x, w, 16), tensor_bytes(x, w, got),
-                      16 * 2 * PROBE_M * k * n, "bf16", steps=16)
+        # 6b/6c probe_mxu (both types) and probe_dots: 16 dependent dots through
+        # the chain kernel at every shape of their sweeps, against the plain
+        # version, three calls bit-equal, then in turns with the first design
+        chain0 = pk.declare(build.load(*YARDSTICKS[2]))
+        fns = {"probe_mxu": (pk.probe_mxu, pk.probe_mxu_reference),
+               "probe_dots": (pk.probe_dots, pk.probe_dots_reference)}
+        sweep = [("probe_mxu", MXU_M, k, n, dt) for dt in (bf16, int8) for k, n in mxu_probe.SHAPES]
+        sweep += [("probe_dots", PROBE_M, k, n, bf16) for k, n in layout_probe3.DOT_SHAPES]
+        for name, m, k, n, dtype in sweep:
+            x, w = pair(m, k, n, dtype)
+            fn, plain = fns[name]
+            tname = "int8" if dtype == int8 else "bf16"
+            label = f"{tname} M={m} K={k} N={n}"
+            got = [fn(x, w, 16) for _ in range(3)]
+            compare(name, label, got[0], plain(x, w, 16), None if dtype == int8 else 1e-3)
+            check(all(torch.equal(g, got[0]) for g in got[1:]),
+                  f"{name} {label}: three calls are not bit-equal")
+            if dtype == int8:
+                check(not torch.equal(got[0], 16 * pk._dot(x, w)),
+                      "the int8 chain never switched operands")
+            before = pk.chain(chain0, name, x, w, 16)
+            torch.cuda.synchronize()
+            agree = (torch.equal(before, got[0]) if dtype == int8
+                     else rel_l2(before.double(), got[0].double()) <= 1e-3)
+            check(agree, f"{name} {label}: the first design disagrees with the chain kernel")
+            turns = {"chain kernel": [], "first design": []}
+            calls = {"chain kernel": lambda: fn(x, w, 16),
+                     "first design": lambda: pk.chain(chain0, name, x, w, 16)}
+            for order in (("chain kernel", "first design"), ("first design", "chain kernel")):
+                for key in order:
+                    turns[key].append(common.graph_ms([calls[key]] * 4))
+            print(f"[probes] {name} {label} in turns on {card}, us a call of 16 dots: chain kernel "
+                  f"{' / '.join(f'{t * 1e3:.2f}' for t in turns['chain kernel'])}, first design "
+                  f"{' / '.join(f'{t * 1e3:.2f}' for t in turns['first design'])}")
+            table = (k, n) == ((576, 192) if name == "probe_mxu" else (64, 192))
+            if table:
+                times(name, label, lambda: fn(x, w, 16), lambda: plain(x, w, 16),
+                      tensor_bytes(x, w, got[0]), 16 * 2 * m * k * n, tname, steps=16,
+                      into=timed_int8 if dtype == int8 else timed)
+            if (k, n) == (576, 192):
+                # the dots are executed, not hoisted: the time grows with their number
+                t16, t48 = (common.graph_ms([lambda b=b: fn(x, w, b)] * 4) for b in (16, 48))
+                per = (t48 - t16) / 32
+                print(f"[probes] {name} {tname} K={k} N={n} on {card}: 16 dots {t16:.4f} ms, "
+                      f"48 dots {t48:.4f} ms: {per * 1e3:.2f} us per added dot = "
+                      f"{common.rate(2 * m * k * n, per):.1f} "
+                      f"{'TOP/s' if dtype == int8 else 'TFLOP/s'}")
+                check(t48 > 2 * t16, f"{name}'s time does not grow with its dots")
         # 6d probe_concat_dot: both forms, the same function
         a, w = pair(PROBE_M, 64, 192, bf16)
         w = torch.cat([w, pair(1, 64, 192, bf16)[1]])
@@ -1267,8 +1292,9 @@ def phase_probes(dev, card: str) -> list:
     check(all(counts[name] > 0 for name in pk.NAMES), "a sweep did not reach its kernel")
     lines = {"probe_matmul": 29, "probe_mxu": 23, "probe_dots": 66, "probe_concat_dot": 103,
              "probe_roll": 154, "probe_stage1": 186}
-    return [{**probe_entry(name, lines[name], worst[name], timed[name]),
-             "launches": counts[name]} for name in pk.NAMES]
+    # the int8 forms' readings ride in their probes' entries
+    return [{**probe_entry(name, lines[name], worst[name], timed[name]), "launches": counts[name],
+             **({"int8": timed_int8[name]} if name in timed_int8 else {})} for name in pk.NAMES]
 
 
 def lab_cascade(gen):

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by tail_x4.cu and probes.cu: shared-
 // memory addresses, mbarriers, one-thread bulk copies and TMA tensor loads,
-// and wgmma.mma_async m64nNk16 (bf16 operands, fp32 sums) with its matrix
-// descriptors.  ops/kernels/build.py hashes this header into the key of every
-// source that includes it, so an edit here rebuilds those two.
+// and wgmma.mma_async m64nNk16 (bf16 operands, fp32 sums) and m64nNk32 (s8
+// operands, s32 sums) with their matrix descriptors.  ops/kernels/build.py
+// hashes this header into the key of every source that includes it, so an
+// edit here rebuilds those two.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; no CUDA driver API call is linked
@@ -92,7 +93,12 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
 // waited for, which the compiler does not see.
 __device__ __forceinline__ void keep(float& v) { asm volatile("" : "+f"(v)::"memory"); }
 __device__ __forceinline__ void keep(uint32_t& v) { asm volatile("" : "+r"(v)::"memory"); }
+__device__ __forceinline__ void keep(int& v) { asm volatile("" : "+r"(v)::"memory"); }
 template <int N> __device__ __forceinline__ void keep(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) keep(d[i]);
+}
+template <int N> __device__ __forceinline__ void keep(int (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) keep(d[i]);
 }
@@ -122,6 +128,10 @@ __device__ __forceinline__ uint64_t descriptor(unsigned saddr, unsigned lbo, uns
 #define HOPPER_F8(i) HOPPER_F4(i), HOPPER_F4(i + 4)
 #define HOPPER_F16(i) HOPPER_F8(i), HOPPER_F8(i + 8)
 #define HOPPER_F32(i) HOPPER_F16(i), HOPPER_F16(i + 16)
+#define HOPPER_R4(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
+#define HOPPER_R8(i) HOPPER_R4(i), HOPPER_R4(i + 4)
+#define HOPPER_R16(i) HOPPER_R8(i), HOPPER_R8(i + 8)
+#define HOPPER_R32(i) HOPPER_R16(i), HOPPER_R16(i + 16)
 #define HOPPER_D8 "{%0,%1,%2,%3,%4,%5,%6,%7}"
 #define HOPPER_D16 "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}"
 #define HOPPER_D24                                                                          \
@@ -229,6 +239,71 @@ template <> struct SsT<192> {
     asm volatile(HOPPER_PRED("%98") "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
                  HOPPER_D96 ", %96, %97, p, 1, 1, 0, 1;\n}\n"
                  : HOPPER_F32(0), HOPPER_F32(32), HOPPER_F32(64)
+                 : "l"(a), "l"(b), "r"(scale));
+  }
+};
+
+// rs with B MN-major (N contiguous in each row of k, the transpose bit), A
+// from four registers as in Rs.
+template <int N> struct RsT;
+
+template <> struct RsT<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                             int scale) {
+    asm volatile(HOPPER_PRED("%37") "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+                 HOPPER_D32 ", {%32,%33,%34,%35}, %36, p, 1, 1, 1;\n}\n"
+                 : HOPPER_F32(0)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale));
+  }
+};
+
+template <> struct RsT<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                             int scale) {
+    asm volatile(HOPPER_PRED("%69") "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+                 HOPPER_D64 ", {%64,%65,%66,%67}, %68, p, 1, 1, 1;\n}\n"
+                 : HOPPER_F32(0), HOPPER_F32(32)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale));
+  }
+};
+
+template <> struct RsT<192> {
+  static __device__ __forceinline__ void mma(float (&d)[96], const uint32_t (&a)[4], uint64_t b,
+                                             int scale) {
+    asm volatile(HOPPER_PRED("%101") "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+                 HOPPER_D96 ", {%96,%97,%98,%99}, %100, p, 1, 1, 1;\n}\n"
+                 : HOPPER_F32(0), HOPPER_F32(32), HOPPER_F32(64)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale));
+  }
+};
+
+// ss for s8 operands, s32 sums, k32: A and B both K-major through
+// descriptors (an 8-bit operand has no transpose bit).
+template <int N> struct Ss8;
+
+template <> struct Ss8<64> {
+  static __device__ __forceinline__ void mma(int (&d)[32], uint64_t a, uint64_t b, int scale) {
+    asm volatile(HOPPER_PRED("%34") "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+                 HOPPER_D32 ", %32, %33, p;\n}\n"
+                 : HOPPER_R32(0)
+                 : "l"(a), "l"(b), "r"(scale));
+  }
+};
+
+template <> struct Ss8<128> {
+  static __device__ __forceinline__ void mma(int (&d)[64], uint64_t a, uint64_t b, int scale) {
+    asm volatile(HOPPER_PRED("%66") "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+                 HOPPER_D64 ", %64, %65, p;\n}\n"
+                 : HOPPER_R32(0), HOPPER_R32(32)
+                 : "l"(a), "l"(b), "r"(scale));
+  }
+};
+
+template <> struct Ss8<192> {
+  static __device__ __forceinline__ void mma(int (&d)[96], uint64_t a, uint64_t b, int scale) {
+    asm volatile(HOPPER_PRED("%98") "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
+                 HOPPER_D96 ", %96, %97, p;\n}\n"
+                 : HOPPER_R32(0), HOPPER_R32(32), HOPPER_R32(64)
                  : "l"(a), "l"(b), "r"(scale));
   }
 };

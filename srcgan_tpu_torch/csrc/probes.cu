@@ -14,8 +14,40 @@
 // memory, with two K=64 taps stacked to K=128, and with the taps gathered by
 // an im2col copy in shared memory or read shifted.
 //
-// One kernel template (dots_kernel) serves every dot probe.  A block of eight
-// warps owns 64 rows of x and keeps them in shared memory across all B dots
+// The dependent-dot chain of make and probe_dots (B dots of one x against w,
+// each x perturbed by the dot before) has a kernel of its own, chain_kernel.
+// What bounds it is the products: 16 dots of (8320,576)@(576,192) are 29.8 us
+// of bf16 tensor work on an H100 and their bytes (9.6 MB of x, 6.4 MB of sums)
+// 4.8 us; so the products must run back to back with nothing between them.
+//   - w stays in shared memory for all the dots: bf16 w read as it lies, by
+//     TMA boxes of 64 k x 64 n with the 128-byte swizzle, an MN-major B (the
+//     wgmma transpose bit), a barrier per chunk of 64 k that the first dot
+//     waits on chunk by chunk; s8 w must be K-major (wgmma has no transpose
+//     for 8-bit operands), so a launch before the chain's writes w's K-major
+//     swizzled image once (s8_image_kernel, 110.6 KB at K=576, N=192) and every
+//     block bulk-copies it chunk by chunk (each block transposing w itself, one
+//     launch a call, took 4-5 us more: 130 blocks reading the same 110 KB).
+//   - a block of two warpgroups takes a tile of 64 rows (130 tiles at M =
+//     8320, 130 of 132 SMs).  The warpgroups split its k steps (m64nNk16 or
+//     m64nNk32 over all of N, halves of the sums exchanged through shared
+//     memory at the end) or, for bf16 at K <= 128 and N >= 128, its columns
+//     (each over all of K, no exchange); where the exchange has bytes of its
+//     own a block walks over tiles with w resident.
+//   - bf16 A is in registers (the m16n8k16 fragment layout, loaded once from
+//     device memory); between dots the perturbation is added to them with
+//     add.rn.bf16x2 after wgmma.wait_group, nothing rewritten in shared
+//     memory.  s8 A stays in shared memory twice, x and clip(x + 1) (written
+//     beside x once it lands), and a dot picks one by its descriptor.
+//   - y[0,0] depends on row 0 of x and column 0 of w only, so every warp keeps
+//     its own copy of both and computes the chain itself (K products and a
+//     shuffle reduction while its wgmmas run); no warp waits for another
+//     between dots, and no block barrier falls between them.
+// The ablation (python -m srcgan_tpu_torch.probes chain) times the designs
+// it was chosen over and the builds with work left out (PROBES_CHAIN_*).
+//
+// One kernel template (dots_kernel) serves the other dot probes, and the
+// chain where PROBES_CHAIN=0 (the first design, kept as the ablation's
+// yardstick).  A block of eight warps owns 64 rows of x and keeps them in shared memory across all B dots
 // (the TPU held all of x in VMEM; 64 rows x 1,152 B are 74 KB of a block's
 // 227 KB).  transpose_kernel first writes w column by column, k contiguous,
 // in slices of 256 bytes of k laid out as the shared-memory stage holds them,
@@ -47,7 +79,7 @@
 // y00, applied as a saturating byte add to each A fragment.
 //
 // Modes of the template: plain (make_matmul's int8 form with B=1 and the
-// output cast to int8, make, probe_dots); concat and twodots (probe_concat_dot:
+// output cast to int8; the chain where PROBES_CHAIN=0); concat and twodots (probe_concat_dot:
 // the stacked form rebuilds the [a, a/2] tile in shared memory every step,
 // the other halves the A fragments of the second dot in registers); im2col
 // and shifted (probe_stage1: a block holds its rows with a halo of stride+1
@@ -71,7 +103,7 @@
 // cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint (so the
 // library needs no -lcuda), and passed as __grid_constant__ parameters.  The
 // int8 form stays on dots_kernel (plain mode, one dot, the int32 sum cast to
-// int8): it is already faster than torch._int_mm.
+// int8); chip_smoke.py times it beside torch._int_mm.
 //
 // probe_roll has no dot: B steps of out[i] = bf16(in[(i - shift) mod M] + c)
 // between two buffers that stay in L2, with a grid-wide barrier between
@@ -159,6 +191,15 @@ __device__ __forceinline__ uint32_t pack(float a, float b) {
 __device__ __forceinline__ uint32_t bf2_add(uint32_t v, float d) {
   const float2 f = unpack(v);
   return pack(__fadd_rn(f.x, d), __fadd_rn(f.y, d));
+}
+
+// The same sum with one rounding (add.rn.bf16x2), d2 a pair of bf16: equal to
+// bf2_add's, because the fp32 sum of two bf16 values is exact wherever its
+// rounding could move the bf16 result (tests/test_torch_probes.py checks it).
+__device__ __forceinline__ uint32_t bf2_add_once(uint32_t v, uint32_t d2) {
+  const __nv_bfloat162 r = __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&d2));
+  return *reinterpret_cast<const uint32_t*>(&r);
 }
 
 // Two bf16 values times one half, rounded to bf16.
@@ -662,26 +703,27 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// A row-major (outer, inner) bf16 tensor in boxes of (box_outer, box_inner)
-// with the 128-byte swizzle (box_inner * 2 == 128).
-int bf16_map(CUtensorMap* map, const void* ptr, uint64_t inner, uint64_t outer, uint32_t box_inner,
-             uint32_t box_outer) {
+// A row-major (outer, inner) tensor of bf16 (or of bytes, s8) in boxes of
+// (box_outer, box_inner) with the 128-byte swizzle (box_inner elements are 128
+// bytes).  Elements outside the tensor arrive as zeros.
+int swizzled_map(CUtensorMap* map, const void* ptr, uint64_t inner, uint64_t outer,
+                 uint32_t box_inner, uint32_t box_outer, bool s8 = false) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {inner, outer}, strides[1] = {inner * 2};
+  const cuuint64_t dims[2] = {inner, outer}, strides[1] = {inner * (s8 ? 1 : 2)};
   const cuuint32_t box[2] = {box_inner, box_outer}, steps[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                            strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(map, s8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            2, const_cast<void*>(ptr), dims, strides, box, steps,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int N>
 int launch_matmul(const void* x, const void* w, void* out, int M, int K, cudaStream_t stream) {
   CUtensorMap xmap, wmap;
-  int err = bf16_map(&xmap, x, K, M, kMmK, kMmRows);
-  if (err == cudaSuccess) err = bf16_map(&wmap, w, N, K, 64, kMmK);
+  int err = swizzled_map(&xmap, x, K, M, kMmK, kMmRows);
+  if (err == cudaSuccess) err = swizzled_map(&wmap, w, N, K, 64, kMmK);
   if (err != cudaSuccess) return err;
   constexpr int smem = mm_smem_bytes<N>();
   err = cudaFuncSetAttribute(matmul_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -691,6 +733,661 @@ int launch_matmul(const void* x, const void* w, void* out, int M, int K, cudaStr
                                                          static_cast<__nv_bfloat16*>(out), M, K);
   return cudaGetLastError();
 }
+
+// ---- the dependent-dot chain of probe_mxu and probe_dots (see the header)
+// Switches of the ablation (python -m srcgan_tpu_torch.probes chain); the
+// defaults are the design that ships.  PROBES_CHAIN=0 sends the chain to
+// dots_kernel's plain mode, the first design, with its transpose launch and
+// scratch.  PROBES_CHAIN_LEAVE_OUT=1 leaves the wgmma instructions out (the
+// loads, the y[0,0] chain, the operand updates and the stores only); =2 the
+// dots too (the loads of the operands and the stores); =3 the loads as well
+// (start, sums exchanged, stores).  Their results are wrong.
+// PROBES_CHAIN_BLOCKS=1 asks ptxas for one block an SM where the design that
+// ships asks for two (K <= 128).  How the warpgroups share a tile's bf16
+// products: PROBES_CHAIN_SPLIT=-1 (ships) splits N at K <= 128 with N >= 128
+// and K elsewhere, =0 splits K everywhere, =1 N everywhere.  Split by N, each
+// warpgroup holds all of K's A in registers and computes columns [0, 64
+// ceil(N/128)) or the rest, and no sums are exchanged.  PROBES_CHAIN_A_SMEM=1
+// keeps bf16 A in shared memory (x by TMA beside w, swizzled like it; K split)
+// and each warpgroup rewrites its own k columns of the tile between dots
+// behind a barrier of its own warps (where x fits beside w and K is a depth
+// class).  PROBES_CHAIN_S8_IMAGE=0 has every block transpose the s8 w itself
+// (one launch a call) where the design that ships writes w's K-major image
+// once by a launch of its own and the blocks copy it chunk by chunk.
+// PROBES_CHAIN_DB=1 gives the column split two sets of A registers in turn
+// and a master copy, so that a warpgroup makes the next dot's operand while
+// the dot runs instead of waiting for it.
+#ifndef PROBES_CHAIN
+#define PROBES_CHAIN 1
+#endif
+#ifndef PROBES_CHAIN_LEAVE_OUT
+#define PROBES_CHAIN_LEAVE_OUT 0
+#endif
+#ifndef PROBES_CHAIN_BLOCKS
+#define PROBES_CHAIN_BLOCKS 2
+#endif
+#ifndef PROBES_CHAIN_SPLIT
+#define PROBES_CHAIN_SPLIT -1
+#endif
+#ifndef PROBES_CHAIN_A_SMEM
+#define PROBES_CHAIN_A_SMEM 0
+#endif
+#ifndef PROBES_CHAIN_DB
+#define PROBES_CHAIN_DB 0
+#endif
+#ifndef PROBES_CHAIN_S8_IMAGE
+#define PROBES_CHAIN_S8_IMAGE 1
+#endif
+
+#if PROBES_CHAIN
+constexpr int kChThreads = 256;    // two warpgroups over a tile of 64 rows
+constexpr int kChMaxK = 576;
+
+// k16 steps (bf16) or k32 steps (s8) of a depth class KC; four steps make a
+// chunk, one 128-byte swizzled row of k.
+template <int KC, bool S8> __host__ __device__ constexpr int ch_steps() { return KC / (S8 ? 32 : 16); }
+template <int KC, bool S8> __host__ __device__ constexpr int ch_chunks() {
+  return (ch_steps<KC, S8>() + 3) / 4;
+}
+// Bytes of the operands in shared memory: w resident (bf16: N/64 boxes of 64
+// k x 64 n a chunk, MN-major; s8: N rows of 128 bytes of k a chunk,
+// K-major), for s8 then x and clip(x + 1) (64 rows x 128 bytes a chunk each).
+template <int N, int KC, bool S8> __host__ __device__ constexpr int ch_operands() {
+  return ch_chunks<KC, S8>() * (N * 128 + (S8 ? 2 * 8192 : (PROBES_CHAIN_A_SMEM ? 8192 : 0)));
+}
+// Whether the warpgroups split a tile's columns (bf16 only), else its k steps.
+template <int N, int KC, bool S8> __host__ __device__ constexpr bool ch_nsplit() {
+  return !S8 && !PROBES_CHAIN_A_SMEM &&
+         (PROBES_CHAIN_SPLIT == 1 || (PROBES_CHAIN_SPLIT < 0 && KC <= 128 && N >= 128));
+}
+// Bytes of the halves of the sums the warpgroups exchange after a k split.
+template <int N, int KC, bool S8> __host__ __device__ constexpr int ch_exchange() {
+  return ch_nsplit<N, KC, S8>() ? 0 : N * 256;
+}
+// Whether the exchange fits beside the operands; then a block can walk over
+// several tiles with w resident.  Where it does not (bf16 K=576, N=192) it
+// reuses the operands' bytes and a block takes one tile.
+template <int N, int KC, bool S8> __host__ __device__ constexpr bool ch_separate() {
+  return 1024 + ch_operands<N, KC, S8>() + ch_exchange<N, KC, S8>() +
+                 8 * (ch_chunks<KC, S8>() + 1) <= kMaxSmem &&
+         !PROBES_CHAIN_A_SMEM;
+}
+template <int N, int KC, bool S8> __host__ __device__ constexpr int ch_region() {
+  constexpr int ops = ch_operands<N, KC, S8>(), ex = ch_exchange<N, KC, S8>();
+  return ch_separate<N, KC, S8>() ? ops + ex : ops > ex ? ops : ex;
+}
+// the region aligned to 1024 bytes, then one mbarrier per chunk of w and
+// (s8) one for x
+template <int N, int KC, bool S8> __host__ __device__ constexpr int ch_smem_bytes() {
+  return 1024 + ch_region<N, KC, S8>() + 8 * (ch_chunks<KC, S8>() + 1);
+}
+
+// ---- s8 w in the K-major form of the 128-byte swizzle: chunks of 128 k, each
+// N rows (one a column of w) of 128 bytes, zero past K.  A piece is 128 k of
+// 32 columns: lane l reads 32 bytes (one sector) of each of rows k..k+3 of w,
+// k = 128 c + 4 l, and turns each 4 x 4 block of bytes into 4 words of 4 k by
+// byte permutes; the 32 lanes then store one whole 128-byte row of each
+// column, every bank (or every byte of a line) once.
+struct S8Piece {
+  uint32_t r[4][8];                               // row, word
+};
+__device__ __forceinline__ void s8_load(S8Piece& p, const uint8_t* w, int piece, int K, int N,
+                                        bool valid) {
+  const int k = (piece / (N / 32)) * 128 + 4 * (threadIdx.x & 31), n0 = (piece % (N / 32)) * 32;
+  const bool in = valid && k < K;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const uint4* src = reinterpret_cast<const uint4*>(w + size_t(k + t) * N + n0);
+    const uint4 lo = in ? __ldg(src) : make_uint4(0u, 0u, 0u, 0u);
+    const uint4 hi = in ? __ldg(src + 1) : make_uint4(0u, 0u, 0u, 0u);
+    p.r[t][0] = lo.x; p.r[t][1] = lo.y; p.r[t][2] = lo.z; p.r[t][3] = lo.w;
+    p.r[t][4] = hi.x; p.r[t][5] = hi.y; p.r[t][6] = hi.z; p.r[t][7] = hi.w;
+  }
+}
+__device__ __forceinline__ void s8_store(const S8Piece& p, uint8_t* dst, int piece, int N) {
+  const int c = piece / (N / 32), n0 = (piece % (N / 32)) * 32, kr = 4 * (threadIdx.x & 31);
+  uint8_t* const base = dst + size_t(c) * N * 128 + (kr & 15);
+#pragma unroll
+  for (int v = 0; v < 8; ++v) {
+    const uint32_t t0 = __byte_perm(p.r[0][v], p.r[1][v], 0x5140);
+    const uint32_t t1 = __byte_perm(p.r[2][v], p.r[3][v], 0x5140);
+    const uint32_t t2 = __byte_perm(p.r[0][v], p.r[1][v], 0x7362);
+    const uint32_t t3 = __byte_perm(p.r[2][v], p.r[3][v], 0x7362);
+    const uint32_t col[4] = {__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
+                             __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632)};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + 4 * v + j;             // the swizzle XORs the 16-byte piece with n % 8
+      *reinterpret_cast<uint32_t*>(base + n * 128 + (((kr >> 4) ^ (n & 7)) << 4)) = col[j];
+    }
+  }
+}
+
+// w's image for the blocks of the chain kernel to copy as it lies: a warp a
+// piece, `pieces` = chunks * N / 32.
+__global__ void __launch_bounds__(256) s8_image_kernel(const uint8_t* __restrict__ w,
+                                                       uint8_t* __restrict__ img, int K, int N,
+                                                       int pieces) {
+  const int piece = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (piece >= pieces) return;
+  S8Piece p;
+  s8_load(p, w, piece, K, N, true);
+  s8_store(p, img, piece, N);
+}
+
+// mbar_wait that traps after 2^24 polls instead of hanging the card where a
+// copy never completes (a tensor map the copy engine refused).
+__device__ __forceinline__ void chain_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  for (long spin = 0; !done; ++spin) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (spin > (1l << 24)) __trap();
+  }
+}
+
+// Both warpgroups arrive, from their own code (a named barrier counts warps).
+__device__ __forceinline__ void block_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
+
+// bf16 words j = lane + 32 i of row 0 of x and of column 0 of w (as bf16
+// pairs), zero past K; then each dot's y[0,0] in a fixed order.
+template <int CW>
+__device__ __forceinline__ float row0_dot(const uint32_t (&x0)[CW], const uint32_t (&wc)[CW]) {
+  float y = 0.f;
+#pragma unroll
+  for (int i = 0; i < CW; ++i) {
+    const float2 a = unpack(x0[i]), b = unpack(wc[i]);
+    y = fmaf(a.x, b.x, y);
+    y = fmaf(a.y, b.y, y);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) y += __shfl_xor_sync(0xffffffffu, y, o);
+  return y;
+}
+
+// The warpgroup's part of a tile's sums out of its registers into `out`: it
+// sends the half of its columns the other warpgroup stores through `ex` and
+// adds the other's half of its own (warpgroup 0 stores columns [0, N/2)).
+// Both add in the order acc0 + acc1, so the sum is the same everywhere.
+template <int N, int WG, typename Acc>
+__device__ __forceinline__ void ch_store(Acc (&d)[N / 2], uint8_t* ex, Acc* out, int row, int q) {
+  constexpr int H = N / 4;                        // registers of a half
+  const int t = threadIdx.x & 127;
+  Acc* const box = reinterpret_cast<Acc*>(ex);    // box w at w * H * 128 is for warpgroup w
+  block_sync();                                   // both are done with the tile (and with ex)
+#pragma unroll
+  for (int i = 0; i < H; ++i) box[(1 - WG) * H * 128 + i * 128 + t] = d[(WG ? 0 : H) + i];
+  block_sync();
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const Acc other = box[WG * H * 128 + i * 128 + t];
+    d[WG * H + i] = WG ? other + d[WG * H + i] : d[WG * H + i] + other;
+  }
+#pragma unroll
+  for (int jj = 0; jj < N / 16; ++jj) {
+    const int j = WG * (N / 16) + jj, col = 8 * j + 2 * q;
+    using Acc2 = typename std::conditional<std::is_same<Acc, int>::value, int2, float2>::type;
+    *reinterpret_cast<Acc2*>(out + size_t(row) * N + col) = Acc2{d[4 * j], d[4 * j + 1]};
+    *reinterpret_cast<Acc2*>(out + size_t(row + 8) * N + col) = Acc2{d[4 * j + 2], d[4 * j + 3]};
+  }
+}
+
+// bf16: warpgroup WG's k16 steps [S0, S1) of every dot, A from registers
+// (PROBES_CHAIN_A_SMEM: from shared memory), for each tile of the block.
+template <int N, int KC, int WG>
+__device__ __forceinline__ void chain_bf16(const uint8_t* x, const uint8_t* w, float* out,
+                                           uint8_t* region, uint8_t* ex, uint64_t* full, int M,
+                                           int K, int B) {
+  constexpr int KS = ch_steps<KC, false>(), S0 = WG ? KS / 2 : 0, S1 = WG ? KS : KS / 2;
+  constexpr int NS = S1 - S0, CW = (KC / 2 + 31) / 32;
+  const int lane = threadIdx.x & 31, wl = (threadIdx.x >> 5) & 3, g = lane >> 2, q = lane & 3;
+  const int kw = K / 2;                           // words of a row of x
+  const uint32_t* xw = reinterpret_cast<const uint32_t*>(x);
+  const uint16_t* wh = reinterpret_cast<const uint16_t*>(w);
+  const unsigned wbase = smem_addr(region);
+  const unsigned xbase = wbase + ch_chunks<KC, false>() * N * 128;   // PROBES_CHAIN_A_SMEM's x
+  const int cv = (K + 63) / 64;                   // chunks of w that hold k < K
+
+  for (int tile = blockIdx.x; tile < M / 64; tile += gridDim.x) {
+    const int row = tile * 64 + 16 * wl + g;
+    // A: this warp's 16 rows of the tile in the m16n8k16 fragment layout, the
+    // steps past K zero (their descriptors point at chunk 0: finite products of 0)
+    uint32_t a[NS][4];
+#pragma unroll
+    for (int s = 0; s < (PROBES_CHAIN_A_SMEM ? 0 : NS); ++s) {
+      const bool in = PROBES_CHAIN_LEAVE_OUT < 3 && 16 * (S0 + s) < K;
+      const size_t c = size_t(8 * (S0 + s) + q);
+      a[s][0] = in ? __ldg(xw + size_t(row) * kw + c) : 0u;
+      a[s][1] = in ? __ldg(xw + size_t(row + 8) * kw + c) : 0u;
+      a[s][2] = in ? __ldg(xw + size_t(row) * kw + c + 4) : 0u;
+      a[s][3] = in ? __ldg(xw + size_t(row + 8) * kw + c + 4) : 0u;
+    }
+    // the warp's own copy of row 0 of x and of column 0 of w
+    uint32_t x0[CW], wc[CW];
+#pragma unroll
+    for (int i = 0; i < CW; ++i) {
+      const int j = lane + 32 * i;
+      const bool in = PROBES_CHAIN_LEAVE_OUT < 3 && j < kw;
+      x0[i] = in ? __ldg(xw + j) : 0u;
+      wc[i] = in ? uint32_t(__ldg(wh + size_t(2 * j) * N)) |
+                       (uint32_t(__ldg(wh + size_t(2 * j + 1) * N)) << 16)
+                 : 0u;
+    }
+
+    float d[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+    for (int b = 0; b < (PROBES_CHAIN_LEAVE_OUT >= 2 ? 0 : B); ++b) {
+      // the dot: a commit group per chunk of w, each behind that chunk's
+      // barrier (waited on once; later dots and tiles find it complete)
+#pragma unroll
+      for (int s = S0; s < S1; ++s) {
+        if (s == S0 || s % 4 == 0) {
+          if (s != S0) wgmma_commit();
+          chain_wait(full + (s / 4 < cv ? s / 4 : 0), 0);
+          wgmma_fence();
+        }
+        const int c = 16 * s < K ? s / 4 : 0;
+        const uint64_t wdesc = descriptor(wbase + c * N * 128 + (s % 4) * 2048, 8192, 1024, true);
+        if (PROBES_CHAIN_LEAVE_OUT == 0 && PROBES_CHAIN_A_SMEM)
+          SsT<N>::mma(d, descriptor(xbase + (s / 4) * 8192 + (s % 4) * 32, 16, 1024, true), wdesc, 1);
+        else if (PROBES_CHAIN_LEAVE_OUT == 0)
+          RsT<N>::mma(d, a[s - S0], wdesc, 1);
+      }
+      wgmma_commit();
+      // meanwhile the chain: y[0,0] of this dot, and the perturbation of the next x
+      const float dd = __bfloat162float(__float2bfloat16_rn(row0_dot(x0, wc) * 1e-36f));
+      const uint32_t dd2 = pack(dd, dd);
+#pragma unroll
+      for (int i = 0; i < CW; ++i)
+        if (lane + 32 * i < kw) x0[i] = bf2_add_once(x0[i], dd2);
+      wgmma_wait<0>();                            // the dot has read its A registers
+      keep(d);
+      if constexpr (PROBES_CHAIN_A_SMEM) {
+        // the warpgroup's own k columns of all 64 rows: 16-byte pieces 2(s%4)
+        // and 2(s%4)+1 of each row of a chunk, where the swizzle put them
+        for (int i = threadIdx.x & 127; i < 64 * NS * 2; i += 128) {
+          const int r = i / (NS * 2), rem = i - r * (NS * 2), st = S0 + rem / 2;
+          const int piece = 2 * (st % 4) + (rem & 1);
+          uint4* p = reinterpret_cast<uint4*>(region + ch_chunks<KC, false>() * N * 128 +
+                                              (st / 4) * 8192 + r * 128 + ((piece ^ (r & 7)) << 4));
+          uint4 v = *p;
+          v.x = bf2_add_once(v.x, dd2); v.y = bf2_add_once(v.y, dd2);
+          v.z = bf2_add_once(v.z, dd2); v.w = bf2_add_once(v.w, dd2);
+          *p = v;
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync %0, 128;\n" ::"r"(2 + WG) : "memory");   // the warpgroup's warps only
+      } else {
+        keep(a);
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+          if (16 * (S0 + s) < K) {                // the steps past K stay zero
+#pragma unroll
+            for (int e = 0; e < 4; ++e) a[s][e] = bf2_add_once(a[s][e], dd2);
+          }
+      }
+    }
+    ch_store<N, WG>(d, ex, out, row, q);
+  }
+}
+
+// bf16 split by N: warpgroup WG computes columns [C0, C0 + NW) of each tile
+// of the block over all of K, A from registers, and stores them itself.
+template <int N, int KC, int WG>
+__device__ __forceinline__ void chain_bf16_nsplit(const uint8_t* x, const uint8_t* w, float* out,
+                                                  uint8_t* region, uint64_t* full, int M, int K,
+                                                  int B) {
+  constexpr int KS = ch_steps<KC, false>(), CW = (KC / 2 + 31) / 32;
+  constexpr int N0 = N >= 128 ? 64 * ((N / 64 + 1) / 2) : N;
+  constexpr int C0 = WG ? N0 : 0, NW = WG ? N - N0 : N0;
+  const int lane = threadIdx.x & 31, wl = (threadIdx.x >> 5) & 3, g = lane >> 2, q = lane & 3;
+  const int kw = K / 2;
+  const uint32_t* xw = reinterpret_cast<const uint32_t*>(x);
+  const uint16_t* wh = reinterpret_cast<const uint16_t*>(w);
+  const unsigned wbase = smem_addr(region) + (C0 / 64) * 8192;
+  const int cv = (K + 63) / 64;
+  if constexpr (NW > 0) {
+    for (int tile = blockIdx.x; tile < M / 64; tile += gridDim.x) {
+      const int row = tile * 64 + 16 * wl + g;
+      uint32_t a[KS][4];
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        const bool in = PROBES_CHAIN_LEAVE_OUT < 3 && 16 * s < K;
+        const size_t c = size_t(8 * s + q);
+        a[s][0] = in ? __ldg(xw + size_t(row) * kw + c) : 0u;
+        a[s][1] = in ? __ldg(xw + size_t(row + 8) * kw + c) : 0u;
+        a[s][2] = in ? __ldg(xw + size_t(row) * kw + c + 4) : 0u;
+        a[s][3] = in ? __ldg(xw + size_t(row + 8) * kw + c + 4) : 0u;
+      }
+      uint32_t x0[CW], wc[CW];
+#pragma unroll
+      for (int i = 0; i < CW; ++i) {
+        const int j = lane + 32 * i;
+        const bool in = PROBES_CHAIN_LEAVE_OUT < 3 && j < kw;
+        x0[i] = in ? __ldg(xw + j) : 0u;
+        wc[i] = in ? uint32_t(__ldg(wh + size_t(2 * j) * N)) |
+                         (uint32_t(__ldg(wh + size_t(2 * j + 1) * N)) << 16)
+                   : 0u;
+      }
+      float d[NW / 2];
+#pragma unroll
+      for (int i = 0; i < NW / 2; ++i) d[i] = 0.f;
+      // a dot with A from `src`, a commit group per chunk of w
+      auto dot = [&](const uint32_t (&src)[KS][4]) {
+#pragma unroll
+        for (int s = 0; s < KS; ++s) {
+          if (s % 4 == 0) {
+            if (s != 0) wgmma_commit();
+            chain_wait(full + (s / 4 < cv ? s / 4 : 0), 0);
+            wgmma_fence();
+          }
+          const int c = 16 * s < K ? s / 4 : 0;
+          if (PROBES_CHAIN_LEAVE_OUT == 0)
+            RsT<NW>::mma(d, src[s], descriptor(wbase + c * N * 128 + (s % 4) * 2048, 8192, 1024, true), 1);
+        }
+        wgmma_commit();
+      };
+      // this dot's perturbation from row 0, which then moves on
+      auto perturbation = [&]() {
+        const float dd = __bfloat162float(__float2bfloat16_rn(row0_dot(x0, wc) * 1e-36f));
+        const uint32_t dd2 = pack(dd, dd);
+#pragma unroll
+        for (int i = 0; i < CW; ++i)
+          if (lane + 32 * i < kw) x0[i] = bf2_add_once(x0[i], dd2);
+        return dd2;
+      };
+      auto perturb = [&](uint32_t (&v)[KS][4], uint32_t dd2) {
+#pragma unroll
+        for (int s = 0; s < KS; ++s)
+          if (16 * s < K) {                       // the steps past K stay zero
+#pragma unroll
+            for (int e = 0; e < 4; ++e) v[s][e] = bf2_add_once(v[s][e], dd2);
+          }
+      };
+      const int dots = PROBES_CHAIN_LEAVE_OUT >= 2 ? 0 : B;
+      if constexpr (!PROBES_CHAIN_DB) {
+        for (int b = 0; b < dots; ++b) {
+          dot(a);
+          const uint32_t dd2 = perturbation();
+          wgmma_wait<0>();                        // the dot has read its A registers
+          keep(d);
+          keep(a);
+          perturb(a, dd2);
+        }
+      } else {
+        // two sets of A registers in turn and a master copy that no wgmma
+        // reads: the next dot's operand is made while this one runs
+        uint32_t m[KS][4], a1[KS][4];
+#pragma unroll
+        for (int s = 0; s < KS; ++s)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) m[s][e] = a[s][e];
+        for (int b = 0; b < dots; b += 2) {
+          dot(a);
+          perturb(m, perturbation());
+          wgmma_wait<1>();                        // the dot before, which read a1, is done
+          keep(a1);
+#pragma unroll
+          for (int s = 0; s < KS; ++s)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) a1[s][e] = m[s][e];
+          if (b + 1 == dots) break;
+          dot(a1);
+          perturb(m, perturbation());
+          wgmma_wait<1>();                        // dot b, which read a, is done
+          keep(a);
+#pragma unroll
+          for (int s = 0; s < KS; ++s)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) a[s][e] = m[s][e];
+        }
+        wgmma_wait<0>();
+        keep(d);
+      }
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j) {
+        const int col = C0 + 8 * j + 2 * q;
+        *reinterpret_cast<float2*>(out + size_t(row) * N + col) = float2{d[4 * j], d[4 * j + 1]};
+        *reinterpret_cast<float2*>(out + size_t(row + 8) * N + col) =
+            float2{d[4 * j + 2], d[4 * j + 3]};
+      }
+    }
+  }
+}
+
+// s8: warpgroup WG's k32 steps [S0, S1) of every dot, A and B through
+// descriptors, for each tile of the block; the operand of a dot, x or
+// clip(x + 1), is a choice of base.  x arrives by TMA on barrier full[NCH], a
+// phase per tile, and both warpgroups write clip(x + 1) beside it; w's chunks
+// arrive on full[0..NCH) (copies of img; PROBES_CHAIN_S8_IMAGE=0: the
+// block's own transpose, complete before the first tile).
+template <int N, int KC, int WG>
+__device__ __forceinline__ void chain_s8(const CUtensorMap* xmap, const uint8_t* x,
+                                         const uint8_t* w, const uint8_t* img, int* out,
+                                         uint8_t* region, uint8_t* ex, uint64_t* full, int M,
+                                         int K, int B) {
+  constexpr int KS = ch_steps<KC, true>(), S0 = WG ? KS / 2 : 0, S1 = WG ? KS : KS / 2;
+  constexpr int NCH = ch_chunks<KC, true>(), CW = (KC / 4 + 31) / 32;
+  const int lane = threadIdx.x & 31, wl = (threadIdx.x >> 5) & 3, g = lane >> 2, q = lane & 3;
+  const int cv = (K + 127) / 128;                 // chunks that hold k < K
+
+  // y[0,0] of either operand, by the warp itself: x[0] . w[:, 0] and
+  // clip(x[0] + 1) . w[:, 0]; column 0 of w is row 0 of the image's chunks,
+  // which the swizzle leaves in place
+  int y0 = 0, y1 = 0;
+  const uint32_t* xw = reinterpret_cast<const uint32_t*>(x);
+#pragma unroll
+  for (int i = 0; i < CW; ++i) {
+    const int j = lane + 32 * i;
+    if (j < K / 4 && PROBES_CHAIN_LEAVE_OUT < 3) {
+      const uint32_t xv = __ldg(xw + j);
+      uint32_t wv = 0;
+      if (PROBES_CHAIN_S8_IMAGE) {
+        wv = __ldg(reinterpret_cast<const uint32_t*>(img + size_t(j / 32) * N * 128) + j % 32);
+      } else {
+#pragma unroll
+        for (int t = 0; t < 4; ++t) wv |= uint32_t(__ldg(w + size_t(4 * j + t) * N)) << (8 * t);
+      }
+      y0 = __dp4a(int(xv), int(wv), y0);
+      y1 = __dp4a(int(s8x4_next(xv)), int(wv), y1);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    y0 += __shfl_xor_sync(0xffffffffu, y0, o);
+    y1 += __shfl_xor_sync(0xffffffffu, y1, o);
+  }
+
+  uint8_t* const xs = region + NCH * N * 128;
+  const unsigned ws = smem_addr(region), xsa = smem_addr(xs), x1sa = xsa + NCH * 8192;
+  for (int tile = blockIdx.x, it = 0; tile < M / 64; tile += gridDim.x, ++it) {
+    if (PROBES_CHAIN_LEAVE_OUT < 3) {
+      // the tile's x (the first tile's is on its way; the last tile's reads
+      // ended at ch_store's first barrier)
+      if (threadIdx.x == 0 && it > 0) {
+        mbar_expect(full + NCH, cv * 8192);
+        for (int c = 0; c < cv; ++c) tma_load_2d(xs + c * 8192, xmap, c * 128, tile * 64, full + NCH);
+      }
+      chain_wait(full + NCH, it & 1);
+      const uint4* xv = reinterpret_cast<const uint4*>(xs);
+      uint4* x1 = reinterpret_cast<uint4*>(xs + NCH * 8192);
+      for (int i = threadIdx.x; i < cv * 512; i += kChThreads) {
+        uint4 v = xv[i];
+        v.x = s8x4_next(v.x); v.y = s8x4_next(v.y); v.z = s8x4_next(v.z); v.w = s8x4_next(v.w);
+        x1[i] = v;
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // for the wgmma reads
+    }
+    block_sync();
+
+    int d[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) d[i] = 0;
+    int odd = 0;                                  // the operand is clip(x + 1) after an odd y[0,0]
+    wgmma_fence();
+    for (int b = 0; b < (PROBES_CHAIN_LEAVE_OUT >= 2 ? 0 : B); ++b) {
+      const unsigned base = odd ? x1sa : xsa;
+#pragma unroll
+      for (int s = S0; s < S1; ++s) {
+        if (PROBES_CHAIN_S8_IMAGE && (s == S0 || s % 4 == 0)) {
+          // a commit group per chunk of w, behind its barrier (the first dot
+          // of the first tile waits; the others find it complete)
+          if (s != S0) wgmma_commit();
+          chain_wait(full + s / 4, 0);
+          wgmma_fence();
+        }
+        if (PROBES_CHAIN_LEAVE_OUT == 0)
+          Ss8<N>::mma(d, descriptor(base + (s / 4) * 8192 + (s % 4) * 32, 16, 1024, true),
+                      descriptor(ws + (s / 4) * N * 128 + (s % 4) * 32, 16, 1024, true), 1);
+      }
+      wgmma_commit();
+      odd = (odd ? y1 : y0) & 1;
+      wgmma_wait<1>();                            // at most two dots in flight
+    }
+    wgmma_wait<0>();
+    keep(d);
+    ch_store<N, WG>(d, ex, out, tile * 64 + 16 * wl + g, q);
+  }
+}
+
+template <int N, int KC, bool S8>
+__global__ void __launch_bounds__(kChThreads, KC <= 128 ? PROBES_CHAIN_BLOCKS : 1)
+chain_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+             const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
+             const uint8_t* __restrict__ img, void* __restrict__ out, int M, int K, int B) {
+  constexpr int NCH = ch_chunks<KC, S8>();
+  extern __shared__ uint8_t ch_smem[];
+  uint8_t* const region = ch_smem + ((1024u - (smem_addr(ch_smem) & 1023u)) & 1023u);
+  uint8_t* const ex = region + (ch_separate<N, KC, S8>() ? ch_operands<N, KC, S8>() : 0);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(region + ch_region<N, KC, S8>());
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int c = 0; c <= NCH; ++c) mbar_init(full + c, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if constexpr (!S8) {
+    // w read as it lies, a barrier per chunk of 64 k, once for all the block's tiles
+    const int cv = (K + 63) / 64;
+    if (tid == 0 && PROBES_CHAIN_LEAVE_OUT < 3) {
+      for (int c = 0; c < cv; ++c) {
+        mbar_expect(full + c, N * 128 + (PROBES_CHAIN_A_SMEM ? 8192 : 0));
+        for (int j = 0; j < N / 64; ++j)
+          tma_load_2d(region + c * N * 128 + j * 8192, &wmap, j * 64, c * 64, full + c);
+        if (PROBES_CHAIN_A_SMEM)      // one tile a block
+          tma_load_2d(region + NCH * N * 128 + c * 8192, &xmap, c * 64, blockIdx.x * 64, full + c);
+      }
+    }
+    if constexpr (ch_nsplit<N, KC, S8>()) {
+      if (tid < 128) chain_bf16_nsplit<N, KC, 0>(x, w, static_cast<float*>(out), region, full, M, K, B);
+      else chain_bf16_nsplit<N, KC, 1>(x, w, static_cast<float*>(out), region, full, M, K, B);
+    } else {
+      if (tid < 128) chain_bf16<N, KC, 0>(x, w, static_cast<float*>(out), region, ex, full, M, K, B);
+      else chain_bf16<N, KC, 1>(x, w, static_cast<float*>(out), region, ex, full, M, K, B);
+    }
+  } else {
+    if (PROBES_CHAIN_LEAVE_OUT < 3) {
+      // the first tile's x, 64 rows x 128 bytes a chunk, and w's chunks as the
+      // image holds them, one bulk copy each, all under way at once
+      const int cv = (K + 127) / 128;
+      if (tid == 0) {
+        mbar_expect(full + NCH, cv * 8192);
+        for (int c = 0; c < cv; ++c)
+          tma_load_2d(region + NCH * N * 128 + c * 8192, &xmap, c * 128, blockIdx.x * 64, full + NCH);
+        if (PROBES_CHAIN_S8_IMAGE) {
+          for (int c = 0; c < NCH; ++c) {
+            mbar_expect(full + c, N * 128);
+            bulk_copy(region + c * N * 128, img + size_t(c) * N * 128, N * 128, full + c);
+          }
+        }
+      }
+      if (!PROBES_CHAIN_S8_IMAGE) {
+        // every block its own transpose of w, two pieces a warp in flight at a
+        // time, each block starting at another piece so that the blocks do not
+        // all ask the same lines of L2 at once; the first tile's barrier
+        // orders these stores before the wgmmas
+        constexpr int kWarps = kChThreads / 32, kPieces = NCH * (N / 32);
+        for (int p0 = tid >> 5; p0 < kPieces; p0 += 2 * kWarps) {
+          S8Piece pc[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            s8_load(pc[u], w, (p0 + u * kWarps + blockIdx.x) % kPieces, K, N, p0 + u * kWarps < kPieces);
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            if (p0 + u * kWarps < kPieces) s8_store(pc[u], region, (p0 + u * kWarps + blockIdx.x) % kPieces, N);
+        }
+      }
+    }
+    if (tid < 128) chain_s8<N, KC, 0>(&xmap, x, w, img, static_cast<int*>(out), region, ex, full, M, K, B);
+    else chain_s8<N, KC, 1>(&xmap, x, w, img, static_cast<int*>(out), region, ex, full, M, K, B);
+  }
+}
+
+// Blocks of the chain kernel a launch takes: every tile its own block where
+// the exchange shares the operands' bytes (or a variant holds one tile),
+// else no more than the card holds at once, each walking over tiles.
+template <int N, int KC, bool S8>
+int chain_grid(int tiles, int* grid) {
+  *grid = tiles;
+  if (!ch_separate<N, KC, S8>()) return cudaSuccess;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_kernel<N, KC, S8>, kChThreads,
+                                                        ch_smem_bytes<N, KC, S8>());
+  if (err != cudaSuccess) return err;
+  if (per_sm > 0 && sms * per_sm < tiles) *grid = sms * per_sm;
+  return cudaSuccess;
+}
+
+template <int N, int KC, bool S8>
+int launch_chain(const void* x, const void* w, void* img, void* out, int M, int K, int B,
+                 cudaStream_t stream) {
+  constexpr int smem = ch_smem_bytes<N, KC, S8>();
+  static_assert(smem <= kMaxSmem || (PROBES_CHAIN_A_SMEM && !S8), "the chain's region does not fit a block");
+  if (smem > kMaxSmem || (PROBES_CHAIN_A_SMEM && !S8 && K != KC)) return cudaErrorInvalidValue;
+  CUtensorMap xmap{}, wmap{};
+  int err = S8 ? swizzled_map(&xmap, x, K, M, 128, 64, true) : swizzled_map(&wmap, w, N, K, 64, 64);
+  if (err == cudaSuccess && PROBES_CHAIN_A_SMEM && !S8) err = swizzled_map(&xmap, x, K, M, 64, 64);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(chain_kernel<N, KC, S8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int grid = 0;
+  if (err == cudaSuccess) err = chain_grid<N, KC, S8>(M / 64, &grid);
+  if (err != cudaSuccess) return err;
+  if (S8 && PROBES_CHAIN_S8_IMAGE) {
+    constexpr int pieces = ch_chunks<KC, S8>() * (N / 32);
+    s8_image_kernel<<<(pieces + 7) / 8, 256, 0, stream>>>(static_cast<const uint8_t*>(w),
+                                                         static_cast<uint8_t*>(img), K, N, pieces);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  chain_kernel<N, KC, S8><<<grid, kChThreads, smem, stream>>>(
+      xmap, wmap, static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(w),
+      static_cast<const uint8_t*>(img), out, M, K, B);
+  return cudaGetLastError();
+}
+
+// The depth class of K: the smallest instance whose steps cover it.
+template <int N, bool S8>
+int launch_chain_n(const void* x, const void* w, void* img, void* out, int M, int K, int B,
+                   cudaStream_t s) {
+  if constexpr (!S8)
+    if (K <= 32) return launch_chain<N, 32, S8>(x, w, img, out, M, K, B, s);
+  if (K <= 64) return launch_chain<N, 64, S8>(x, w, img, out, M, K, B, s);
+  if (K <= 128) return launch_chain<N, 128, S8>(x, w, img, out, M, K, B, s);
+  if (K <= 192) return launch_chain<N, 192, S8>(x, w, img, out, M, K, B, s);
+  if (K <= 288) return launch_chain<N, 288, S8>(x, w, img, out, M, K, B, s);
+  return launch_chain<N, 576, S8>(x, w, img, out, M, K, B, s);
+}
+#endif  // PROBES_CHAIN
 
 // One roll step per grid barrier.  counter counts arrivals and is 0 at launch.
 __device__ __forceinline__ void grid_barrier(unsigned* counter, unsigned target) {
@@ -769,6 +1466,50 @@ int probes_dots_launch(const void* x, const void* w, void* wt, void* out, int M,
     case kIm2col: return launch_dots<6, false, kIm2col>(xb, wb, out, M, kb, B, 0, stride, s);
     default: return launch_dots<6, false, kShifted>(xb, wb, out, M, kb, B, 0, stride, s);
   }
+}
+
+// Scratch bytes probes_chain_launch needs: none for bf16; for s8 w's K-major
+// image (chunks of 128 k, N rows of 128 bytes); w's staged form where the
+// build routes the chain to dots_kernel (PROBES_CHAIN=0).
+int probes_chain_scratch_bytes(int K, int N, int s8) {
+#if PROBES_CHAIN
+  if (!s8 || !PROBES_CHAIN_S8_IMAGE) return 0;
+  // s8: w's K-major image, the chunks of K's depth class
+  const int kc = K <= 64 ? 64 : K <= 128 ? 128 : K <= 192 ? 192 : K <= 288 ? 288 : 576;
+  return (kc / 32 + 3) / 4 * N * 128;
+#else
+  return (K * (s8 ? 1 : 2) + kSliceBytes - 1) / kSliceBytes * N * kSliceStride * 4;
+#endif
+}
+
+// B dependent dots of probe_mxu / probe_dots (see the header): x (M, K), w
+// (K, N), both bf16 or both s8 (s8 != 0), row-major; out (M, N) fp32 or int32.
+// M % 64 == 0, K % 32 == 0 and K <= 576, N in {64, 128, 192}, B >= 1; every
+// pointer 16-byte aligned.  wt: scratch of probes_chain_scratch_bytes (none
+// for bf16).  One launch on `stream` for bf16, two for s8 (w's image, then
+// the chain); returns
+// cudaGetLastError(), cudaErrorInvalidValue for a shape it does not take or a
+// tensor map refused, cudaErrorNotSupported without cuTensorMapEncodeTiled.
+int probes_chain_launch(const void* x, const void* w, void* wt, void* out, int M, int K, int N,
+                        int B, int s8, void* stream) {
+  if (M <= 0 || M % 64 != 0 || K <= 0 || K % 32 != 0 || B < 1 ||
+      (N != 64 && N != 128 && N != 192))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#if PROBES_CHAIN
+  void* const img = wt;
+  if (K > kChMaxK || (s8 && PROBES_CHAIN_S8_IMAGE && img == nullptr)) return cudaErrorInvalidValue;
+  switch (N) {
+    case 64: return s8 ? launch_chain_n<64, true>(x, w, img, out, M, K, B, s)
+                       : launch_chain_n<64, false>(x, w, img, out, M, K, B, s);
+    case 128: return s8 ? launch_chain_n<128, true>(x, w, img, out, M, K, B, s)
+                        : launch_chain_n<128, false>(x, w, img, out, M, K, B, s);
+    default: return s8 ? launch_chain_n<192, true>(x, w, img, out, M, K, B, s)
+                       : launch_chain_n<192, false>(x, w, img, out, M, K, B, s);
+  }
+#else
+  return probes_dots_launch(x, w, wt, out, M, K, N, B, s8, 0, kPlain, 0, s);
+#endif
 }
 
 // make_matmul in bf16: x (M, K) and w (K, N), row-major bf16, into out (M, N)

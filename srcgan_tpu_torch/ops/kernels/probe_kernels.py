@@ -13,11 +13,18 @@ wrapper per probe function and beside each its plain PyTorch version:
 Each is one call of ``csrc/probes.cu``: the loop of B dependent steps runs
 inside the kernel, because it is what the probe measures.  ``probe_matmul``
 in bf16 has a kernel of its own (a warp-specialised ``wgmma`` GEMM fed by TMA
-loads, w read as it lies); its int8 form and the other dot probes share one
-``mma.sync`` template, which first rearranges w into a scratch tensor.  A
-wrapper launches its kernel for a CUDA tensor (and raises where the kernel does not
-take the shape) and runs the plain version for a CPU tensor; there is no
-fallback from one to the other.  ``launches[name]`` counts kernel launches.
+loads, w read as it lies).  ``probe_mxu`` (both types) and ``probe_dots``
+share the chain kernel: w resident in shared memory, two warpgroups over a
+tile of 64 rows splitting its k steps or its columns, bf16 A in registers
+and s8 A (x and clip(x + 1)) in shared memory, every warp computing the
+y[0,0] chain itself; one launch for bf16, and for int8 a launch before it
+that writes w's K-major image (``chain_plan`` says where each operand
+lives).  The int8 form
+of ``probe_matmul`` and the other dot probes share one ``mma.sync`` template,
+which first rearranges w into a scratch tensor.  A wrapper launches its
+kernel for a CUDA tensor (and raises where the kernel does not take the
+shape) and runs the plain version for a CPU tensor; there is no fallback
+from one to the other.  ``launches[name]`` counts kernel launches.
 
 The plain versions repeat the arithmetic step by step: bf16 operands with
 fp32 sums (``x.float() @ w.float()``), int8 operands with exact integer sums,
@@ -40,6 +47,13 @@ _WIDTHS = (64, 128, 192)       # the N the kernel is instantiated for
 _SLICE_BYTES, _STAGE_ROW_BYTES = 256, 272   # kSliceBytes; 4 * kSliceStride
 _MODES = {"plain": 0, "concat": 1, "twodots": 2, "im2col": 3, "shifted": 4}
 _PERTURB = 1e-36               # the probes' scale of y[0,0] in the next operand
+# The chain kernel (probes_chain_launch): its depth classes, the instances
+# built for each type (a K runs in the smallest class that covers it, the
+# steps past K on zeros), and a block's bytes of shared memory at most.
+CHAIN_CLASSES = {torch.bfloat16: (32, 64, 128, 192, 288, 576), torch.int8: (64, 128, 192, 288, 576)}
+CHAIN_THREADS = 256            # two warpgroups
+SMEM_PER_BLOCK = 232448
+_SMS = 132                     # an H100 SXM's SMs (the kernel asks the card for its own count)
 _ROLL_ADD = 1e-8               # probe_roll's added constant, rounded to bf16 first
 
 
@@ -72,20 +86,44 @@ def probe_matmul_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _dot(x, w).to(x.dtype)
 
 
+def chain_steps(x: torch.Tensor, w: torch.Tensor, steps: int = 16) -> list:
+    """The y[0,0] chain of ``probe_mxu``: what decides each dot's successor
+    depends only on row 0 of the operand and column 0 of w.  bf16: each dot's
+    d_b = bf16(y00_b * 1e-36) (a 0-d bf16 tensor), row 0 moving on as
+    bf16(row0 + d_b); int8: each dot's parity y00_b & 1, the next operand
+    being x after an even y00 and clip(x + 1, -127, 127) after an odd one."""
+    row, col = x[:1], w[:, :1]
+    out = []
+    if x.dtype == torch.int8:
+        other, cur = _int8_next(row), row
+        for _ in range(steps):
+            parity = int(_dot(cur, col)[0, 0]) & 1
+            out.append(parity)
+            cur = other if parity else row
+        return out
+    cur = row
+    for _ in range(steps):
+        d = (_dot(cur, col)[0, 0] * _PERTURB).to(x.dtype)
+        out.append(d)
+        cur = cur + d
+    return out
+
+
 def probe_mxu_reference(x: torch.Tensor, w: torch.Tensor, steps: int = 16) -> torch.Tensor:
     """``steps`` dependent dots: acc += x_b @ w; bf16: x_{b+1} = x_b + bf16(y00
     * 1e-36); int8: x_{b+1} = x if y00 is even else clip(x + 1, -127, 127),
-    chosen from the first x every time.  Returns acc (fp32 or int32)."""
-    is_int = x.dtype == torch.int8
-    other = _int8_next(x) if is_int else None
+    chosen from the first x every time (``chain_steps``).  Returns acc (fp32
+    or int32)."""
+    chain = chain_steps(x, w, steps)
+    other = _int8_next(x) if x.dtype == torch.int8 else None
     cur, acc = x, None
-    for _ in range(steps):
+    for step in chain:
         y = _dot(cur, w)
         acc = y if acc is None else acc + y
-        if is_int:
-            cur = torch.where((y[0, 0] & 1) == 0, x, other)
+        if other is not None:
+            cur = other if step else x
         else:
-            cur = _perturb(cur, y[0, 0])
+            cur = cur + step
     return acc
 
 
@@ -159,6 +197,11 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.probes_dots_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     lib.probes_dots_launch.restype = ctypes.c_int
+    lib.probes_chain_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    lib.probes_chain_launch.restype = ctypes.c_int
+    lib.probes_chain_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.probes_chain_scratch_bytes.restype = ctypes.c_int
     lib.probes_matmul_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     lib.probes_matmul_launch.restype = ctypes.c_int
@@ -217,6 +260,83 @@ def _launch_dots(name: str, x: torch.Tensor, w: torch.Tensor, steps: int, cast_o
     return out
 
 
+def chain_plan(m: int, k: int, n: int, dtype: torch.dtype, steps: int = 16,
+               name: str = "probe_mxu") -> dict:
+    """How the chain kernel runs (M, K) @ (K, N) of ``dtype``, as
+    csrc/probes.cu lays it out: tiles of 64 rows, each taken by a block of two
+    warpgroups; the depth class that covers K; how the warpgroups share a
+    tile (bf16 at K <= 128 with N >= 128: by columns, each over all of K;
+    else by k steps, exchanging halves of the sums); where A and w live; the
+    block's shared memory (w resident, loaded once; for int8 also x and
+    clip(x + 1); the exchange, beside the operands where it fits, else in the
+    operands' bytes; 1024 bytes for the alignment of the swizzle; a barrier
+    per chunk of w and one for x); for int8 the scratch of w's K-major image,
+    written by a launch of its own before the chain's; the blocks an SM holds
+    (two at K <= 128) and the grid (a block per tile, or, where the exchange
+    has bytes of its own, no more blocks than the 132 SMs of an H100 hold,
+    each walking over tiles).  Raises ValueError where check_shape refuses
+    the shape or K is deeper than the deepest class."""
+    check_shape(name, m, k, n, steps)
+    classes = CHAIN_CLASSES[dtype]
+    if k > classes[-1]:
+        raise ValueError(f"{name}: the chain kernel takes K <= {classes[-1]}, got K={k}")
+    s8 = dtype == torch.int8
+    k_class = next(c for c in classes if c >= k)
+    steps_k = k_class // (32 if s8 else 16)
+    chunks = -(-steps_k // 4)
+    operands = chunks * (n * 128 + (2 * 8192 if s8 else 0))
+    by_columns = not s8 and k_class <= 128 and n >= 128
+    exchange = 0 if by_columns else n * 256
+    separate = 1024 + operands + exchange + 8 * (chunks + 1) <= SMEM_PER_BLOCK
+    region = operands + exchange if separate else max(operands, exchange)
+    n0 = 64 * ((n // 64 + 1) // 2)
+    per_sm = 2 if k_class <= 128 else 1
+    tiles = m // _ROWS
+    return {"k_class": k_class, "tiles": tiles, "rows_per_tile": _ROWS,
+            "ctas": min(tiles, _SMS * per_sm) if separate else tiles,
+            "threads": CHAIN_THREADS, "ctas_per_sm": per_sm,
+            "split": "N" if by_columns else "K",
+            "warpgroup_steps": ((steps_k, steps_k) if by_columns
+                                else (steps_k // 2, steps_k - steps_k // 2)),
+            "warpgroup_columns": (n0, n - n0) if by_columns else (n, n),
+            "a_operand": "shared" if s8 else "registers",
+            "w_layout": ("K-major, its image written by a launch of its own" if s8
+                         else "MN-major, as it lies"),
+            "w_resident": True, "exchange_bytes": exchange, "exchange_separate": separate,
+            "smem_bytes": 1024 + region + 8 * (chunks + 1),
+            "scratch_bytes": chunks * n * 128 if s8 else 0, "launches": 2 if s8 else 1}
+
+
+def chain(lib: ctypes.CDLL, name: str, x: torch.Tensor, w: torch.Tensor,
+          steps: int) -> torch.Tensor:
+    """The dependent-dot chain of probe_mxu / probe_dots in the build ``lib``
+    (the default build: the chain kernel, no scratch; PROBES_CHAIN=0: the first
+    design's dots_kernel with its staged w); no launch counted."""
+    m, (k, n) = x.shape[0], w.shape
+    _check_contiguous(name, x, w)
+    chain_plan(m, k, n, x.dtype, steps, name)
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(f"{name}: the operands must be 16-byte aligned")
+    is_int = x.dtype == torch.int8
+    out = torch.empty((m, n), dtype=torch.int32 if is_int else torch.float32, device=x.device)
+    scratch = lib.probes_chain_scratch_bytes(k, n, int(is_int))
+    wt = torch.empty(scratch, dtype=torch.uint8, device=x.device) if scratch else None
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.probes_chain_launch(x.data_ptr(), w.data_ptr(),
+                                      None if wt is None else wt.data_ptr(), out.data_ptr(),
+                                      m, k, n, steps, int(is_int), stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: {lib.probes_error_string(err).decode()}")
+    return out
+
+
+def _launch_chain(name: str, x: torch.Tensor, w: torch.Tensor, steps: int) -> torch.Tensor:
+    out = chain(_library(), name, x, w, steps)
+    launches[name] += 1
+    return out
+
+
 def matmul_bf16(lib: ctypes.CDLL, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """probe_matmul's bf16 kernel in the build ``lib`` (the same shapes as the
     other dots, no scratch); no launch counted."""
@@ -256,7 +376,7 @@ def probe_mxu(x: torch.Tensor, w: torch.Tensor, steps: int = 16) -> torch.Tensor
     int8 -> int32.  CUDA tensors: the kernel; CPU: the plain version."""
     _check_pair("probe_mxu", x, w, (torch.bfloat16, torch.int8))
     if x.is_cuda:
-        return _launch_dots("probe_mxu", x, w, steps, False, "plain")
+        return _launch_chain("probe_mxu", x, w, steps)
     return probe_mxu_reference(x, w, steps)
 
 
@@ -264,7 +384,7 @@ def probe_dots(x: torch.Tensor, w: torch.Tensor, steps: int = 16) -> torch.Tenso
     """probe_mxu's bf16 form under its own name and count (the shallow-K sweep)."""
     _check_pair("probe_dots", x, w, (torch.bfloat16,))
     if x.is_cuda:
-        return _launch_dots("probe_dots", x, w, steps, False, "plain")
+        return _launch_chain("probe_dots", x, w, steps)
     return probe_dots_reference(x, w, steps)
 
 

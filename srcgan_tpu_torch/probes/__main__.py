@@ -8,16 +8,20 @@ held against the plain version and timed in turns).  ``... probes tail
 [--rounds N]``: the x4 tail's main kernel against its first design
 (``tail_ablate``).  ``... probes ssim [--rounds N]``: the ablation of the SSIM
 kernel (``ssim_ablate``: its variants and its main pass with parts left out).
-Each runs only when named, and only on the card."""
+``... probes chain [--rounds N]``: the ablation of the dependent-dot chain
+kernel of probe_mxu and probe_dots (``chain_ablate``: its variants, its
+first design and builds with work left out, in turns at the table shapes).  Each
+runs only when named, and only on the card."""
 from __future__ import annotations
 
 import sys
 
-from srcgan_tpu_torch.probes import (layout_probe3, matmul_probe, mxu_probe, rdb5_ablate,
-                                     ssim_ablate, tail_ablate)
+from srcgan_tpu_torch.probes import (chain_ablate, layout_probe3, matmul_probe, mxu_probe,
+                                     rdb5_ablate, ssim_ablate, tail_ablate)
 
 SWEEPS = {"matmul": matmul_probe, "mxu": mxu_probe, "layout": layout_probe3}
-NAMED_ONLY = {"rdb5": rdb5_ablate, "tail": tail_ablate, "ssim": ssim_ablate}
+NAMED_ONLY = {"rdb5": rdb5_ablate, "tail": tail_ablate, "ssim": ssim_ablate,
+              "chain": chain_ablate}
 USAGE = (f"usage: python -m srcgan_tpu_torch.probes [{'|'.join(SWEEPS)} ...] [abcd] "
          f"[--device cpu]  |  python -m srcgan_tpu_torch.probes {'|'.join(NAMED_ONLY)} [--rounds N]")
 

@@ -13,6 +13,8 @@ from srcgan_tpu_torch import config
 
 CPU_ROWS = 256                 # M of a --device cpu run (the plain versions)
 L2_BYTES = 50 * 1024 * 1024    # an H100's L2: operands meant to come from HBM must exceed it
+# An H100 SXM's dense tensor-core peaks (NVIDIA's data sheet): operations a second.
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 
 
 def parser(description: str) -> argparse.ArgumentParser:

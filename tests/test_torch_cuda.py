@@ -22,6 +22,12 @@ sides sum exact integers and round the same fp32 steps); the probes' int8
 forms and the roll bit-equal, their bf16 dots rel-L2 <= 1e-3 on fp32 outputs
 and <= 1e-2 on probe_matmul's bf16 output.
 """
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -749,6 +755,103 @@ def test_probe_mxu_and_dots_match_plain_versions(dev, dtype, k, n):
         got, ref = fn(x, w, 16), plain(x, w, 16)
         torch.cuda.synchronize()
         assert got.dtype == torch.float32 and probe_rel_l2(got, ref) <= 1e-3
+
+
+CHAIN_SWEEP = ([("probe_mxu", 8320, k, n, dt) for dt in (torch.bfloat16, torch.int8)
+                for k, n in ((576, 128), (576, 192), (192, 128), (288, 128))]
+               + [("probe_dots", 16384, k, n, torch.bfloat16)
+                  for k, n in ((32, 192), (64, 192), (64, 64), (128, 192), (128, 128), (576, 192))])
+
+
+@pytest.mark.parametrize("name,m,k,n,dtype", CHAIN_SWEEP,
+                         ids=[f"{p}-{'int8' if d == torch.int8 else 'bf16'}-{k}-{n}"
+                              for p, m, k, n, d in CHAIN_SWEEP])
+def test_chain_kernel_every_sweep_shape(dev, name, m, k, n, dtype):
+    """The chain kernel at every shape of both sweeps: int8 bit-equal to the
+    plain version on operands whose chain takes both, bf16 within rel-L2
+    1e-3; three calls bit-equal; one count a call."""
+    fn, plain = {"probe_mxu": (probe_kernels.probe_mxu, probe_kernels.probe_mxu_reference),
+                 "probe_dots": (probe_kernels.probe_dots, probe_kernels.probe_dots_reference)}[name]
+    x, w = probe_operand(k + 3, (m, k), dtype, dev), probe_operand(n + 5, (k, n), dtype, dev)
+    if dtype == torch.int8:
+        common.alternate_int8(x, w)
+    before = probe_kernels.launches[name]
+    got = [fn(x, w, 16) for _ in range(3)]
+    ref = plain(x, w, 16)
+    torch.cuda.synchronize()
+    assert probe_kernels.launches[name] == before + 3
+    assert all(torch.equal(g, got[0]) for g in got[1:])
+    if dtype == torch.int8:
+        assert got[0].dtype == torch.int32 and torch.equal(got[0], ref)
+        assert not torch.equal(got[0], 16 * probe_kernels._dot(x, w))
+    else:
+        assert got[0].dtype == torch.float32 and probe_rel_l2(got[0], ref) <= 1e-3
+
+
+# The kernels a probe_mxu call runs, read by the profiler in a fresh process:
+# after many launches in one process the profiler has been seen to drop most
+# device events of a window, so a count read in the test's own process is no
+# count.  Prints a JSON object, kernel name -> launches a call.
+PROFILE_CHAIN = """
+import json, sys, torch
+from srcgan_tpu_torch.ops.kernels import probe_kernels as pk
+from srcgan_tpu_torch.probes import common
+dtype = getattr(torch, sys.argv[1])
+g = torch.Generator().manual_seed(9)
+if dtype == torch.int8:
+    x, w = (torch.randint(-100, 100, s, generator=g).to("cuda", dtype) for s in ((8320, 576), (576, 192)))
+else:
+    x, w = ((torch.rand(s, generator=g) * 2 - 1).to("cuda", dtype) for s in ((8320, 576), (576, 192)))
+print(json.dumps(common.device_kernels(lambda: pk.probe_mxu(x, w, 16))))
+"""
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_chain_kernel_launches_and_memory(dev, dtype):
+    """bf16: the chain kernel is the one device kernel a call runs, and
+    nothing is allocated but the output; int8: w's image, then the chain, one
+    launch of each a call, and a scratch of chain_plan's size."""
+    root = Path(__file__).resolve().parents[1]
+    x, w = probe_operand(9, (8320, 576), dtype, dev), probe_operand(10, (576, 192), dtype, dev)
+    plan = probe_kernels.chain_plan(8320, 576, 192, dtype)
+    run = subprocess.run([sys.executable, "-c", PROFILE_CHAIN, str(dtype).split(".")[-1]],
+                         capture_output=True, text=True, timeout=600, cwd=root, check=True,
+                         env={**os.environ, "PYTHONPATH": str(root)})
+    kernels = json.loads(run.stdout.strip().splitlines()[-1])
+    known = ("chain_kernel", "s8_image_kernel")
+    assert all(any(name in key for name in known) for key in kernels), kernels
+    ran = {name for name in known if any(name in key for key in kernels)}
+    want = {"chain_kernel"} if dtype == torch.bfloat16 else set(known)
+    assert ran == want and len(want) == plan["launches"], kernels
+    assert all(count == 1 for count in kernels.values()), kernels
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = probe_kernels.probe_mxu(x, w, 16)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base - out.numel() * out.element_size()
+    assert extra == plan["scratch_bytes"]
+    assert probe_kernels._library().probes_chain_scratch_bytes(576, 192, int(dtype == torch.int8)) \
+        == plan["scratch_bytes"]
+
+
+def test_chain_kernel_agrees_with_the_first_design(dev):
+    """The PROBES_CHAIN=0 build (the chain on dots_kernel, the yardstick of
+    the ablation and of chip_smoke.py) still computes the same chain."""
+    from srcgan_tpu_torch.ops.kernels import build
+
+    before = probe_kernels.declare(build.load("probes", ("PROBES_CHAIN=0",)))
+    for dtype, (k, n) in ((torch.bfloat16, (64, 192)), (torch.int8, (576, 192))):
+        x, w = probe_operand(11, (8320, k), dtype, dev), probe_operand(12, (k, n), dtype, dev)
+        if dtype == torch.int8:
+            common.alternate_int8(x, w)
+        old = probe_kernels.chain(before, "probe_mxu", x, w, 16)
+        new = probe_kernels.probe_mxu(x, w, 16)
+        torch.cuda.synchronize()
+        if dtype == torch.int8:
+            assert torch.equal(old, new)
+        else:
+            assert probe_rel_l2(old, new) <= 1e-3
 
 
 @pytest.mark.parametrize("form", ["concat", "twodots"])

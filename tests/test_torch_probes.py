@@ -352,3 +352,140 @@ def test_tail_ablation_runs_only_on_the_card(monkeypatch, argv, match):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match=match):
         probes_main.main(argv)
+
+
+# -- the chain kernel of probe_mxu and probe_dots (csrc/probes.cu) ------------
+
+def jax_chain(x, w, steps):
+    """What decides each dot's successor in scripts/pallas_mxu_probe.py:31-37,
+    restated from the full dot's y[0,0]: the bf16 perturbation
+    bf16(y00 * 1e-36) as its bits, or the int8 parity y00 & 1."""
+    is_int = jnp.issubdtype(x.dtype, jnp.integer)
+    x2 = jnp.clip(x.astype(jnp.int32) + 1, -127, 127).astype(x.dtype) if is_int else x
+    cur, out = x, []
+    for _ in range(steps):
+        y = dot32(cur, w, jnp.int32 if is_int else jnp.float32)
+        if is_int:
+            out.append(int(y[0, 0] & 1))
+            cur = jnp.where((y[0, 0] & 1) == 0, x, x2)
+        else:
+            d = (y[0, 0] * jnp.float32(1e-36)).astype(cur.dtype)
+            out.append(int(np.asarray(d).view(np.uint16)))
+            cur = cur + d
+    return out
+
+
+@pytest.mark.parametrize("k,n", [(576, 192), (192, 128), (288, 128)])
+def test_chain_steps_int8_parities_equal_jax(k, n):
+    """The row-0 chain the plain versions use (and every warp of the kernel
+    computes): the same parities as the full dots of the JAX kernel, bit for
+    bit, on a pair whose chain takes both operands."""
+    x, w = alternating_int8_pair(k, n)
+    got = pk.chain_steps(torch.from_numpy(x), torch.from_numpy(w), 16)
+    want = jax_chain(jnp.asarray(x), jnp.asarray(w), 16)
+    assert got == want and 0 in got and 1 in got
+
+
+@pytest.mark.parametrize("k,n", [(576, 192), (64, 192), (32, 64)])
+def test_chain_steps_bf16_perturbations_equal_jax(k, n):
+    """Each dot's bf16 perturbation from row 0 alone: bit-equal to the JAX
+    kernel's from its full dot, all 16 of them."""
+    x, w = bf16_pair(3 * k + n, 128, k, n)
+    got = pk.chain_steps(t_bf16(x), t_bf16(w), 16)
+    assert all(d.dtype == BF16 and d.dim() == 0 for d in got)
+    bits = [int(d.view(torch.int16)) & 0xffff for d in got]
+    assert bits == jax_chain(j_bf16(x), j_bf16(w), 16)
+    assert all(b & 0x7FFF for b in bits)                         # a real perturbation, not 0
+
+
+def test_one_rounding_of_a_bf16_sum_equals_two():
+    """The kernel adds the perturbation with add.rn.bf16x2 (one rounding of
+    the exact sum) where the plain version adds in fp32 and rounds to bf16:
+    for two bf16 values the two agree, because the fp32 sum is exact wherever
+    its rounding could move the bf16 result.  All exponent pairs, bit for
+    bit (the exact sum taken in float64 where the exponents are within 40)."""
+    rng = np.random.default_rng(0)
+    bits = rng.integers(0, 1 << 16, (2, 400_000)).astype(np.uint32)
+    finite = ((bits >> 7) & 0xFF != 0xFF).all(axis=0)
+    xb, db = bits[:, finite]
+    near = np.abs(((xb >> 7) & 0xFF).astype(int) - ((db >> 7) & 0xFF).astype(int)) <= 40
+    x = torch.from_numpy((xb[near] << 16).view(np.float32))
+    d = torch.from_numpy((db[near] << 16).view(np.float32))
+    twice = (x + d).to(BF16).view(torch.int16)
+    once = (x.double() + d.double()).to(BF16).view(torch.int16)
+    assert near.sum() > 100_000 and torch.equal(twice, once)
+
+
+SWEEP_SHAPES = ([(8320, k, n, torch.bfloat16) for k, n in mxu_probe.SHAPES]
+                + [(8320, k, n, torch.int8) for k, n in mxu_probe.SHAPES]
+                + [(16384, k, n, torch.bfloat16) for k, n in layout_probe3.DOT_SHAPES])
+
+
+@pytest.mark.parametrize("m,k,n,dtype", SWEEP_SHAPES,
+                         ids=[f"{'int8' if d == torch.int8 else 'bf16'}-{m}-{k}-{n}"
+                              for m, k, n, d in SWEEP_SHAPES])
+def test_chain_plan_every_sweep_shape(m, k, n, dtype):
+    """The chain kernel's layout at every shape of both sweeps: a block's
+    shared memory fits the card's 232,448 bytes (and two blocks an SM's 228 KB
+    where it asks for two), probe_mxu's M=8320 fills at least 128 SMs, w stays
+    resident, bf16 A lies in registers with w read as it lies and no scratch,
+    int8 w is K-major (its image written first, a second launch)."""
+    plan = pk.chain_plan(m, k, n, dtype)
+    assert plan["smem_bytes"] <= pk.SMEM_PER_BLOCK
+    if plan["ctas_per_sm"] == 2:
+        assert 2 * (plan["smem_bytes"] + 1024) <= 228 * 1024
+    if m == 8320:
+        assert plan["ctas"] >= 128 and plan["ctas"] == m // 64
+    assert plan["w_resident"] and plan["k_class"] >= k and plan["rows_per_tile"] == 64
+    steps = plan["k_class"] // (32 if dtype == torch.int8 else 16)
+    assert sum(plan["warpgroup_steps"]) == (2 * steps if plan["split"] == "N" else steps)
+    assert sum(plan["warpgroup_columns"]) == (n if plan["split"] == "N" else 2 * n)
+    if dtype == torch.int8:
+        assert plan["w_layout"].startswith("K-major") and plan["a_operand"] == "shared"
+        assert plan["launches"] == 2 and plan["scratch_bytes"] >= k * n
+    else:
+        assert plan["w_layout"].startswith("MN-major") and plan["a_operand"] == "registers"
+        assert plan["launches"] == 1 and plan["scratch_bytes"] == 0
+        assert plan["split"] == ("N" if plan["k_class"] <= 128 and n >= 128 else "K")
+    if plan["split"] == "K":
+        assert plan["exchange_bytes"] == n * 256
+
+
+def test_chain_plan_refuses_what_the_kernel_does_not_take():
+    """K deeper than the deepest class, and what check_shape refuses."""
+    with pytest.raises(ValueError, match="K <= 576"):
+        pk.chain_plan(8320, 608, 192, torch.bfloat16)
+    with pytest.raises(ValueError, match="N in"):
+        pk.chain_plan(8320, 576, 96, torch.int8)
+    with pytest.raises(ValueError, match="M % 64"):
+        pk.chain_plan(100, 64, 64, torch.bfloat16)
+    assert pk.chain_plan(64, 32, 64, torch.int8)["k_class"] == 64
+
+
+@pytest.mark.parametrize("argv,match", [(["chain"], "no CUDA card"),
+                                        (["chain", "--device", "cpu"], "no CPU mode")],
+                         ids=["default-device", "cpu-asked"])
+def test_chain_ablation_runs_only_on_the_card(monkeypatch, argv, match):
+    """The ablation of the chain kernel is a named subcommand, like rdb5's."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=match):
+        probes_main.main(argv)
+
+
+def test_chain_ablation_is_listed_and_times_the_shipped_design_first(capsys):
+    """The usage names it; its first variant is the default build; a split
+    variant runs only where the design that ships splits the other way; the
+    table shapes of both probes are among its shapes."""
+    from srcgan_tpu_torch.probes import chain_ablate
+
+    assert probes_main.main(["--help"]) == {}
+    assert "chain" in capsys.readouterr().out and "chain" in probes_main.NAMED_ONLY
+    assert chain_ablate.VARIANTS[0][1] == ()
+    assert ("PROBES_CHAIN=0",) in [d for _, d, _ in chain_ablate.VARIANTS]
+    assert [d for _, d, _ in chain_ablate.LEAVE_OUT] == [(f"PROBES_CHAIN_LEAVE_OUT={k}",)
+                                                          for k in (1, 2, 3)]
+    shapes = [s[1:] for s in chain_ablate.SHAPES]
+    assert (8320, 576, 192, torch.bfloat16) in shapes and (16384, 64, 192, torch.bfloat16) in shapes
+    assert not chain_ablate.takes(("PROBES_CHAIN_SPLIT=1",), 16384, 64, 192, torch.bfloat16)
+    assert chain_ablate.takes(("PROBES_CHAIN_SPLIT=0",), 16384, 64, 192, torch.bfloat16)
+    assert not chain_ablate.takes(("PROBES_CHAIN_A_SMEM=1",), 8320, 576, 192, torch.bfloat16)
