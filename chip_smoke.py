@@ -58,11 +58,16 @@ Phases, in order; the first failure raises and the script exits non-zero:
                with its time, its bound and, where one PyTorch call computes
                the same function, that call's time (probe_matmul's bf16 form,
                its build without products and torch.matmul also in turns, x
-               warm in L2 and x from HBM; its int8 form beside
-               torch._int_mm); probe_mxu (both types) and probe_dots at every
+               warm in L2 and x from HBM; its int8 form at every shape of its
+               sweep bit-equal where the cast wraps and, x from HBM, in turns
+               with PR 5's design and torch._int_mm, which it must beat);
+               probe_mxu (both types) and probe_dots at every
                shape of their sweeps through the chain kernel, three calls
-               bit-equal, in turns with the first design (the PROBES_CHAIN=0
-               build), and 48 dots taking more than twice 16 at K=576, N=192;
+               bit-equal, in turns with PR 5's design (the yardstick build
+               PROBES_CHAIN=0 PROBES_MM8=0 PROBES_STAGE1=0), and 48 dots
+               taking more than twice 16 at K=576, N=192; probe_stage1 in
+               both forms at strides 128 and 16, three calls bit-equal, and in
+               turns with PR 5's design, which it must beat;
                then the three sweeps
                through ``python -m srcgan_tpu_torch.probes``'s entry points,
                which must reach every kernel (launch counters);
@@ -99,10 +104,12 @@ PRED_SCALE = 0.03
 WARMUP, REPS = 3, 25         # calls per timing: warm-up, then the median of REPS
 KERNELS = ("tail_x4", "gray_degrade", "ssim", "rdb5", "probes")
 # builds timed beside a kernel and never on a path: the tail's first design;
-# probe_matmul's bf16 form with its products left out (loads and stores only);
-# probe_mxu's and probe_dots' chain on the first design's mma.sync dots_kernel
+# probe_matmul with its products left out (loads and stores only, both types);
+# PR 5's design of the four probes redesigned since (probe_mxu's and
+# probe_dots' chain, probe_matmul's int8 form, probe_stage1) on its mma.sync
+# dots_kernel
 YARDSTICKS = (("tail_x4_wmma", ()), ("probes", ("PROBES_MM_PRODUCTS=0",)),
-              ("probes", ("PROBES_CHAIN=0",)))
+              ("probes", ("PROBES_CHAIN=0", "PROBES_MM8=0", "PROBES_STAGE1=0")))
 # The card's published peaks (H100 SXM, dense): what a bound is taken against.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -1118,12 +1125,12 @@ def phase_probes(dev, card: str) -> list:
     from srcgan_tpu_torch import config
     from srcgan_tpu_torch.ops.kernels import build, probe_kernels as pk
     from srcgan_tpu_torch.probes import __main__ as probes_main
-    from srcgan_tpu_torch.probes import common, layout_probe3, mxu_probe
+    from srcgan_tpu_torch.probes import common, layout_probe3, matmul_probe, mxu_probe
 
     bf16, int8 = torch.bfloat16, torch.int8
     rng = np.random.default_rng(11)
     worst = dict.fromkeys(pk.NAMES, 0.0)
-    timed, timed_int8 = {}, {}
+    timed, timed_int8, timed_shifted = {}, {}, {}
 
     def compare(name, label, got, ref, bound):
         """bound None: bit-equal; else rel-L2 in float64."""
@@ -1181,6 +1188,37 @@ def phase_probes(dev, card: str) -> list:
                           lambda: pk.probe_matmul_reference(x, w), tensor_bytes(x, w, got),
                           2 * PROBE_M * k * n, "int8", lib=lambda: torch._int_mm(x, w),
                           into=timed_int8)
+        # probe_matmul's int8 form at every shape of the sweep: bit-equal (the
+        # cast wraps), then in turns with PR 5's design and torch._int_mm
+        # (int32 out), x from HBM (copies rotating as the sweep has them)
+        first = pk.declare(build.load(*YARDSTICKS[2]))
+        for k in matmul_probe.DEPTHS:
+            for n in matmul_probe.WIDTHS:
+                x, w = pair(PROBE_M, k, n, int8)
+                got = pk.probe_matmul(x, w)
+                full = pk._dot(x, w)
+                check(bool((full.abs() > 127).any()), "the int8 sums never leave int8")
+                compare("probe_matmul", f"int8 M={PROBE_M} K={k} N={n} (the cast wraps)", got,
+                        full.to(int8), None)
+                check(torch.equal(pk.matmul_int8(first, x, w), got),
+                      f"probe_matmul int8 K={k} N={n}: PR 5's design disagrees")
+                xs = [x.clone() for _ in range(matmul_probe.copies(PROBE_M, k, n))]
+                calls = {"kernel": [lambda v=v: pk.probe_matmul(v, w) for v in xs],
+                         "PR 5 design": [lambda v=v: pk.matmul_int8(first, v, w) for v in xs],
+                         "torch._int_mm": [lambda v=v: torch._int_mm(v, w) for v in xs]}
+                rounds, order = {key: [] for key in calls}, list(calls)
+                for _ in range(2):
+                    for key in order:
+                        rounds[key].append(common.graph_ms(calls[key]) * 1e3)
+                    order.reverse()
+                bound = (PROBE_M * k + k * n + PROBE_M * n) / HBM_BYTES_PER_S * 1e6
+                print(f"[probes] probe_matmul int8 K={k} N={n} x from HBM in turns on {card}, us "
+                      f"a call: " + "; ".join(f"{key} {' / '.join(f'{t:.2f}' for t in v)}"
+                                              for key, v in rounds.items())
+                      + f"; bound {bound:.3f} us by bytes")
+                check(max(rounds["kernel"]) < min(rounds["torch._int_mm"]),
+                      f"probe_matmul int8 K={k} N={n} is slower than torch._int_mm")
+                del xs
         # probe_matmul's bf16 form, its ablation build and torch.matmul in
         # turns, graph timing: the same x every launch (warm in L2), then
         # copies of x rotating over three times the L2 (read from HBM)
@@ -1205,7 +1243,6 @@ def phase_probes(dev, card: str) -> list:
         # 6b/6c probe_mxu (both types) and probe_dots: 16 dependent dots through
         # the chain kernel at every shape of their sweeps, against the plain
         # version, three calls bit-equal, then in turns with the first design
-        chain0 = pk.declare(build.load(*YARDSTICKS[2]))
         fns = {"probe_mxu": (pk.probe_mxu, pk.probe_mxu_reference),
                "probe_dots": (pk.probe_dots, pk.probe_dots_reference)}
         sweep = [("probe_mxu", MXU_M, k, n, dt) for dt in (bf16, int8) for k, n in mxu_probe.SHAPES]
@@ -1222,14 +1259,14 @@ def phase_probes(dev, card: str) -> list:
             if dtype == int8:
                 check(not torch.equal(got[0], 16 * pk._dot(x, w)),
                       "the int8 chain never switched operands")
-            before = pk.chain(chain0, name, x, w, 16)
+            before = pk.chain(first, name, x, w, 16)
             torch.cuda.synchronize()
             agree = (torch.equal(before, got[0]) if dtype == int8
                      else rel_l2(before.double(), got[0].double()) <= 1e-3)
             check(agree, f"{name} {label}: the first design disagrees with the chain kernel")
             turns = {"chain kernel": [], "first design": []}
             calls = {"chain kernel": lambda: fn(x, w, 16),
-                     "first design": lambda: pk.chain(chain0, name, x, w, 16)}
+                     "first design": lambda: pk.chain(first, name, x, w, 16)}
             for order in (("chain kernel", "first design"), ("first design", "chain kernel")):
                 for key in order:
                     turns[key].append(common.graph_ms([calls[key]] * 4))
@@ -1270,31 +1307,60 @@ def phase_probes(dev, card: str) -> list:
         times("probe_roll", "shift 128", lambda: pk.probe_roll(a, 128, 16),
               lambda: pk.probe_roll_reference(a, 128, 16), 2 * tensor_bytes(a), 0, "bf16",
               lib=lambda: torch.roll(a, 128, dims=0), steps=16)
-        # 6f probe_stage1: both forms against the one plain version
+        # 6f probe_stage1: both forms against the one plain version at the
+        # sweep's stride and at 16, three calls bit-equal; then in turns with
+        # PR 5's design
         x, w = pair(PROBE_M, 64, 192, bf16)[0], pair(576, 576, 192, bf16)[1]
-        ref = pk.probe_stage1_reference(x, w, 4, 128)
-        for form in ("im2col", "shifted"):
-            got = pk.probe_stage1(x, w, 4, 128, form)
-            compare("probe_stage1", f"{form} M={PROBE_M}", got, ref, 1e-3)
-        times("probe_stage1", "im2col", lambda: pk.probe_stage1(x, w, 4, 128, "im2col"),
-              lambda: pk.probe_stage1_reference(x, w, 4, 128), tensor_bytes(x, w, got),
-              4 * 2 * PROBE_M * 576 * 192, "bf16", steps=4)
+        for stride in (128, 16):
+            ref = pk.probe_stage1_reference(x, w, 4, stride)
+            for form in pk.STAGE1_FORMS:
+                got = [pk.probe_stage1(x, w, 4, stride, form) for _ in range(3)]
+                compare("probe_stage1", f"{form} M={PROBE_M} stride {stride}", got[0], ref, 1e-3)
+                check(all(torch.equal(g, got[0]) for g in got[1:]),
+                      f"probe_stage1 {form} stride {stride}: three calls are not bit-equal")
+                old = pk.stage1(first, x, w, 4, stride, form)
+                torch.cuda.synchronize()
+                check(rel_l2(old.double(), got[0].double()) <= 1e-3,
+                      f"probe_stage1 {form} stride {stride}: PR 5's design disagrees")
+        calls = {f"{form}, {label}": (lambda f=form, lib=lib: pk.stage1(lib, x, w, 4, 128, f))
+                 for form in pk.STAGE1_FORMS for label, lib in (("kernel", pk._library()),
+                                                                 ("PR 5 design", first))}
+        rounds, order = {key: [] for key in calls}, list(calls)
+        for _ in range(2):
+            for key in order:
+                rounds[key].append(common.graph_ms([calls[key]] * 4) * 1e3)
+            order.reverse()
+        print(f"[probes] probe_stage1 stride 128 in turns on {card}, us a call of 4 stages: "
+              + "; ".join(f"{key} {' / '.join(f'{t:.2f}' for t in v)}" for key, v in rounds.items()))
+        for form in pk.STAGE1_FORMS:
+            check(max(rounds[f"{form}, kernel"]) < min(rounds[f"{form}, PR 5 design"]),
+                  f"probe_stage1 {form} is slower than PR 5's design")
+        for form in pk.STAGE1_FORMS:
+            times("probe_stage1", form, lambda f=form: pk.probe_stage1(x, w, 4, 128, f),
+                  lambda: pk.probe_stage1_reference(x, w, 4, 128), tensor_bytes(x, w, got[0]),
+                  4 * 2 * PROBE_M * 576 * 192, "bf16", steps=4,
+                  into=timed if form == "im2col" else timed_shifted)
 
     # the main path of this slice: the three sweeps through their entry points
     for name in pk.NAMES:
         pk.launches[name] = 0
     rows = probes_main.main([])
     counts = dict(pk.launches)
+    int8_launches = sum(r["launches"] for r in rows["matmul"] if r["dtype"] == "int8")
     print(f"[probes] sweeps: {', '.join(f'{k} {len(v)} lines' for k, v in rows.items())}; "
-          f"launches {counts}")
+          f"launches {counts}, of probe_matmul's {int8_launches} int8")
     check(len(rows["matmul"]) == 18 and len(rows["mxu"]) == 8 and len(rows["layout"]) == 12,
           "a sweep printed fewer lines than its script's")
     check(all(counts[name] > 0 for name in pk.NAMES), "a sweep did not reach its kernel")
     lines = {"probe_matmul": 29, "probe_mxu": 23, "probe_dots": 66, "probe_concat_dot": 103,
              "probe_roll": 154, "probe_stage1": 186}
-    # the int8 forms' readings ride in their probes' entries
+    # the int8 forms' readings (and probe_matmul's int8 launches) and the
+    # shifted form of probe_stage1 ride in their probes' entries
+    timed_int8["probe_matmul"]["launches"] = int8_launches
     return [{**probe_entry(name, lines[name], worst[name], timed[name]), "launches": counts[name],
-             **({"int8": timed_int8[name]} if name in timed_int8 else {})} for name in pk.NAMES]
+             **({"int8": timed_int8[name]} if name in timed_int8 else {}),
+             **({"shifted": timed_shifted[name]} if name in timed_shifted else {})}
+            for name in pk.NAMES]
 
 
 def lab_cascade(gen):

@@ -139,6 +139,10 @@ __device__ __forceinline__ uint64_t descriptor(unsigned saddr, unsigned lbo, uns
 #define HOPPER_D32                                                                          \
   "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23," \
   "%24,%25,%26,%27,%28,%29,%30,%31}"
+#define HOPPER_D48                                                                          \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23," \
+  "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,"    \
+  "%45,%46,%47}"
 #define HOPPER_D64                                                                          \
   "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23," \
   "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,"    \
@@ -201,6 +205,16 @@ template <> struct Rs<64> {
   }
 };
 
+template <> struct Rs<96> {
+  static __device__ __forceinline__ void mma(float (&d)[48], const uint32_t (&a)[4], uint64_t b,
+                                             int scale) {
+    asm volatile(HOPPER_PRED("%53") "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+                 HOPPER_D48 ", {%48,%49,%50,%51}, %52, p, 1, 1, 0;\n}\n"
+                 : HOPPER_F32(0), HOPPER_F16(32)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale));
+  }
+};
+
 template <> struct Rs<144> {
   static __device__ __forceinline__ void mma(float (&d)[72], const uint32_t (&a)[4], uint64_t b,
                                              int scale) {
@@ -211,6 +225,18 @@ template <> struct Rs<144> {
   }
 };
 
+
+// ss with A and B both K-major through descriptors.
+template <int N> struct Ss;
+
+template <> struct Ss<96> {
+  static __device__ __forceinline__ void mma(float (&d)[48], uint64_t a, uint64_t b, int scale) {
+    asm volatile(HOPPER_PRED("%50") "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+                 HOPPER_D48 ", %48, %49, p, 1, 1, 0, 0;\n}\n"
+                 : HOPPER_F32(0), HOPPER_F16(32)
+                 : "l"(a), "l"(b), "r"(scale));
+  }
+};
 
 // ss with B MN-major (transposed: N contiguous in each row of k), A K-major;
 // both through descriptors.

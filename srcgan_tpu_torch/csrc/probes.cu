@@ -45,9 +45,10 @@
 // The ablation (python -m srcgan_tpu_torch.probes chain) times the designs
 // it was chosen over and the builds with work left out (PROBES_CHAIN_*).
 //
-// One kernel template (dots_kernel) serves the other dot probes, and the
-// chain where PROBES_CHAIN=0 (the first design, kept as the ablation's
-// yardstick).  A block of eight warps owns 64 rows of x and keeps them in shared memory across all B dots
+// One kernel template (dots_kernel) serves probe_concat_dot, and, as the
+// yardstick of the ablations, PR 5's design of the chain (PROBES_CHAIN=0), of
+// make_matmul's int8 form (PROBES_MM8=0) and of probe_stage1
+// (PROBES_STAGE1=0).  A block of eight warps owns 64 rows of x and keeps them in shared memory across all B dots
 // (the TPU held all of x in VMEM; 64 rows x 1,152 B are 74 KB of a block's
 // 227 KB).  transpose_kernel first writes w column by column, k contiguous,
 // in slices of 256 bytes of k laid out as the shared-memory stage holds them,
@@ -79,13 +80,13 @@
 // y00, applied as a saturating byte add to each A fragment.
 //
 // Modes of the template: plain (make_matmul's int8 form with B=1 and the
-// output cast to int8; the chain where PROBES_CHAIN=0); concat and twodots (probe_concat_dot:
+// output cast to int8 where PROBES_MM8=0; the chain where PROBES_CHAIN=0); concat and twodots (probe_concat_dot:
 // the stacked form rebuilds the [a, a/2] tile in shared memory every step,
 // the other halves the A fragments of the second dot in registers); im2col
 // and shifted (probe_stage1: a block holds its rows with a halo of stride+1
 // rows each way, wrapped modulo M; im2col copies the nine shifted views into
 // a 64 x 576 tile as the TPU kernel does in VMEM, shifted reads the A
-// fragments at shifted rows and builds nothing).
+// fragments at shifted rows and builds nothing; where PROBES_STAGE1=0).
 //
 // make_matmul in bf16 has a kernel of its own, matmul_kernel.  One dot fed
 // from HBM is bound by its bytes (25.4 MB at (16384,576)@(576,192): 7.6 us at
@@ -101,9 +102,58 @@
 // so that every thread stores 16 bytes.  At M = 16384, 128 blocks fill the
 // 132 SMs in one wave.  The tensor maps are built per call on the host by
 // cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint (so the
-// library needs no -lcuda), and passed as __grid_constant__ parameters.  The
-// int8 form stays on dots_kernel (plain mode, one dot, the int32 sum cast to
-// int8); chip_smoke.py times it beside torch._int_mm.
+// library needs no -lcuda), and passed as __grid_constant__ parameters.
+//
+// make_matmul in int8 (matmul8_kernel) is the same GEMM for s8 operands,
+// int32 sums whose low byte is the output: 12.7 MB at (16384,576)@(576,192),
+// 3.8 us at 3.35 TB/s.  8-bit wgmma operands have no transpose bit, so w must
+// be K-major: a launch before the GEMM writes its K-major swizzled image
+// (s8_image_kernel, chunks of 128 k, N rows of 128 bytes, as the chain's),
+// and each block copies it (every block transposing w itself was 1.3-3.8 us
+// slower at K >= 192; python -m srcgan_tpu_torch.probes matmul8).  With K <=
+// 640 all of a block's operands fit at once (at K=576, N=192: five 16 KB boxes
+// of x, 128 rows x 128 k, and 120 KB of w), so every chunk has a stage and a
+// barrier of its own and one thread starts every load at the start: no ring
+// to wait on, no producer loop.  The GEMM is launched to start under the
+// image launch (see launch_early): its boxes of x load while the image is
+// written, and only the copies of the image wait for it.  Two warpgroups run
+// m64nNk32 on their 64 rows chunk by chunk as the chunks land.  The low bytes
+// are exchanged within each quad of lanes so that every thread stores 16
+// bytes.  No transpose_kernel, no mma.sync.  What holds it back at K=576
+// (the ablation's timeline): the image, then 128 blocks copying it from L2
+// (15.7 MB, more than x's 9.4 MB from HBM), before the first chunk's
+// products; a cluster of two blocks sharing each copy by multicast was slower.
+//
+// probe_stage1 (stage1_kernel): 4 stages x (16384 x 576 x 192) is 14.7 us of
+// bf16 tensor work, far above its bytes, so the products must run back to
+// back.  w (221 KB) and a tile's rows do not fit a block together, so a block
+// holds one half of N: 96 columns of w, K-major (a launch before the stages
+// writes w's K-major image in halves, s1_image_kernel), 110.6 KB, loaded once
+// by bulk copies for all its tiles and stages; the grid is one block an SM,
+// the two halves side by side, each block walking over tiles of 64 rows.  A
+// producer warp starts every copy.  A tile's rows and their halo of stride +
+// 1 rows each way (in boxes of 64 and of 8 rows, wrapped modulo M, swizzled
+// by TMA) load once for all the stages into one halo tile, which the
+// producer refills with the next tile's rows as soon as this tile's reads
+// are done.  Two warpgroups split each stage's 36 k16 steps (m64n96k16, half
+// of the taps each), summing over all the stages in registers, and exchange
+// halves of the sums once a tile.  "shifted": A from registers, one
+// ldmatrix.x4 per k16 step at the tap's shifted rows of the halo tile (as
+// rdb5.cu reads its taps), loaded once a tile and kept for all its stages, so
+// the halo tile is free for the next tile's rows under this one's products.
+// "im2col": each warpgroup rebuilds its own columns of the 64 x 576 tile
+// from the halo tile every stage, as the TPU kernel rebuilds col_ref from xx,
+// behind a barrier of its own warps, and wgmma reads A through a descriptor;
+// per stage the rebuild and the wgmmas' reads move 327 KB of a block's shared
+// memory, 2,560 cycles at 128 bytes a cycle against 1,728 cycles of products,
+// and the two do not overlap.  The y[0,0] chain needs only row 0's nine tap
+// rows and column 0 of w, so every warp computes all the stages'
+// perturbations itself before any product; a stage's operand is x plus the
+// perturbations of the stages before, rounded after each add
+// (add.rn.bf16x2), as the plain version has it: added to the A registers
+// once a stage after the stage's wgmmas have read them (shifted), or to the
+// halo tile's values as the im2col tile is rebuilt from them.  No block
+// barrier falls between stages.
 //
 // probe_roll has no dot: B steps of out[i] = bf16(in[(i - shift) mod M] + c)
 // between two buffers that stay in L2, with a grid-wide barrier between
@@ -779,49 +829,6 @@ int launch_matmul(const void* x, const void* w, void* out, int M, int K, cudaStr
 #define PROBES_CHAIN_S8_IMAGE 1
 #endif
 
-#if PROBES_CHAIN
-constexpr int kChThreads = 256;    // two warpgroups over a tile of 64 rows
-constexpr int kChMaxK = 576;
-
-// k16 steps (bf16) or k32 steps (s8) of a depth class KC; four steps make a
-// chunk, one 128-byte swizzled row of k.
-template <int KC, bool S8> __host__ __device__ constexpr int ch_steps() { return KC / (S8 ? 32 : 16); }
-template <int KC, bool S8> __host__ __device__ constexpr int ch_chunks() {
-  return (ch_steps<KC, S8>() + 3) / 4;
-}
-// Bytes of the operands in shared memory: w resident (bf16: N/64 boxes of 64
-// k x 64 n a chunk, MN-major; s8: N rows of 128 bytes of k a chunk,
-// K-major), for s8 then x and clip(x + 1) (64 rows x 128 bytes a chunk each).
-template <int N, int KC, bool S8> __host__ __device__ constexpr int ch_operands() {
-  return ch_chunks<KC, S8>() * (N * 128 + (S8 ? 2 * 8192 : (PROBES_CHAIN_A_SMEM ? 8192 : 0)));
-}
-// Whether the warpgroups split a tile's columns (bf16 only), else its k steps.
-template <int N, int KC, bool S8> __host__ __device__ constexpr bool ch_nsplit() {
-  return !S8 && !PROBES_CHAIN_A_SMEM &&
-         (PROBES_CHAIN_SPLIT == 1 || (PROBES_CHAIN_SPLIT < 0 && KC <= 128 && N >= 128));
-}
-// Bytes of the halves of the sums the warpgroups exchange after a k split.
-template <int N, int KC, bool S8> __host__ __device__ constexpr int ch_exchange() {
-  return ch_nsplit<N, KC, S8>() ? 0 : N * 256;
-}
-// Whether the exchange fits beside the operands; then a block can walk over
-// several tiles with w resident.  Where it does not (bf16 K=576, N=192) it
-// reuses the operands' bytes and a block takes one tile.
-template <int N, int KC, bool S8> __host__ __device__ constexpr bool ch_separate() {
-  return 1024 + ch_operands<N, KC, S8>() + ch_exchange<N, KC, S8>() +
-                 8 * (ch_chunks<KC, S8>() + 1) <= kMaxSmem &&
-         !PROBES_CHAIN_A_SMEM;
-}
-template <int N, int KC, bool S8> __host__ __device__ constexpr int ch_region() {
-  constexpr int ops = ch_operands<N, KC, S8>(), ex = ch_exchange<N, KC, S8>();
-  return ch_separate<N, KC, S8>() ? ops + ex : ops > ex ? ops : ex;
-}
-// the region aligned to 1024 bytes, then one mbarrier per chunk of w and
-// (s8) one for x
-template <int N, int KC, bool S8> __host__ __device__ constexpr int ch_smem_bytes() {
-  return 1024 + ch_region<N, KC, S8>() + 8 * (ch_chunks<KC, S8>() + 1);
-}
-
 // ---- s8 w in the K-major form of the 128-byte swizzle: chunks of 128 k, each
 // N rows (one a column of w) of 128 bytes, zero past K.  A piece is 128 k of
 // 32 columns: lane l reads 32 bytes (one sector) of each of rows k..k+3 of w,
@@ -863,16 +870,28 @@ __device__ __forceinline__ void s8_store(const S8Piece& p, uint8_t* dst, int pie
   }
 }
 
-// w's image for the blocks of the chain kernel to copy as it lies: a warp a
-// piece, `pieces` = chunks * N / 32.
+// w's image (the layout s8_store writes) for the blocks of the chain kernel
+// and of matmul8_kernel to copy as it lies: a thread a 4-byte word, the 32
+// lanes of a warp at one word position of 32 neighbouring columns, so that
+// each of its four byte loads reads 32 neighbouring bytes of a row of w.
+// (A warp a piece of 128 k x 32 columns, 30 warps at K=576, N=192, took 2.6
+// us; this is 30,720 threads.)  `chunks` of 128 k, zero past K.
 __global__ void __launch_bounds__(256) s8_image_kernel(const uint8_t* __restrict__ w,
                                                        uint8_t* __restrict__ img, int K, int N,
-                                                       int pieces) {
-  const int piece = blockIdx.x * 8 + (threadIdx.x >> 5);
-  if (piece >= pieces) return;
-  S8Piece p;
-  s8_load(p, w, piece, K, N, true);
-  s8_store(p, img, piece, N);
+                                                       int chunks) {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");   // see launch_early
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  if (i >= chunks * 32 * N) return;
+  // physical word pw of row n holds k = 16 (logical piece) + 4 (pw % 4) of
+  // the chunk, the swizzle having put logical piece j at j ^ (n % 8)
+  const int n = i % N, pw = (i / N) % 32, c = i / (32 * N);
+  const int k = 128 * c + 16 * ((pw >> 2) ^ (n & 7)) + 4 * (pw & 3);
+  uint32_t v = 0;
+  if (k < K) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) v |= uint32_t(__ldg(w + size_t(k + b) * N + n)) << (8 * b);
+  }
+  *reinterpret_cast<uint32_t*>(img + (size_t(c) * N + n) * 128 + 4 * pw) = v;
 }
 
 // mbar_wait that traps after 2^24 polls instead of hanging the card where a
@@ -908,6 +927,49 @@ __device__ __forceinline__ float row0_dot(const uint32_t (&x0)[CW], const uint32
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) y += __shfl_xor_sync(0xffffffffu, y, o);
   return y;
+}
+
+#if PROBES_CHAIN
+constexpr int kChThreads = 256;    // two warpgroups over a tile of 64 rows
+constexpr int kChMaxK = 576;
+
+// k16 steps (bf16) or k32 steps (s8) of a depth class KC; four steps make a
+// chunk, one 128-byte swizzled row of k.
+template <int KC, bool S8> __host__ __device__ constexpr int ch_steps() { return KC / (S8 ? 32 : 16); }
+template <int KC, bool S8> __host__ __device__ constexpr int ch_chunks() {
+  return (ch_steps<KC, S8>() + 3) / 4;
+}
+// Bytes of the operands in shared memory: w resident (bf16: N/64 boxes of 64
+// k x 64 n a chunk, MN-major; s8: N rows of 128 bytes of k a chunk,
+// K-major), for s8 then x and clip(x + 1) (64 rows x 128 bytes a chunk each).
+template <int N, int KC, bool S8> __host__ __device__ constexpr int ch_operands() {
+  return ch_chunks<KC, S8>() * (N * 128 + (S8 ? 2 * 8192 : (PROBES_CHAIN_A_SMEM ? 8192 : 0)));
+}
+// Whether the warpgroups split a tile's columns (bf16 only), else its k steps.
+template <int N, int KC, bool S8> __host__ __device__ constexpr bool ch_nsplit() {
+  return !S8 && !PROBES_CHAIN_A_SMEM &&
+         (PROBES_CHAIN_SPLIT == 1 || (PROBES_CHAIN_SPLIT < 0 && KC <= 128 && N >= 128));
+}
+// Bytes of the halves of the sums the warpgroups exchange after a k split.
+template <int N, int KC, bool S8> __host__ __device__ constexpr int ch_exchange() {
+  return ch_nsplit<N, KC, S8>() ? 0 : N * 256;
+}
+// Whether the exchange fits beside the operands; then a block can walk over
+// several tiles with w resident.  Where it does not (bf16 K=576, N=192) it
+// reuses the operands' bytes and a block takes one tile.
+template <int N, int KC, bool S8> __host__ __device__ constexpr bool ch_separate() {
+  return 1024 + ch_operands<N, KC, S8>() + ch_exchange<N, KC, S8>() +
+                 8 * (ch_chunks<KC, S8>() + 1) <= kMaxSmem &&
+         !PROBES_CHAIN_A_SMEM;
+}
+template <int N, int KC, bool S8> __host__ __device__ constexpr int ch_region() {
+  constexpr int ops = ch_operands<N, KC, S8>(), ex = ch_exchange<N, KC, S8>();
+  return ch_separate<N, KC, S8>() ? ops + ex : ops > ex ? ops : ex;
+}
+// the region aligned to 1024 bytes, then one mbarrier per chunk of w and
+// (s8) one for x
+template <int N, int KC, bool S8> __host__ __device__ constexpr int ch_smem_bytes() {
+  return 1024 + ch_region<N, KC, S8>() + 8 * (ch_chunks<KC, S8>() + 1);
 }
 
 // The warpgroup's part of a tile's sums out of its registers into `out`: it
@@ -1363,9 +1425,9 @@ int launch_chain(const void* x, const void* w, void* img, void* out, int M, int 
   if (err == cudaSuccess) err = chain_grid<N, KC, S8>(M / 64, &grid);
   if (err != cudaSuccess) return err;
   if (S8 && PROBES_CHAIN_S8_IMAGE) {
-    constexpr int pieces = ch_chunks<KC, S8>() * (N / 32);
-    s8_image_kernel<<<(pieces + 7) / 8, 256, 0, stream>>>(static_cast<const uint8_t*>(w),
-                                                         static_cast<uint8_t*>(img), K, N, pieces);
+    constexpr int chunks = ch_chunks<KC, S8>();
+    s8_image_kernel<<<(chunks * 32 * N + 255) / 256, 256, 0, stream>>>(
+        static_cast<const uint8_t*>(w), static_cast<uint8_t*>(img), K, N, chunks);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -1388,6 +1450,628 @@ int launch_chain_n(const void* x, const void* w, void* img, void* out, int M, in
   return launch_chain<N, 576, S8>(x, w, img, out, M, K, B, s);
 }
 #endif  // PROBES_CHAIN
+
+// ---- a kernel that may start before the launch it depends on has ended
+// (programmatic dependent launch): what it does not need from that launch
+// (its loads of x) runs under it, and griddepcontrol.wait holds it where it
+// reads what that launch wrote.  PROBES_PDL=0 launches it after
+// the one before has ended, as a plain launch does (the ablations' yardstick).
+#ifndef PROBES_PDL
+#define PROBES_PDL 1
+#endif
+__device__ __forceinline__ void wait_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void allow_next_grid() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+// Bring a tensor map (a kernel parameter) into the copy engine's cache before
+// the first copy that names it.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+template <typename... Params, typename... Args>
+cudaError_t launch_early(void (*kernel)(Params...), dim3 grid, dim3 block, int smem,
+                         cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = PROBES_PDL;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// ---- make_matmul in int8 (see the header): an s8 wgmma GEMM on TMA loads
+// Switches (the defaults are the design that ships): PROBES_MM8=0 sends the
+// int8 form to dots_kernel's plain mode, PR 5's design, with its transpose
+// launch and scratch; PROBES_MM8_IMAGE=0 has every block transpose w into its
+// shared memory itself (one launch a call) where the design that ships writes
+// w's K-major image once by a launch of its own and every block copies it;
+// PROBES_MM_PRODUCTS=0 (above) leaves the products out here too.
+#ifndef PROBES_MM8
+#define PROBES_MM8 1
+#endif
+#ifndef PROBES_MM8_IMAGE
+#define PROBES_MM8_IMAGE 1
+#endif
+
+// For measuring only: PROBES_MM8_TIMELINE=1 notes the clock at the phases of
+// block 0 (probes_matmul8_timeline() reads the notes): 0 the start, 1-5 each
+// chunk landed, 6 the products done, 7 the bytes stored, per warpgroup.
+#ifndef PROBES_MM8_TIMELINE
+#define PROBES_MM8_TIMELINE 0
+#endif
+#if PROBES_MM8_TIMELINE
+__device__ long long g_m8_timeline[2][8];
+__device__ __forceinline__ void m8_note(int note) {
+  if (blockIdx.x == 0 && (threadIdx.x & 127) == 0) g_m8_timeline[threadIdx.x >> 7][note] = clock64();
+}
+#else
+__device__ __forceinline__ void m8_note(int) {}
+#endif
+constexpr int kM8Rows = 128;                   // rows of x a block: two warpgroups of 64
+constexpr int kM8Threads = 256;
+constexpr int kM8Box = kM8Rows * 128;          // a box of x: 128 rows x 128 bytes of k, 16 KB
+constexpr int kM8MaxChunks = 5;                // K <= 640: every chunk of 128 k has a stage of its own
+
+// x's boxes, then w's chunks (N rows of 128 bytes of k each), then a barrier
+// per chunk, behind 1024 bytes to align the swizzle atoms
+template <int N> __host__ __device__ constexpr int m8_smem_bytes(int chunks) {
+  return 1024 + chunks * (kM8Box + N * 128) + 8 * chunks;
+}
+
+// CH chunks of 128 k (K <= 128 CH), every loop over them unrolled.
+template <int N, int CH>
+__global__ void __launch_bounds__(kM8Threads, 1)
+matmul8_kernel(const __grid_constant__ CUtensorMap xmap, const uint8_t* __restrict__ w,
+               const uint8_t* __restrict__ img, int8_t* __restrict__ out, int M, int K) {
+  extern __shared__ uint8_t m8_smem[];
+  uint8_t* const xs = m8_smem + ((1024u - (smem_addr(m8_smem) & 1023u)) & 1023u);
+  constexpr int chunks = CH;
+  const int tid = threadIdx.x, m0 = blockIdx.x * kM8Rows;
+  uint8_t* const ws = xs + chunks * kM8Box;
+  uint64_t* const full = reinterpret_cast<uint64_t*>(ws + chunks * N * 128);
+
+  if (tid == 0) {
+    for (int c = 0; c < chunks; ++c) mbar_init(full + c, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    prefetch_map(&xmap);
+    // every chunk under way at once: x's box (past K and M the copy engine
+    // fills zeros) and, from the image, w's chunk
+#pragma unroll
+    for (int c = 0; c < chunks; ++c) {
+      mbar_expect(full + c, kM8Box + (PROBES_MM8_IMAGE ? N * 128 : 0));
+      tma_load_2d(xs + c * kM8Box, &xmap, c * 128, m0, full + c);
+    }
+    if (PROBES_MM8_IMAGE) {
+      wait_prior_grid();                         // the image is written
+#pragma unroll
+      for (int c = 0; c < chunks; ++c)
+        bulk_copy(ws + c * N * 128, img + size_t(c) * N * 128, N * 128, full + c);
+    }
+  }
+  if (!PROBES_MM8_IMAGE) {
+    // the block's own K-major copy of w, two pieces a warp in flight, each
+    // block starting at another piece (as the chain's PROBES_CHAIN_S8_IMAGE=0)
+    const int pieces = chunks * (N / 32), warps = kM8Threads / 32;
+    for (int p0 = tid >> 5; p0 < pieces; p0 += 2 * warps) {
+      S8Piece pc[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        s8_load(pc[u], w, (p0 + u * warps + blockIdx.x) % pieces, K, N, p0 + u * warps < pieces);
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        if (p0 + u * warps < pieces) s8_store(pc[u], ws, (p0 + u * warps + blockIdx.x) % pieces, N);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // for the wgmma reads
+    __syncthreads();
+  }
+
+  // warpgroup wg: rows m0 + 64 wg .. + 63, a commit group per chunk, each
+  // behind its barrier; the k steps past K multiply zeros
+  const int wg = tid >> 7;
+  m8_note(0);
+  const unsigned xa = smem_addr(xs) + wg * 64 * 128, wa = smem_addr(ws);
+  int d[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = 0;
+#pragma unroll
+  for (int c = 0; c < chunks; ++c) {
+    chain_wait(full + c, 0);
+    m8_note(1 + c);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s)                  // a k32 step: 32 bytes of a row of x and of w's column
+      if (PROBES_MM_PRODUCTS)
+        Ss8<N>::mma(d, descriptor(xa + c * kM8Box + s * 32, 16, 1024, true),
+                    descriptor(wa + c * N * 128 + s * 32, 16, 1024, true), 1);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  keep(d);
+  m8_note(6);
+
+  // ---- the low byte of each sum, 16 bytes a thread and row half: a word
+  // holds columns 2q, 2q+1 of two blocks of 8 columns; after the quad's
+  // exchange thread q holds all 8 columns of blocks 2q, 2q+1 in four words
+  const int lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int row = m0 + wg * 64 + ((tid >> 5) & 3) * 16 + g;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int t = 0; t < N / 64; ++t) {
+      uint32_t v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int a = 4 * (8 * t + 2 * i) + 2 * h, b = a + 4;
+        v[i] = (uint32_t(d[a]) & 0xffu) | ((uint32_t(d[a + 1]) & 0xffu) << 8) |
+               ((uint32_t(d[b]) & 0xffu) << 16) | (uint32_t(d[b + 1]) << 24);
+      }
+      quad_transpose(v, q);
+      if (row + 8 * h < M)
+        *reinterpret_cast<uint4*>(out + size_t(row + 8 * h) * N + 64 * t + 16 * q) =
+            make_uint4(__byte_perm(v[0], v[1], 0x5410), __byte_perm(v[2], v[3], 0x5410),
+                       __byte_perm(v[0], v[1], 0x7632), __byte_perm(v[2], v[3], 0x7632));
+    }
+  }
+  m8_note(7);
+}
+
+template <int N, int CH>
+int launch_matmul8(const void* x, const void* w, void* img, void* out, int M, int K,
+                   cudaStream_t stream) {
+  constexpr int chunks = CH;
+  static_assert(CH <= kM8MaxChunks, "a block holds at most kM8MaxChunks chunks of x and of w");
+  if (PROBES_MM8_IMAGE && img == nullptr) return cudaErrorInvalidValue;
+  CUtensorMap xmap;
+  int err = swizzled_map(&xmap, x, K, M, 128, kM8Rows, true);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(matmul8_kernel<N, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             m8_smem_bytes<N>(chunks));
+  if (err != cudaSuccess) return err;
+  if (PROBES_MM8_IMAGE) {
+    // the image's blocks ask for the shared-memory carveout the GEMM's need,
+    // so that the GEMM's blocks can start beside them (launch_early)
+    err = cudaFuncSetAttribute(s8_image_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    s8_image_kernel<<<(chunks * 32 * N + 255) / 256, 256, 0, stream>>>(
+        static_cast<const uint8_t*>(w), static_cast<uint8_t*>(img), K, N, chunks);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((M + kM8Rows - 1) / kM8Rows), block(kM8Threads);
+  const uint8_t* wb = static_cast<const uint8_t*>(w);
+  const uint8_t* ib = static_cast<const uint8_t*>(img);
+  int8_t* ob = static_cast<int8_t*>(out);
+  if (PROBES_MM8_IMAGE)
+    err = launch_early(matmul8_kernel<N, CH>, grid, block, m8_smem_bytes<N>(chunks), stream, xmap,
+                       wb, ib, ob, M, K);
+  else
+    matmul8_kernel<N, CH><<<grid, block, m8_smem_bytes<N>(chunks), stream>>>(xmap, wb, ib, ob, M, K);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The instance whose chunks cover K.
+template <int N>
+int launch_matmul8_k(const void* x, const void* w, void* img, void* out, int M, int K,
+                     cudaStream_t s) {
+  switch ((K + 127) / 128) {
+    case 1: return launch_matmul8<N, 1>(x, w, img, out, M, K, s);
+    case 2: return launch_matmul8<N, 2>(x, w, img, out, M, K, s);
+    case 3: return launch_matmul8<N, 3>(x, w, img, out, M, K, s);
+    case 4: return launch_matmul8<N, 4>(x, w, img, out, M, K, s);
+    case 5: return launch_matmul8<N, 5>(x, w, img, out, M, K, s);
+  }
+  return cudaErrorInvalidValue;                  // deeper than kM8MaxChunks chunks
+}
+
+// ---- probe_stage1 (see the header): w resident in halves, nine taps by wgmma
+// Switches (the defaults are the design that ships): PROBES_STAGE1=0 sends
+// both forms to dots_kernel, PR 5's design, with its transpose launch and
+// scratch; PROBES_STAGE1_BUFFERS=2 keeps two halo tiles where they fit (the
+// shifted form) where the design that ships keeps one: its rows are read
+// once, at the start of a tile, so the next tile's load under this one's
+// products in either case.
+// For measuring only: PROBES_STAGE1_LEAVE_OUT leaves work out, so the result
+// is wrong and only the time means something: bit 0 the products, bit 1 the
+// operands (the im2col tile's rebuild, the ldmatrix loads and their adds);
+// PROBES_STAGE1_TIMELINE=1 notes the clock at the phases of block 0
+// (probes_stage1_timeline() reads the notes).
+#ifndef PROBES_STAGE1
+#define PROBES_STAGE1 1
+#endif
+#ifndef PROBES_STAGE1_LEAVE_OUT
+#define PROBES_STAGE1_LEAVE_OUT 0
+#endif
+#ifndef PROBES_STAGE1_TIMELINE
+#define PROBES_STAGE1_TIMELINE 0
+#endif
+constexpr bool kS1Products = (PROBES_STAGE1_LEAVE_OUT & 1) == 0;
+constexpr bool kS1Operands = (PROBES_STAGE1_LEAVE_OUT & 2) == 0;
+// Notes of the timeline: [warpgroup][note], 0 the start, 1 w's taps landed,
+// then per tile (at most 4): its halo landed, the products of stages 0-2
+// done (the warpgroup's wait before the next stage), all its products done,
+// its sums stored.  A note falls only where no wgmma of the warpgroup is in
+// flight.
+constexpr int kS1Notes = 2 + 4 * 7;
+#if PROBES_STAGE1_TIMELINE
+__device__ long long g_s1_timeline[2][kS1Notes];
+__device__ __forceinline__ void s1_note(int wg, int note) {
+  if (blockIdx.x == 0 && (threadIdx.x & 127) == 0 && note < kS1Notes)
+    g_s1_timeline[wg][note] = clock64();
+}
+#else
+__device__ __forceinline__ void s1_note(int, int) {}
+#endif
+#ifndef PROBES_STAGE1_BUFFERS
+#define PROBES_STAGE1_BUFFERS 1
+#endif
+constexpr int kS1N = 96;                        // columns of w a block holds: half of N = 192
+constexpr int kS1Tap = kS1N * 128;              // a tap (64 k) of the half, K-major: 12,288 B
+constexpr int kS1W = 9 * kS1Tap;                // the half, resident: 110,592 B
+constexpr int kS1Col = 9 * 64 * 128;            // im2col's tile, 64 rows x 576 k: 73,728 B
+constexpr int kS1Ex = 2 * 24 * 128 * 4;         // halves of the sums exchanged: 24,576 B
+constexpr int kS1Bars = 9 + 2 + 2;              // a barrier per tap of w, two per halo tile
+constexpr int kS1Threads = 288;                 // two consumer warpgroups and a producer warp
+constexpr int kS1MaxSteps = 32;                 // stages a call at most
+constexpr int kS1Dd = 8 * kS1MaxSteps * 4;      // each warp's list of the stages' perturbations
+
+// Rows of x above and below a tile's 64 that its taps read: stride + 1, in
+// whole boxes of 8 rows.
+__host__ __device__ constexpr int s1_halo(int stride) { return (stride + 1 + 7) / 8 * 8; }
+__host__ __device__ constexpr int s1_rows(int stride) { return 64 + 2 * s1_halo(stride); }
+// Bytes of a block besides its halo tiles: 1024 to align the swizzle atoms,
+// w's half, im2col's tile (the exchange reuses it) or the exchange, barriers,
+// the perturbation lists.  im2col at stride 128: 1024 + 110,592 + 73,728 + 104
+// + 1,024 = 186,472, and one halo tile of 336 rows x 128 B = 43,008 makes
+// 229,480 of the 232,448 a block may have; shifted: 137,320 and one halo
+// tile, 180,328 (two: 223,336).
+__host__ __device__ constexpr int s1_fixed(bool im2col) {
+  return 1024 + kS1W + (im2col ? kS1Col : kS1Ex) + 8 * kS1Bars + kS1Dd;
+}
+// Halo tiles a block holds (as many as the build asks for where they fit), 0
+// where not even one fits.
+int s1_buffers(int stride, bool im2col) {
+  const long room = kMaxSmem - s1_fixed(im2col), tile = long(s1_rows(stride)) * 128;
+  const long fit = room / tile;
+  return int(fit < PROBES_STAGE1_BUFFERS ? fit : PROBES_STAGE1_BUFFERS);
+}
+
+// w (576, 192) bf16 -> its K-major image in halves: img[h][t] is the half's
+// tap t, 96 rows (columns 96 h + n of w) of 128 bytes (k = 64 t .. 64 t + 63),
+// the 16-byte piece j of row n at j ^ (n % 8), as the 128-byte swizzle has it.
+// A thread a piece, the lanes of a warp on neighbouring columns.
+__global__ void __launch_bounds__(256) s1_image_kernel(const uint16_t* __restrict__ w,
+                                                       uint8_t* __restrict__ img) {
+  allow_next_grid();                             // see launch_early
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  if (i >= 2 * 9 * 8 * kS1N) return;
+  const int n = i % kS1N, j = (i / kS1N) % 8, t = (i / (kS1N * 8)) % 9, h = i / (kS1N * 72);
+  const uint16_t* src = w + size_t(64 * t + 8 * j) * 192 + h * kS1N + n;
+  uint32_t v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    v[e] = uint32_t(__ldg(src + (2 * e) * 192)) | (uint32_t(__ldg(src + (2 * e + 1) * 192)) << 16);
+  *reinterpret_cast<uint4*>(img + (size_t(h * 9 + t) * kS1N + n) * 128 + ((j ^ (n & 7)) << 4)) =
+      make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// The halo tile of `tile` into hs: rows tile * 64 - ha .. + rows, wrapped
+// modulo M, swizzled by the copy engine, in boxes of 64 rows (map64) where a
+// box stays within [0, M) and else of 8 (map8: M and the first row are
+// multiples of 8, so an 8-row box always does).  One thread; the copy engine
+// takes a box at a time, so few large boxes (one thread starting 42 boxes of
+// 8 rows took ~8,000 cycles a tile at stride 128, 32 lanes ~2,600; this, 7).
+__device__ __forceinline__ void s1_load_halo(const CUtensorMap* map64, const CUtensorMap* map8,
+                                             uint8_t* hs, uint64_t* bar, int tile, int M, int ha,
+                                             int rows) {
+  mbar_expect(bar, rows * 128);
+  for (int j = 0; j < rows;) {
+    const int g = wrap(tile * 64 - ha + j, M);
+    const bool big = rows - j >= 64 && g + 64 <= M;
+    tma_load_2d(hs + j * 128, big ? map64 : map8, 0, g, bar);
+    j += big ? 64 : 8;
+  }
+}
+
+// im2col: pieces [P0, P0 + 18) of row r of the 64 x 576 tile for stage s, from
+// the halo tile with the perturbations of the stages before added as they are
+// read (dd, one add.rn.bf16x2 each), six loads in flight at a time.  Piece pc
+// is tap pc / 8, piece pc % 8 of its row.
+template <int P0>
+__device__ __forceinline__ void s1_rebuild(const uint8_t* hs, uint8_t* col, const uint32_t* dd,
+                                           int r, int ha, int stride, int s) {
+#pragma unroll
+  for (int b = 0; b < 3; ++b) {
+    uint4 v[6];
+#pragma unroll
+    for (int u = 0; u < 6; ++u) {
+      const int pc = P0 + 6 * b + u, t = pc >> 3, j = pc & 7;
+      const int p = r + ha - tap_shift(t, stride);
+      v[u] = *reinterpret_cast<const uint4*>(hs + p * 128 + ((j ^ (p & 7)) << 4));
+    }
+    for (int i = 0; i < s; ++i) {
+      const uint32_t d2 = dd[i];
+#pragma unroll
+      for (int u = 0; u < 6; ++u) {
+        v[u].x = bf2_add_once(v[u].x, d2); v[u].y = bf2_add_once(v[u].y, d2);
+        v[u].z = bf2_add_once(v[u].z, d2); v[u].w = bf2_add_once(v[u].w, d2);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 6; ++u) {
+      const int pc = P0 + 6 * b + u, t = pc >> 3, j = pc & 7;
+      *reinterpret_cast<uint4*>(col + t * 8192 + r * 128 + ((j ^ (r & 7)) << 4)) = v[u];
+    }
+  }
+}
+
+// A block's shared memory (see s1_fixed), from the 1024-aligned base.
+struct S1Smem {
+  uint8_t* region;                               // im2col's tile, or the exchange
+  uint8_t* halo;                                 // nbuf halo tiles
+  uint64_t* wbar;                                // w's taps landed [9]
+  uint64_t* full;                                // halo tile b landed [2]
+  uint64_t* empty;                               // halo tile b read by the 8 consumer warps [2]
+  uint32_t* dd;                                  // 8 lists of the stages' perturbations
+  __device__ S1Smem(uint8_t* base, bool im2col, int nbuf, int rows) {
+    region = base + kS1W;
+    halo = region + (im2col ? kS1Col : kS1Ex);
+    wbar = reinterpret_cast<uint64_t*>(halo + nbuf * rows * 128);
+    full = wbar + 9;
+    empty = full + 2;
+    dd = reinterpret_cast<uint32_t*>(empty + 2);
+  }
+};
+
+// Warpgroup WG's part of every tile of the block: the k16 steps [S0, S0 + 18)
+// of each stage's 36 (taps 4.5 WG .. ), summed over the stages in registers,
+// the halves of the sums exchanged at the end of the tile.  A k16 step reads
+// 32 bytes of a tap's row: step k is tap k / 4, pieces 2 (k % 4) and +1.
+template <int WG, bool IM2COL>
+__device__ __forceinline__ void stage1_wg(const uint16_t* x, const uint8_t* img, float* out,
+                                          uint8_t* base, int M, int B, int stride, int nbuf) {
+  constexpr int S0 = WG ? 18 : 0;
+  const int tid = threadIdx.x & 127, lane = tid & 31, wl = tid >> 5, g = lane >> 2, q = lane & 3;
+  const int half = blockIdx.x & 1, ha = s1_halo(stride), rows = s1_rows(stride);
+  const S1Smem sm(base, IM2COL, nbuf, rows);
+  uint32_t* const dd = sm.dd + (threadIdx.x >> 5) * kS1MaxSteps;
+  const unsigned wsa = smem_addr(base), rega = smem_addr(sm.region);
+
+  // The chain: y[0,0] of a stage is row 0 of its nine taps (x[-shift] each)
+  // times column 0 of w, so every warp computes every stage's perturbation
+  // bf16(y00 * 1e-36) itself, before any product, into its own list dd (as
+  // bf16 pairs).  Words lane + 32 i: tap i, words `lane` of its row.  Column
+  // 0 of w is row 0 of each tap of the image's first half, 128 contiguous
+  // bytes that the swizzle leaves in place, once the image is written (read
+  // from w itself, 576 strided values a warp, it took microseconds of L2
+  // requests over the grid).
+  {
+    const uint32_t* xw = reinterpret_cast<const uint32_t*>(x);
+    const uint32_t* iw = reinterpret_cast<const uint32_t*>(img);
+    uint32_t x0[9], wc[9];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) x0[i] = __ldg(xw + size_t(wrap(-tap_shift(i, stride), M)) * 32 + lane);
+    wait_prior_grid();
+#pragma unroll
+    for (int i = 0; i < 9; ++i) wc[i] = __ldg(iw + i * (kS1Tap / 4) + lane);
+    for (int s = 0; s < B; ++s) {
+      const float dy = __bfloat162float(__float2bfloat16_rn(row0_dot(x0, wc) * 1e-36f));
+      const uint32_t d2 = pack(dy, dy);
+      if (lane == 0) dd[s] = d2;
+#pragma unroll
+      for (int i = 0; i < 9; ++i) x0[i] = bf2_add_once(x0[i], d2);
+    }
+    __syncwarp();
+  }
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;   // ldmatrix rows, as in dots_kernel
+  s1_note(WG, 0);
+  // w's taps this warpgroup reads, once: no wait falls between its wgmmas
+  for (int t = S0 / 4; t <= (S0 + 17) / 4; ++t) chain_wait(sm.wbar + t, 0);
+  s1_note(WG, 1);
+  // this warp is done reading halo tile b: the producer may refill it.  The
+  // reads are the generic proxy's and the refill the copy engine's (the async
+  // proxy): without the proxy fence the refill overtook this warp's ldmatrix
+  // reads of the tile (results that varied from call to call at stride 16).
+  auto release = [&](int b) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sm.empty + b);
+  };
+
+  for (int tile = blockIdx.x >> 1, it = 0; tile < M / 64; tile += gridDim.x >> 1, ++it) {
+    const int b = it % nbuf;
+    uint8_t* const hs = sm.halo + b * rows * 128;
+    chain_wait(sm.full + b, (it / nbuf) & 1);
+    s1_note(WG, 2 + 7 * it);
+
+    float d[48];
+#pragma unroll
+    for (int i = 0; i < 48; ++i) d[i] = 0.f;
+    if constexpr (IM2COL) {
+      // this warpgroup's columns of the im2col tile for stage s, rebuilt from
+      // the halo tile once its products of stage s - 1 have read them (warps
+      // 0-1 take the first 18 of each row's 36 pieces, warps 2-3 the rest: a
+      // lane a row); the halo tile is released after the last stage's rebuild
+      for (int s = 0; s < B; ++s) {
+        if (s > 0) {
+          wgmma_wait<0>();
+          s1_note(WG, 2 + 7 * it + s);
+        }
+        if (kS1Operands) {
+          if (tid < 64) s1_rebuild<2 * S0>(hs, sm.region, dd, tid, ha, stride, s);
+          else s1_rebuild<2 * S0 + 18>(hs, sm.region, dd, tid - 64, ha, stride, s);
+        }
+        if (s == B - 1) release(b);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // for the wgmma reads
+        asm volatile("bar.sync %0, 128;\n" ::"r"(2 + WG) : "memory");      // this warpgroup's warps
+        wgmma_fence();
+#pragma unroll
+        for (int k = S0; k < S0 + 18; ++k)
+          if (kS1Products)
+            Ss<96>::mma(d, descriptor(rega + (k >> 2) * 8192 + (k & 3) * 32, 16, 1024, true),
+                        descriptor(wsa + (k >> 2) * kS1Tap + (k & 3) * 32, 16, 1024, true), 1);
+        wgmma_commit();
+      }
+    } else {
+      // A from registers, loaded once a tile: the warpgroup's 18 k16 steps,
+      // each fragment one ldmatrix.x4 at the tap's shifted rows of the halo
+      // tile, which is then released; between stages, once the stage's wgmmas
+      // have read them, each register gets the stage's perturbation (one
+      // add.rn.bf16x2)
+      uint32_t a[18][4] = {};
+      if (kS1Operands) {
+#pragma unroll
+        for (int u = 0; u < 18; ++u) {
+          const int k = S0 + u, j = 2 * (k & 3) + (lane >> 4);
+          const int p = 16 * wl + a_row + ha - tap_shift(k >> 2, stride);
+          ldmatrix4(a[u], reinterpret_cast<const uint32_t*>(hs + p * 128 + ((j ^ (p & 7)) << 4)));
+        }
+      }
+      release(b);
+      for (int s = 0; s < B; ++s) {
+        if (s > 0) {
+          wgmma_wait<0>();
+          keep(a);
+          s1_note(WG, 2 + 7 * it + s);
+          const uint32_t d2 = dd[s - 1];
+#pragma unroll
+          for (int u = 0; u < 18; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) a[u][e] = bf2_add_once(a[u][e], d2);
+        }
+        // w's descriptors from one base made anew each stage, so that the
+        // compiler keeps no 18 of them in registers beside A and the sums
+        // (it did, spilled, and serialized the wgmmas: ptxas C7511)
+        uint64_t wdesc = descriptor(wsa, 16, 1024, true);
+        asm volatile("" : "+l"(wdesc));
+        wgmma_fence();
+#pragma unroll
+        for (int u = 0; u < 18; ++u)
+          if (kS1Products)
+            Rs<96>::mma(d, a[u], wdesc + ((((S0 + u) >> 2) * kS1Tap + ((S0 + u) & 3) * 32) >> 4), 1);
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      keep(a);
+    }
+    wgmma_wait<0>();
+    keep(d);
+    s1_note(WG, 7 + 7 * it);
+
+    // ---- the tile's sums: each warpgroup sends the other the half of its
+    // columns the other stores (warpgroup 0 stores columns [0, 48) of the
+    // block's 96) and both add in the order wg0 + wg1, in the im2col tile's
+    // bytes (im2col, so behind block barriers) or a region of their own
+    float* const box = reinterpret_cast<float*>(sm.region);
+    block_sync();                                 // both are done with the im2col tile
+#pragma unroll
+    for (int i = 0; i < 24; ++i) box[(1 - WG) * 24 * 128 + i * 128 + tid] = d[(WG ? 0 : 24) + i];
+    block_sync();
+#pragma unroll
+    for (int i = 0; i < 24; ++i) {
+      const float other = box[WG * 24 * 128 + i * 128 + tid];
+      d[WG * 24 + i] = WG ? other + d[WG * 24 + i] : d[WG * 24 + i] + other;
+    }
+    // 16 bytes a store: lanes q and q ^ 1 swap the pair of one row, so that
+    // the even lane holds columns 2q .. 2q + 3 of row g and the odd one the
+    // same of row g + 8
+    const int row = tile * 64 + 16 * wl + g + 8 * (q & 1);
+    const bool odd = q & 1;
+#pragma unroll
+    for (int jj = 0; jj < 6; ++jj) {
+      const int j = WG * 6 + jj, col = half * kS1N + 8 * j + 2 * (q & ~1);
+      const float s0 = __shfl_xor_sync(0xffffffffu, odd ? d[4 * j] : d[4 * j + 2], 1);
+      const float s1 = __shfl_xor_sync(0xffffffffu, odd ? d[4 * j + 1] : d[4 * j + 3], 1);
+      *reinterpret_cast<float4*>(out + size_t(row) * 192 + col) =
+          odd ? float4{s0, s1, d[4 * j + 2], d[4 * j + 3]} : float4{d[4 * j], d[4 * j + 1], s0, s1};
+    }
+    if (IM2COL) block_sync();                     // the exchange is read before the next rebuild
+    s1_note(WG, 8 + 7 * it);
+  }
+}
+
+template <bool IM2COL>
+__global__ void __launch_bounds__(kS1Threads, 1)
+stage1_kernel(const __grid_constant__ CUtensorMap map64, const __grid_constant__ CUtensorMap map8,
+              const uint16_t* __restrict__ x, const uint8_t* __restrict__ img,
+              float* __restrict__ out, int M, int B, int stride, int nbuf) {
+  extern __shared__ uint8_t s1_smem[];
+  uint8_t* const base = s1_smem + ((1024u - (smem_addr(s1_smem) & 1023u)) & 1023u);
+  const int rows = s1_rows(stride), ha = s1_halo(stride), half = blockIdx.x & 1;
+  const S1Smem sm(base, IM2COL, nbuf, rows);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 9 + 2; ++i) mbar_init(sm.wbar + i, 1);      // w's taps, halo landed
+    for (int i = 0; i < 2; ++i) mbar_init(sm.empty + i, 8);         // halo read, a warp each
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x < 256) {
+    if (threadIdx.x < 128) stage1_wg<0, IM2COL>(x, img, out, base, M, B, stride, nbuf);
+    else stage1_wg<1, IM2COL>(x, img, out, base, M, B, stride, nbuf);
+    return;
+  }
+  const int lane = threadIdx.x & 31, first = blockIdx.x >> 1, step = gridDim.x >> 1;
+  if (lane == 0) {
+    prefetch_map(&map64);
+    prefetch_map(&map8);
+  }
+  if (lane == 0)
+    for (int b = 0; b < nbuf && first + b * step < M / 64; ++b)
+      s1_load_halo(&map64, &map8, sm.halo + b * rows * 128, sm.full + b, first + b * step, M, ha,
+                   rows);
+  wait_prior_grid();
+  if (lane < 9) {
+    mbar_expect(sm.wbar + lane, kS1Tap);
+    bulk_copy(base + lane * kS1Tap, img + size_t(half * 9 + lane) * kS1Tap, kS1Tap, sm.wbar + lane);
+  }
+  if (lane == 0)
+    for (int it = nbuf, tile = first + nbuf * step; tile < M / 64; ++it, tile += step) {
+      const int b = it % nbuf;
+      chain_wait(sm.empty + b, (it / nbuf - 1) & 1);   // released by tile it - nbuf
+      s1_load_halo(&map64, &map8, sm.halo + b * rows * 128, sm.full + b, tile, M, ha, rows);
+    }
+}
+
+template <bool IM2COL>
+int launch_stage1(const void* x, const void* w, void* img, void* out, int M, int B, int stride,
+                  cudaStream_t stream) {
+  const int nbuf = s1_buffers(stride, IM2COL);
+  if (nbuf < 1 || B > kS1MaxSteps || img == nullptr) return cudaErrorInvalidValue;
+  CUtensorMap map64, map8;
+  int err = swizzled_map(&map64, x, 64, M, 64, 64);
+  if (err == cudaSuccess) err = swizzled_map(&map8, x, 64, M, 64, 8);
+  if (err != cudaSuccess) return err;
+  const int smem = s1_fixed(IM2COL) + nbuf * s1_rows(stride) * 128;
+  err = cudaFuncSetAttribute(stage1_kernel<IM2COL>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  // a block an SM, each with a half of w, walking over tiles
+  const int tiles = M / 64, pairs = tiles < sms / 2 ? tiles : sms / 2;
+  // (the carveout the stage kernel's blocks need, as for s8_image_kernel)
+  err = cudaFuncSetAttribute(s1_image_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  s1_image_kernel<<<(2 * 9 * 8 * kS1N + 255) / 256, 256, 0, stream>>>(
+      static_cast<const uint16_t*>(w), static_cast<uint8_t*>(img));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = launch_early(stage1_kernel<IM2COL>, dim3(2 * pairs), dim3(kS1Threads), smem, stream, map64,
+                     map8, static_cast<const uint16_t*>(x), static_cast<const uint8_t*>(img),
+                     static_cast<float*>(out), M, B, stride, nbuf);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
 
 // One roll step per grid barrier.  counter counts arrivals and is 0 at launch.
 __device__ __forceinline__ void grid_barrier(unsigned* counter, unsigned target) {
@@ -1429,20 +2113,25 @@ roll_kernel(const uint4* __restrict__ a, uint4* buf, uint4* out, int M, int vpr,
 
 extern "C" {
 
-// A dot probe.  x: (M, K) for mode 0, (M, 64) bf16 for modes 1-4; w: (K, N)
-// row-major; wt: scratch of ceil(K * element size / 256) * N * 272 bytes (w
-// in slices, see transpose_kernel); out: (M, N) fp32 (bf16 forms) or int32
-// (s8 != 0), or x's type when cast_out.  mode: 0 plain, 1 concat, 2 twodots
-// (K = 128), 3 im2col, 4 shifted (K = 576, N = 192; stride is the row stride
-// of the dy taps).  M % 64 == 0, K % 32 == 0, N in {64, 128, 192} (192 for
-// modes 1-4); every pointer 16-byte aligned.  Launches the transpose of w and
-// then the kernel on `stream`; returns cudaGetLastError().
+// A dot probe on dots_kernel, PR 5's design.  x: (M, K) for mode 0, (M, 64)
+// bf16 for modes 1-4; w: (K, N) row-major; wt: scratch of ceil(K * element
+// size / 256) * N * 272 bytes (w in slices, see transpose_kernel); out: (M, N)
+// fp32 (bf16 forms) or int32 (s8 != 0), or x's type when cast_out.  mode: 0
+// plain, 1 concat, 2 twodots (K = 128), 3 im2col, 4 shifted (K = 576, N = 192;
+// stride is the row stride of the dy taps).  M % 64 == 0, K % 32 == 0, N in
+// {64, 128, 192} (192 for modes 1-4); every pointer 16-byte aligned.  The
+// default build instantiates modes 1 and 2 only (probe_concat_dot); plain
+// where PROBES_CHAIN=0 or PROBES_MM8=0, 3 and 4 where PROBES_STAGE1=0.
+// Launches the transpose of w and then the kernel on `stream`; returns
+// cudaGetLastError(), cudaErrorInvalidValue for a mode the build lacks.
 int probes_dots_launch(const void* x, const void* w, void* wt, void* out, int M, int K, int N,
                        int B, int s8, int cast_out, int mode, int stride, void* stream) {
+  constexpr bool kPlainBuilt = !PROBES_CHAIN || !PROBES_MM8, kStage1Built = !PROBES_STAGE1;
   if (M <= 0 || M % kBM != 0 || K <= 0 || K % 32 != 0 || N % 32 != 0 || B < 1 || mode < 0 ||
       mode > 4 || (mode != kPlain && (s8 || cast_out || N != 192)) ||
       ((mode == kConcat || mode == kTwoDots) && K != 128) ||
-      ((mode == kIm2col || mode == kShifted) && (K != 576 || stride < 1)))
+      ((mode == kIm2col || mode == kShifted) && (K != 576 || stride < 1)) ||
+      (mode == kPlain && !kPlainBuilt) || ((mode == kIm2col || mode == kShifted) && !kStage1Built))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 tgrid(N / 32, K / 32), tblock(32, 8);
@@ -1458,14 +2147,19 @@ int probes_dots_launch(const void* x, const void* w, void* wt, void* out, int M,
   const uint8_t* wb = static_cast<const uint8_t*>(wt);
   const int kb = s8 ? K : 2 * K;
   switch (mode) {
+#if !PROBES_CHAIN || !PROBES_MM8
     case kPlain:
       return s8 ? launch_plain<true>(N, xb, wb, out, M, kb, B, cast_out, s)
                 : launch_plain<false>(N, xb, wb, out, M, kb, B, cast_out, s);
+#endif
     case kConcat: return launch_dots<6, false, kConcat>(xb, wb, out, M, kb, B, 0, 0, s);
     case kTwoDots: return launch_dots<6, false, kTwoDots>(xb, wb, out, M, kb, B, 0, 0, s);
+#if !PROBES_STAGE1
     case kIm2col: return launch_dots<6, false, kIm2col>(xb, wb, out, M, kb, B, 0, stride, s);
-    default: return launch_dots<6, false, kShifted>(xb, wb, out, M, kb, B, 0, stride, s);
+    case kShifted: return launch_dots<6, false, kShifted>(xb, wb, out, M, kb, B, 0, stride, s);
+#endif
   }
+  return cudaErrorInvalidValue;
 }
 
 // Scratch bytes probes_chain_launch needs: none for bf16; for s8 w's K-major
@@ -1527,6 +2221,93 @@ int probes_matmul_launch(const void* x, const void* w, void* out, int M, int K, 
     case 192: return launch_matmul<192>(x, w, out, M, K, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// Scratch bytes probes_matmul8_launch needs: w's K-major image (chunks of
+// 128 k, N rows of 128 bytes); none where every block transposes w itself
+// (PROBES_MM8_IMAGE=0); w's staged form where PROBES_MM8=0.
+int probes_matmul8_scratch_bytes(int K, int N) {
+#if PROBES_MM8
+  return PROBES_MM8_IMAGE ? (K + 127) / 128 * N * 128 : 0;
+#else
+  return (K + kSliceBytes - 1) / kSliceBytes * N * kSliceStride * 4;
+#endif
+}
+
+// make_matmul in int8: x (M, K) and w (K, N), row-major s8, into out (M, N)
+// s8, the low byte of each int32 sum.  M % 64 == 0, K % 32 == 0 and K <= 640,
+// N in {64, 128, 192}; every pointer 16-byte aligned; scratch of
+// probes_matmul8_scratch_bytes.  Two launches on `stream` (w's image, then the
+// GEMM); returns cudaGetLastError(), cudaErrorInvalidValue for a shape it does
+// not take or a tensor map refused, cudaErrorNotSupported without
+// cuTensorMapEncodeTiled.
+int probes_matmul8_launch(const void* x, const void* w, void* scratch, void* out, int M, int K,
+                          int N, void* stream) {
+  if (M <= 0 || M % 64 != 0 || K <= 0 || K % 32 != 0 || (N != 64 && N != 128 && N != 192))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#if PROBES_MM8
+  switch (N) {
+    case 64: return launch_matmul8_k<64>(x, w, scratch, out, M, K, s);
+    case 128: return launch_matmul8_k<128>(x, w, scratch, out, M, K, s);
+    default: return launch_matmul8_k<192>(x, w, scratch, out, M, K, s);
+  }
+#else
+  return probes_dots_launch(x, w, scratch, out, M, K, N, 1, 1, 1, kPlain, 0, s);
+#endif
+}
+
+// Scratch bytes probes_stage1_launch needs for w (576, 192): its K-major
+// image in halves; w's staged form where PROBES_STAGE1=0.
+int probes_stage1_scratch_bytes() {
+#if PROBES_STAGE1
+  return 2 * kS1W;
+#else
+  return (576 * 2 + kSliceBytes - 1) / kSliceBytes * 192 * kSliceStride * 4;
+#endif
+}
+
+// probe_stage1: B dependent stages of the nine rolled copies of x (M, 64) and
+// one K=576 dot with w (576, 192), both bf16, into out (M, 192) fp32.  form 0
+// im2col, 1 shifted; stride the row stride of the dy taps.  M % 64 == 0,
+// 1 <= B <= 32, a stride whose halo tile fits (probe_kernels.stage1_plan);
+// every pointer 16-byte aligned; scratch of probes_stage1_scratch_bytes.  Two
+// launches on `stream` (w's image, then the stages); returns
+// cudaGetLastError(), cudaErrorInvalidValue for what it does not take.
+int probes_stage1_launch(const void* x, const void* w, void* scratch, void* out, int M, int B,
+                         int stride, int form, void* stream) {
+  if (M <= 0 || M % 64 != 0 || B < 1 || stride < 1 || (form != 0 && form != 1))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#if PROBES_STAGE1
+  return form == 0 ? launch_stage1<true>(x, w, scratch, out, M, B, stride, s)
+                   : launch_stage1<false>(x, w, scratch, out, M, B, stride, s);
+#else
+  return probes_dots_launch(x, w, scratch, out, M, 576, 192, B, 0, 0, form ? kShifted : kIm2col,
+                            stride, s);
+#endif
+}
+
+// The clocks PROBES_MM8_TIMELINE=1 noted in the last call: 2 x 8 into `host`
+// (long long); cudaErrorNotSupported in a build without them.
+int probes_matmul8_timeline(long long* host) {
+#if PROBES_MM8 && PROBES_MM8_TIMELINE
+  return cudaMemcpyFromSymbol(host, g_m8_timeline, sizeof(g_m8_timeline));
+#else
+  (void)host;
+  return cudaErrorNotSupported;
+#endif
+}
+
+// The clocks PROBES_STAGE1_TIMELINE=1 noted in the last call: 2 x kS1Notes
+// into `host` (long long); cudaErrorNotSupported in a build without them.
+int probes_stage1_timeline(long long* host) {
+#if PROBES_STAGE1 && PROBES_STAGE1_TIMELINE
+  return cudaMemcpyFromSymbol(host, g_s1_timeline, sizeof(g_s1_timeline));
+#else
+  (void)host;
+  return cudaErrorNotSupported;
+#endif
 }
 
 // B dependent rolls of a (M, C) bf16 tensor along rows by `shift` in [0, M),

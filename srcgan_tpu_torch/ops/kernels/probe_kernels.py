@@ -12,19 +12,22 @@ wrapper per probe function and beside each its plain PyTorch version:
 
 Each is one call of ``csrc/probes.cu``: the loop of B dependent steps runs
 inside the kernel, because it is what the probe measures.  ``probe_matmul``
-in bf16 has a kernel of its own (a warp-specialised ``wgmma`` GEMM fed by TMA
-loads, w read as it lies).  ``probe_mxu`` (both types) and ``probe_dots``
-share the chain kernel: w resident in shared memory, two warpgroups over a
-tile of 64 rows splitting its k steps or its columns, bf16 A in registers
-and s8 A (x and clip(x + 1)) in shared memory, every warp computing the
-y[0,0] chain itself; one launch for bf16, and for int8 a launch before it
-that writes w's K-major image (``chain_plan`` says where each operand
-lives).  The int8 form
-of ``probe_matmul`` and the other dot probes share one ``mma.sync`` template,
-which first rearranges w into a scratch tensor.  A wrapper launches its
-kernel for a CUDA tensor (and raises where the kernel does not take the
-shape) and runs the plain version for a CPU tensor; there is no fallback
-from one to the other.  ``launches[name]`` counts kernel launches.
+has a kernel of its own in each type: in bf16 a warp-specialised ``wgmma``
+GEMM fed by TMA loads, w read as it lies; in int8 an s8 ``wgmma`` GEMM on
+TMA loads of x, after a launch writing w's K-major image (``matmul8_plan``).
+``probe_mxu`` (both types) and ``probe_dots`` share the chain kernel: w
+resident in shared memory, two warpgroups over a tile of 64 rows splitting
+its k steps or its columns, bf16 A in registers and s8 A (x and clip(x + 1))
+in shared memory, every warp computing the y[0,0] chain itself; one launch
+for bf16, and for int8 a launch before it that writes w's K-major image
+(``chain_plan`` says where each operand lives).  ``probe_stage1`` holds half
+of w's columns per block, resident for every stage and tile, the nine taps
+read from a halo tile by ``wgmma`` (``stage1_plan``), after a launch writing
+w's K-major image in halves.  ``probe_concat_dot`` runs PR 5's ``mma.sync``
+template, which first rearranges w into a scratch tensor.  A wrapper
+launches its kernel for a CUDA tensor (and raises where the kernel does not
+take the shape) and runs the plain version for a CPU tensor; there is no
+fallback from one to the other.  ``launches[name]`` counts kernel launches.
 
 The plain versions repeat the arithmetic step by step: bf16 operands with
 fp32 sums (``x.float() @ w.float()``), int8 operands with exact integer sums,
@@ -45,7 +48,7 @@ launches = dict.fromkeys(NAMES, 0)
 _ROWS = 64                     # csrc/probes.cu kBM: rows of x per block
 _WIDTHS = (64, 128, 192)       # the N the kernel is instantiated for
 _SLICE_BYTES, _STAGE_ROW_BYTES = 256, 272   # kSliceBytes; 4 * kSliceStride
-_MODES = {"plain": 0, "concat": 1, "twodots": 2, "im2col": 3, "shifted": 4}
+_MODES = {"concat": 1, "twodots": 2}   # probe_concat_dot's forms in probes_dots_launch
 _PERTURB = 1e-36               # the probes' scale of y[0,0] in the next operand
 # The chain kernel (probes_chain_launch): its depth classes, the instances
 # built for each type (a K runs in the smallest class that covers it, the
@@ -55,6 +58,14 @@ CHAIN_THREADS = 256            # two warpgroups
 SMEM_PER_BLOCK = 232448
 _SMS = 132                     # an H100 SXM's SMs (the kernel asks the card for its own count)
 _ROLL_ADD = 1e-8               # probe_roll's added constant, rounded to bf16 first
+# probe_matmul's int8 GEMM: 128 rows a block, every chunk of 128 k resident.
+MM8_ROWS, MM8_MAX_CHUNKS = 128, 5
+# probe_stage1's kernel: a block holds 96 of w's 192 columns (110,592 B),
+# im2col's 64 x 576 tile or the warpgroups' exchange, halo tiles, barriers.
+STAGE1_FORMS = ("im2col", "shifted")
+STAGE1_HALF_BYTES, STAGE1_COL_BYTES, STAGE1_EXCHANGE_BYTES = 9 * 96 * 128, 9 * 64 * 128, 24576
+STAGE1_BARRIERS, STAGE1_MAX_STEPS = 13, 32
+STAGE1_LIST_BYTES = 8 * STAGE1_MAX_STEPS * 4   # each warp's list of the stages' perturbations
 
 
 # --------------------------------------------------------------------------
@@ -205,6 +216,20 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.probes_matmul_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     lib.probes_matmul_launch.restype = ctypes.c_int
+    lib.probes_matmul8_scratch_bytes.argtypes = [ctypes.c_int] * 2
+    lib.probes_matmul8_scratch_bytes.restype = ctypes.c_int
+    lib.probes_matmul8_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    lib.probes_matmul8_launch.restype = ctypes.c_int
+    lib.probes_stage1_scratch_bytes.argtypes = []
+    lib.probes_stage1_scratch_bytes.restype = ctypes.c_int
+    lib.probes_stage1_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    lib.probes_stage1_launch.restype = ctypes.c_int
+    lib.probes_stage1_timeline.argtypes = [ctypes.c_void_p]
+    lib.probes_stage1_timeline.restype = ctypes.c_int
+    lib.probes_matmul8_timeline.argtypes = [ctypes.c_void_p]
+    lib.probes_matmul8_timeline.restype = ctypes.c_int
     lib.probes_roll_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_void_p]
     lib.probes_roll_launch.restype = ctypes.c_int
@@ -236,28 +261,38 @@ def _check_contiguous(name: str, *tensors):
         raise ValueError(f"{name}: the operands must be contiguous")
 
 
-def _launch_dots(name: str, x: torch.Tensor, w: torch.Tensor, steps: int, cast_out: bool,
-                 mode: str, stride: int = 0) -> torch.Tensor:
-    """Check what csrc/probes.cu takes, allocate, launch, count."""
+def _launch_dots(name: str, x: torch.Tensor, w: torch.Tensor, steps: int,
+                 form: str) -> torch.Tensor:
+    """probe_concat_dot on PR 5's template: check, allocate, launch, count."""
     m, (k, n) = x.shape[0], w.shape
     _check_contiguous(name, x, w)
-    check_shape(name, m, k, n, steps, mode)
+    check_shape(name, m, k, n, steps, form)
     lib = _library()
-    is_int = x.dtype == torch.int8
-    out_dtype = x.dtype if cast_out else (torch.int32 if is_int else torch.float32)
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     # w in the kernel's staged form: slices of 256 bytes of k, N rows of 272 bytes each
     slices = -(-k * w.element_size() // _SLICE_BYTES)
     wt = torch.empty(slices * n * _STAGE_ROW_BYTES, dtype=torch.uint8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.probes_dots_launch(x.data_ptr(), w.data_ptr(), wt.data_ptr(), out.data_ptr(),
-                                     m, k, n, steps, int(is_int), int(cast_out), _MODES[mode],
-                                     stride, stream)
+                                     m, k, n, steps, 0, 0, _MODES[form], 0, stream)
     if err:
         raise RuntimeError(f"{name} launch failed: {lib.probes_error_string(err).decode()}")
     launches[name] += 1
     return out
+
+
+def _aligned(name: str, *tensors):
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: the operands must be 16-byte aligned")
+
+
+def _scratch(nbytes: int, device) -> torch.Tensor | None:
+    return torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 def chain_plan(m: int, k: int, n: int, dtype: torch.dtype, steps: int = 16,
@@ -315,16 +350,13 @@ def chain(lib: ctypes.CDLL, name: str, x: torch.Tensor, w: torch.Tensor,
     m, (k, n) = x.shape[0], w.shape
     _check_contiguous(name, x, w)
     chain_plan(m, k, n, x.dtype, steps, name)
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError(f"{name}: the operands must be 16-byte aligned")
+    _aligned(name, x, w)
     is_int = x.dtype == torch.int8
     out = torch.empty((m, n), dtype=torch.int32 if is_int else torch.float32, device=x.device)
-    scratch = lib.probes_chain_scratch_bytes(k, n, int(is_int))
-    wt = torch.empty(scratch, dtype=torch.uint8, device=x.device) if scratch else None
+    wt = _scratch(lib.probes_chain_scratch_bytes(k, n, int(is_int)), x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = lib.probes_chain_launch(x.data_ptr(), w.data_ptr(),
-                                      None if wt is None else wt.data_ptr(), out.data_ptr(),
+        err = lib.probes_chain_launch(x.data_ptr(), w.data_ptr(), _ptr(wt), out.data_ptr(),
                                       m, k, n, steps, int(is_int), stream)
     if err:
         raise RuntimeError(f"{name} launch failed: {lib.probes_error_string(err).decode()}")
@@ -343,8 +375,7 @@ def matmul_bf16(lib: ctypes.CDLL, x: torch.Tensor, w: torch.Tensor) -> torch.Ten
     m, (k, n) = x.shape[0], w.shape
     _check_contiguous("probe_matmul", x, w)
     check_shape("probe_matmul", m, k, n)
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("probe_matmul: the operands must be 16-byte aligned")
+    _aligned("probe_matmul", x, w)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
@@ -360,6 +391,55 @@ def _launch_matmul_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def matmul8_plan(m: int, k: int, n: int) -> dict:
+    """How probe_matmul's int8 kernel runs (M, K) @ (K, N), as csrc/probes.cu
+    lays it out: a block of two warpgroups a tile of 128 rows (128 tiles at M
+    = 16384, one wave on the 132 SMs of an H100), each warpgroup m64nNk32 on
+    its 64 rows; K in chunks of 128 bytes, every chunk resident (K <= 640):
+    a TMA box of x (128 rows x 128 bytes, the 128-byte swizzle; past K and M
+    the copy engine fills zeros) and N rows of w's K-major image, all loaded
+    at the start; the image written by a launch of its own before the GEMM's,
+    into a scratch tensor; 1024 bytes to align the swizzle atoms and a
+    barrier per chunk.  Raises ValueError where check_shape refuses the shape
+    or K is deeper than five chunks."""
+    check_shape("probe_matmul", m, k, n)
+    if k > 128 * MM8_MAX_CHUNKS:
+        raise ValueError(f"probe_matmul: the int8 kernel takes K <= {128 * MM8_MAX_CHUNKS}, got K={k}")
+    chunks = -(-k // 128)
+    tiles = -(-m // MM8_ROWS)
+    return {"tiles": tiles, "rows_per_tile": MM8_ROWS, "ctas": tiles, "threads": 256,
+            "chunks": chunks, "a_operand": "shared (TMA boxes of 128 rows x 128 k bytes)",
+            "w_layout": "K-major, its image written by a launch of its own",
+            "w_resident": True, "x_box_bytes": MM8_ROWS * 128, "w_chunk_bytes": n * 128,
+            "smem_bytes": 1024 + chunks * (MM8_ROWS * 128 + n * 128) + 8 * chunks,
+            "scratch_bytes": chunks * n * 128, "launches": 2}
+
+
+def matmul_int8(lib: ctypes.CDLL, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """probe_matmul's int8 kernel in the build ``lib`` (the default build: the
+    s8 wgmma GEMM after w's image; PROBES_MM8=0: PR 5's dots_kernel with its
+    staged w); no launch counted."""
+    m, (k, n) = x.shape[0], w.shape
+    _check_contiguous("probe_matmul", x, w)
+    matmul8_plan(m, k, n)
+    _aligned("probe_matmul", x, w)
+    out = torch.empty((m, n), dtype=torch.int8, device=x.device)
+    scratch = _scratch(lib.probes_matmul8_scratch_bytes(k, n), x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.probes_matmul8_launch(x.data_ptr(), w.data_ptr(), _ptr(scratch), out.data_ptr(),
+                                        m, k, n, stream)
+    if err:
+        raise RuntimeError(f"probe_matmul launch failed: {lib.probes_error_string(err).decode()}")
+    return out
+
+
+def _launch_matmul_int8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    out = matmul_int8(_library(), x, w)
+    launches["probe_matmul"] += 1
+    return out
+
+
 def probe_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """One (M,K) @ (K,N) dot fed from device memory, bf16 -> bf16 or int8 ->
     int8 (the int32 sum wraps).  CUDA tensors: the kernel; CPU: the plain version."""
@@ -367,7 +447,7 @@ def probe_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.is_cuda:
         if x.dtype == torch.bfloat16:
             return _launch_matmul_bf16(x, w)
-        return _launch_dots("probe_matmul", x, w, 1, True, "plain")
+        return _launch_matmul_int8(x, w)
     return probe_matmul_reference(x, w)
 
 
@@ -400,7 +480,7 @@ def probe_concat_dot(a: torch.Tensor, w: torch.Tensor, steps: int = 8,
     if a.is_cuda:
         if a.shape[1] != 64:
             raise ValueError(f"probe_concat_dot: the kernel takes a of 64 columns, got {a.shape[1]}")
-        return _launch_dots("probe_concat_dot", a, w, steps, False, form)
+        return _launch_dots("probe_concat_dot", a, w, steps, form)
     return probe_concat_dot_reference(a, w, steps, form)
 
 
@@ -427,6 +507,78 @@ def probe_roll(a: torch.Tensor, shift: int, steps: int = 16) -> torch.Tensor:
     return out
 
 
+def stage1_halo(stride: int) -> int:
+    """Rows above and below a tile of 64 that its taps read: stride + 1, in
+    whole boxes of 8 rows."""
+    return -(-(stride + 1) // 8) * 8
+
+
+def stage1_plan(m: int, stride: int = 128, form: str = "im2col", steps: int = 4) -> dict:
+    """How probe_stage1's kernel runs x (M, 64) with w (576, 192), as
+    csrc/probes.cu lays it out: a block holds one half of w's columns (96,
+    K-major, 110,592 B) for all its tiles and stages, loaded once; the grid
+    is one block an SM, the two halves side by side (66 pairs on the 132 SMs
+    of an H100, fewer where there are fewer tiles), each block walking over
+    tiles of 64 rows; a tile's rows with a halo of ``stage1_halo(stride)``
+    rows each way load once for all the stages into one halo tile, refilled
+    with the next tile's rows as soon as this one's are read (under its
+    products, by a producer warp); the two
+    warpgroups split each stage's 36 k16 steps (m64n96k16) and exchange
+    halves of the sums once a tile (in the im2col tile's bytes for im2col).
+    "shifted" reads A into registers by ldmatrix at the taps' shifted rows;
+    "im2col" rebuilds a 64 x 576 tile (73,728 B) each stage and reads A
+    through a descriptor.  Raises ValueError where M % 64, the form, the
+    steps (1..32) or a stride whose halo tile does not fit is refused."""
+    if form not in STAGE1_FORMS:
+        raise ValueError(f"probe_stage1: form {form!r} is neither 'im2col' nor 'shifted'")
+    if m <= 0 or m % _ROWS or stride < 1 or not 1 <= steps <= STAGE1_MAX_STEPS:
+        raise ValueError(f"probe_stage1: the kernel takes M % {_ROWS} == 0, stride >= 1 and "
+                         f"1 <= steps <= {STAGE1_MAX_STEPS}; got M={m}, stride={stride}, "
+                         f"steps={steps}")
+    im2col = form == "im2col"
+    fixed = (1024 + STAGE1_HALF_BYTES + (STAGE1_COL_BYTES if im2col else STAGE1_EXCHANGE_BYTES)
+             + 8 * STAGE1_BARRIERS + STAGE1_LIST_BYTES)
+    rows = 64 + 2 * stage1_halo(stride)
+    buffers = min(1, (SMEM_PER_BLOCK - fixed) // (rows * 128))
+    if buffers < 1:
+        raise ValueError(f"probe_stage1: at stride {stride} the {form} form's halo tile of {rows} "
+                         f"rows does not fit beside w's half in a block's {SMEM_PER_BLOCK} bytes")
+    tiles = m // _ROWS
+    return {"tiles": tiles, "rows_per_tile": _ROWS, "halves": 2, "half_columns": 96,
+            "ctas": 2 * min(tiles, _SMS // 2), "threads": 288, "ctas_per_sm": 1,
+            "halo_rows": rows, "halo_buffers": buffers, "split": "K",
+            "warpgroup_steps": (18, 18),
+            "a_operand": "shared (the im2col tile, rebuilt each stage)" if im2col
+            else "registers (ldmatrix at the taps' shifted rows)",
+            "w_layout": "K-major, its image in halves written by a launch of its own",
+            "w_resident": True, "w_loads_per_block": 1,
+            "smem_bytes": fixed + buffers * rows * 128,
+            "scratch_bytes": 2 * STAGE1_HALF_BYTES, "launches": 2}
+
+
+def stage1(lib: ctypes.CDLL, x: torch.Tensor, w: torch.Tensor, steps: int = 4,
+           stride: int = 128, form: str = "im2col") -> torch.Tensor:
+    """probe_stage1's kernel in the build ``lib`` (the default build: w
+    resident in halves, the taps by wgmma; PROBES_STAGE1=0: PR 5's
+    dots_kernel with its staged w); no launch counted."""
+    m = x.shape[0]
+    _check_contiguous("probe_stage1", x, w)
+    if x.shape[1] != 64 or tuple(w.shape) != (576, 192):
+        raise ValueError(f"probe_stage1: the kernel takes x (M, 64) and w (576, 192), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    stage1_plan(m, stride, form, steps)
+    _aligned("probe_stage1", x, w)
+    out = torch.empty((m, 192), dtype=torch.float32, device=x.device)
+    scratch = _scratch(lib.probes_stage1_scratch_bytes(), x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.probes_stage1_launch(x.data_ptr(), w.data_ptr(), _ptr(scratch), out.data_ptr(),
+                                       m, steps, stride, STAGE1_FORMS.index(form), stream)
+    if err:
+        raise RuntimeError(f"probe_stage1 launch failed: {lib.probes_error_string(err).decode()}")
+    return out
+
+
 def probe_stage1(x: torch.Tensor, w: torch.Tensor, steps: int = 4, stride: int = 128,
                  form: str = "im2col") -> torch.Tensor:
     """``steps`` dependent stages of nine rolled copies of x (M,64) and one K=576
@@ -434,12 +586,12 @@ def probe_stage1(x: torch.Tensor, w: torch.Tensor, steps: int = 4, stride: int =
     tile in shared memory, as the TPU kernel does in VMEM; "shifted" reads the
     operand at shifted rows and builds nothing.  The same function either way."""
     _check_pair("probe_stage1", x, w, (torch.bfloat16,))
-    if form not in ("im2col", "shifted"):
+    if form not in STAGE1_FORMS:
         raise ValueError(f"probe_stage1: form {form!r} is neither 'im2col' nor 'shifted'")
     if w.shape[0] != 9 * x.shape[1] or stride < 1:
         raise ValueError(f"probe_stage1: w has {w.shape[0]} rows for x of {x.shape[1]} columns")
     if x.is_cuda:
-        if x.shape[1] != 64:
-            raise ValueError(f"probe_stage1: the kernel takes x of 64 columns, got {x.shape[1]}")
-        return _launch_dots("probe_stage1", x, w, steps, False, form, stride)
+        out = stage1(_library(), x, w, steps, stride, form)
+        launches["probe_stage1"] += 1
+        return out
     return probe_stage1_reference(x, w, steps, stride)

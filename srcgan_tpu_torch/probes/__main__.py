@@ -10,18 +10,25 @@ held against the plain version and timed in turns).  ``... probes tail
 kernel (``ssim_ablate``: its variants and its main pass with parts left out).
 ``... probes chain [--rounds N]``: the ablation of the dependent-dot chain
 kernel of probe_mxu and probe_dots (``chain_ablate``: its variants, its
-first design and builds with work left out, in turns at the table shapes).  Each
-runs only when named, and only on the card."""
+first design and builds with work left out, in turns at the table shapes).
+``... probes matmul8 [--rounds N]``: probe_matmul's int8 kernel against the
+option it beat, PR 5's design, the build without products and
+``torch._int_mm`` at every shape of the matmul sweep (``matmul8_ablate``).
+``... probes stage1 [--rounds N]``: probe_stage1's kernel in both forms
+against PR 5's design, its variants and builds with work left out, and one
+block's timeline (``stage1_ablate``).  Each runs only when named, and only on
+the card."""
 from __future__ import annotations
 
 import sys
 
-from srcgan_tpu_torch.probes import (chain_ablate, layout_probe3, matmul_probe, mxu_probe,
-                                     rdb5_ablate, ssim_ablate, tail_ablate)
+from srcgan_tpu_torch.probes import (chain_ablate, layout_probe3, matmul8_ablate, matmul_probe,
+                                     mxu_probe, rdb5_ablate, ssim_ablate, stage1_ablate,
+                                     tail_ablate)
 
 SWEEPS = {"matmul": matmul_probe, "mxu": mxu_probe, "layout": layout_probe3}
 NAMED_ONLY = {"rdb5": rdb5_ablate, "tail": tail_ablate, "ssim": ssim_ablate,
-              "chain": chain_ablate}
+              "chain": chain_ablate, "matmul8": matmul8_ablate, "stage1": stage1_ablate}
 USAGE = (f"usage: python -m srcgan_tpu_torch.probes [{'|'.join(SWEEPS)} ...] [abcd] "
          f"[--device cpu]  |  python -m srcgan_tpu_torch.probes {'|'.join(NAMED_ONLY)} [--rounds N]")
 

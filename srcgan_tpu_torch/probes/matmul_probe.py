@@ -22,6 +22,14 @@ DEPTHS, WIDTHS = (64, 192, 576), (64, 128, 192)
 DTYPES = ((torch.bfloat16, "bf16"), (torch.int8, "int8"))
 
 
+def copies(m: int, k: int, n: int, element_size: int = 1) -> int:
+    """Copies of x a shape rotates over: enough that x and the outputs of all
+    of them exceed twice the L2 (between 2 and 64).  ``common.graph_ms`` calls
+    the kernel three times a copy (two warm-ups, one capture)."""
+    moved = (m * k + m * n) * element_size
+    return max(2, min(64, -(-2 * common.L2_BYTES // moved)))
+
+
 def main(argv=None) -> list:
     args = common.parser(__doc__.splitlines()[0]).parse_args(argv)
     dev = config.resolve_device(args.device)
@@ -41,9 +49,7 @@ def main(argv=None) -> list:
                     print(f"{name} M={m} K={k:4d} N={n:4d}: plain version, out "
                           f"{tuple(out.shape)} {out.dtype}")
                     continue
-                moved = x.numel() * x.element_size() + m * n * x.element_size()
-                copies = max(2, min(64, -(-2 * common.L2_BYTES // moved)))
-                xs = [x.clone() for _ in range(copies)]
+                xs = [x.clone() for _ in range(copies(m, k, n, x.element_size()))]
                 ms = common.graph_ms([lambda v=v: pk.probe_matmul(v, w) for v in xs])
                 lib = torch._int_mm if name == "int8" else torch.matmul
                 lib_ms = common.graph_ms([lambda v=v: lib(v, w) for v in xs])
@@ -52,7 +58,7 @@ def main(argv=None) -> list:
                       f"{common.rate(ops, ms):7.1f} {unit}   library {lib_ms * 1e3:8.1f} us  "
                       f"{common.rate(ops, lib_ms):7.1f} {unit}")
                 rows.append({"dtype": name, "M": m, "K": k, "N": n, "ms": ms,
-                             "library_ms": lib_ms})
+                             "library_ms": lib_ms, "launches": 3 * len(xs)})
     return rows
 
 

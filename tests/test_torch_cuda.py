@@ -888,6 +888,88 @@ def test_probe_stage1_matches_plain_version(dev, form, m, stride):
     assert probe_rel_l2(got, ref) <= 1e-3
 
 
+@pytest.mark.parametrize("m,k,n", [(16384, k, n) for k in (64, 192, 576) for n in (64, 128, 192)])
+def test_probe_matmul_int8_wraps_bit_equal(dev, m, k, n):
+    """The int8 GEMM at every sweep shape: bit-equal to the plain version on
+    sums that leave int8 (the cast keeps the low byte), one count a call."""
+    x, w = probe_operand(k + 7, (m, k), torch.int8, dev), probe_operand(n + 1, (k, n), torch.int8, dev)
+    before = probe_kernels.launches["probe_matmul"]
+    got = probe_kernels.probe_matmul(x, w)
+    full = probe_kernels._dot(x, w)
+    torch.cuda.synchronize()
+    assert probe_kernels.launches["probe_matmul"] == before + 1
+    assert bool((full.abs() > 127).any())                        # the cast really wraps
+    assert got.dtype == torch.int8 and torch.equal(got, full.to(torch.int8))
+
+
+# The device kernels a probe call runs, read by the profiler in a fresh
+# process (see PROFILE_CHAIN); argv: the probe and its dtype.
+PROFILE_PROBE = """
+import json, sys, torch
+from srcgan_tpu_torch.ops.kernels import probe_kernels as pk
+from srcgan_tpu_torch.probes import common
+g = torch.Generator().manual_seed(9)
+if sys.argv[1] == "probe_matmul":
+    x, w = (torch.randint(-100, 100, s, generator=g).to("cuda", torch.int8) for s in ((16384, 576), (576, 192)))
+    fn = lambda: pk.probe_matmul(x, w)
+else:
+    x, w = ((torch.rand(s, generator=g) * 2 - 1).to("cuda", torch.bfloat16) for s in ((16384, 64), (576, 192)))
+    fn = lambda: pk.probe_stage1(x, w, 4, 128, sys.argv[2])
+print(json.dumps(common.device_kernels(fn)))
+"""
+
+
+@pytest.mark.parametrize("probe,arg,want", [
+    ("probe_matmul", "int8", ("s8_image_kernel", "matmul8_kernel")),
+    ("probe_stage1", "im2col", ("s1_image_kernel", "stage1_kernel")),
+    ("probe_stage1", "shifted", ("s1_image_kernel", "stage1_kernel"))])
+def test_redesigned_probes_run_their_kernels_only(dev, probe, arg, want):
+    """probe_matmul's int8 form and probe_stage1 (both forms) run w's image
+    and their own kernel once each a call: no dots_kernel, no transpose."""
+    root = Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, "-c", PROFILE_PROBE, probe, arg], capture_output=True,
+                         text=True, timeout=600, cwd=root, check=True,
+                         env={**os.environ, "PYTHONPATH": str(root)})
+    kernels = json.loads(run.stdout.strip().splitlines()[-1])
+    assert all(any(name in key for name in want) for key in kernels), kernels
+    assert {name for name in want if any(name in key for key in kernels)} == set(want), kernels
+    assert all(count == 1 for count in kernels.values()), kernels
+
+
+@pytest.mark.parametrize("form", ["im2col", "shifted"])
+@pytest.mark.parametrize("m,stride", [(16384, 128), (16384, 16), (1024, 100)])
+def test_probe_stage1_three_calls_bit_equal(dev, form, m, stride):
+    """The stage kernel within rel-L2 1e-3 of the plain version, three calls
+    bit-equal, one count a call."""
+    x, w = probe_operand(14, (m, 64), torch.bfloat16, dev), probe_operand(
+        15, (576, 192), torch.bfloat16, dev)
+    before = probe_kernels.launches["probe_stage1"]
+    got = [probe_kernels.probe_stage1(x, w, 4, stride, form) for _ in range(3)]
+    ref = probe_kernels.probe_stage1_reference(x, w, 4, stride)
+    torch.cuda.synchronize()
+    assert probe_kernels.launches["probe_stage1"] == before + 3
+    assert all(torch.equal(g, got[0]) for g in got[1:])
+    assert probe_rel_l2(got[0], ref) <= 1e-3
+
+
+def test_redesigned_probes_agree_with_their_first_design(dev):
+    """The PROBES_MM8=0 and PROBES_STAGE1=0 builds (PR 5's dots_kernel, the
+    yardstick of the ablations and of chip_smoke.py) compute the same
+    functions: int8 bit-equal, the stages within rel-L2 1e-3."""
+    from srcgan_tpu_torch.ops.kernels import build
+
+    first = probe_kernels.declare(build.load("probes", ("PROBES_MM8=0", "PROBES_STAGE1=0")))
+    x, w = probe_operand(16, (16384, 576), torch.int8, dev), probe_operand(17, (576, 192), torch.int8, dev)
+    assert torch.equal(probe_kernels.matmul_int8(first, x, w), probe_kernels.probe_matmul(x, w))
+    x, w = probe_operand(18, (16384, 64), torch.bfloat16, dev), probe_operand(
+        19, (576, 192), torch.bfloat16, dev)
+    for form in ("im2col", "shifted"):
+        old = probe_kernels.stage1(first, x, w, 4, 128, form)
+        new = probe_kernels.probe_stage1(x, w, 4, 128, form)
+        torch.cuda.synchronize()
+        assert probe_rel_l2(old, new) <= 1e-3
+
+
 def test_probes_reject_what_the_kernels_cannot_run(dev):
     """On a CUDA tensor a wrapper launches or raises: nothing runs the plain
     version instead."""
@@ -902,6 +984,11 @@ def test_probes_reject_what_the_kernels_cannot_run(dev):
         probe_kernels.probe_matmul(x[:64], w.t())
     with pytest.raises(ValueError, match="N=192"):
         probe_kernels.probe_concat_dot(x[:64], probe_operand(8, (128, 64), torch.bfloat16, dev))
+    with pytest.raises(ValueError, match="does not fit"):
+        probe_kernels.probe_stage1(x[:64], probe_operand(9, (576, 192), torch.bfloat16, dev), 4, 200)
+    with pytest.raises(ValueError, match="K <= 640"):
+        probe_kernels.probe_matmul(probe_operand(10, (64, 672), torch.int8, dev),
+                                   probe_operand(11, (672, 64), torch.int8, dev))
     assert probe_kernels.launches == before
 
 

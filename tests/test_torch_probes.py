@@ -489,3 +489,119 @@ def test_chain_ablation_is_listed_and_times_the_shipped_design_first(capsys):
     assert not chain_ablate.takes(("PROBES_CHAIN_SPLIT=1",), 16384, 64, 192, torch.bfloat16)
     assert chain_ablate.takes(("PROBES_CHAIN_SPLIT=0",), 16384, 64, 192, torch.bfloat16)
     assert not chain_ablate.takes(("PROBES_CHAIN_A_SMEM=1",), 8320, 576, 192, torch.bfloat16)
+
+
+# -- probe_matmul's int8 GEMM and probe_stage1's kernel (csrc/probes.cu) ------
+
+MATMUL_SHAPES = [(16384, k, n) for k in matmul_probe.DEPTHS for n in matmul_probe.WIDTHS]
+
+
+@pytest.mark.parametrize("m,k,n", MATMUL_SHAPES, ids=[f"{k}-{n}" for _, k, n in MATMUL_SHAPES])
+def test_matmul8_plan_every_sweep_shape(m, k, n):
+    """The int8 GEMM's layout at every shape of the matmul sweep: 128 blocks
+    of 128 rows (one wave on 132 SMs), every chunk of 128 k of x and of w's
+    K-major image resident in a block's 232,448 bytes, the image written by a
+    launch of its own into a scratch that covers all of w."""
+    plan = pk.matmul8_plan(m, k, n)
+    assert plan["smem_bytes"] <= pk.SMEM_PER_BLOCK
+    assert plan["ctas"] == m // 128 == 128 and plan["ctas"] <= 132
+    assert plan["chunks"] == -(-k // 128) and plan["chunks"] * 128 >= k
+    assert plan["smem_bytes"] >= plan["chunks"] * (plan["x_box_bytes"] + plan["w_chunk_bytes"])
+    assert plan["x_box_bytes"] == 128 * 128 and plan["w_chunk_bytes"] == n * 128
+    assert plan["w_resident"] and plan["w_layout"].startswith("K-major")
+    assert plan["launches"] == 2 and plan["scratch_bytes"] >= k * n
+
+
+def test_matmul8_plan_refuses_what_the_kernel_does_not_take():
+    """K deeper than five chunks of 128, and what check_shape refuses."""
+    assert pk.matmul8_plan(64, 640, 64)["chunks"] == 5
+    with pytest.raises(ValueError, match="K <= 640"):
+        pk.matmul8_plan(16384, 672, 192)
+    with pytest.raises(ValueError, match="N in"):
+        pk.matmul8_plan(16384, 576, 96)
+    with pytest.raises(ValueError, match="M % 64"):
+        pk.matmul8_plan(100, 64, 64)
+
+
+@pytest.mark.parametrize("stride", [16, 128])
+@pytest.mark.parametrize("form", pk.STAGE1_FORMS)
+def test_stage1_plan_both_forms(form, stride):
+    """probe_stage1's layout at strides 16 and 128: w resident in halves of 96
+    columns, loaded once a block; a halo of stride + 1 rows (in boxes of 8)
+    each way; the block's bytes within 232,448 (im2col: w's half, the 64 x 576
+    tile and a halo tile); 66 pairs of blocks at M = 16384; two launches."""
+    plan = pk.stage1_plan(16384, stride, form)
+    halo = -(-(stride + 1) // 8) * 8
+    assert plan["halo_rows"] == 64 + 2 * halo and halo >= stride + 1
+    assert plan["smem_bytes"] <= pk.SMEM_PER_BLOCK and plan["halo_buffers"] == 1
+    fixed = pk.STAGE1_HALF_BYTES + (pk.STAGE1_COL_BYTES if form == "im2col"
+                                    else pk.STAGE1_EXCHANGE_BYTES)
+    assert plan["smem_bytes"] >= fixed + plan["halo_rows"] * 128
+    assert plan["w_resident"] and plan["w_loads_per_block"] == 1 and plan["half_columns"] == 96
+    assert plan["ctas"] == 132 and plan["threads"] == 288 and plan["warpgroup_steps"] == (18, 18)
+    assert plan["a_operand"].startswith("shared" if form == "im2col" else "registers")
+    assert plan["launches"] == 2 and plan["scratch_bytes"] == 2 * 576 * 96 * 2
+
+
+def test_stage1_plan_refuses_what_the_kernel_does_not_take():
+    """A stride whose halo tile does not fit beside w's half (im2col holds
+    strides <= 143, shifted <= 335), more than 32 stages, M % 64, a form."""
+    pk.stage1_plan(16384, 143, "im2col")
+    pk.stage1_plan(16384, 335, "shifted")
+    with pytest.raises(ValueError, match="does not fit"):
+        pk.stage1_plan(16384, 144, "im2col")
+    with pytest.raises(ValueError, match="does not fit"):
+        pk.stage1_plan(16384, 336, "shifted")
+    with pytest.raises(ValueError, match="steps"):
+        pk.stage1_plan(16384, 128, "shifted", steps=33)
+    with pytest.raises(ValueError, match="M % 64"):
+        pk.stage1_plan(100, 16, "im2col")
+    with pytest.raises(ValueError, match="neither"):
+        pk.stage1_plan(16384, 16, "stacked")
+    assert pk.stage1_plan(64, 16, "shifted")["ctas"] == 2         # one tile: one pair
+
+
+@pytest.mark.parametrize("argv,match", [(["matmul8"], "no CUDA card"),
+                                        (["matmul8", "--device", "cpu"], "no CPU mode"),
+                                        (["stage1"], "no CUDA card"),
+                                        (["stage1", "--device", "cpu"], "no CPU mode")],
+                         ids=["matmul8-default-device", "matmul8-cpu-asked",
+                              "stage1-default-device", "stage1-cpu-asked"])
+def test_matmul8_and_stage1_ablations_run_only_on_the_card(monkeypatch, argv, match):
+    """Both ablations are named subcommands, like the chain's."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=match):
+        probes_main.main(argv)
+
+
+def test_matmul8_and_stage1_ablations_time_the_shipped_design_first(capsys):
+    """The usage names both; each times the default build first, then the
+    option it beat, PR 5's design (its -D switch) and builds with work left
+    out; the stage ablation at the sweep's stride and 16."""
+    from srcgan_tpu_torch.probes import matmul8_ablate, stage1_ablate
+
+    assert probes_main.main(["--help"]) == {}
+    out = capsys.readouterr().out
+    assert "matmul8" in out and "stage1" in out
+    assert probes_main.NAMED_ONLY["matmul8"] is matmul8_ablate
+    assert probes_main.NAMED_ONLY["stage1"] is stage1_ablate
+    assert matmul8_ablate.VARIANTS[0][1] == () and stage1_ablate.VARIANTS[0][1] == ()
+    assert ("PROBES_MM8=0",) in [d for _, d, _ in matmul8_ablate.VARIANTS]
+    assert ("PROBES_MM8_IMAGE=0",) in [d for _, d, _ in matmul8_ablate.VARIANTS]
+    assert [c for _, d, c in matmul8_ablate.VARIANTS if d == ("PROBES_MM_PRODUCTS=0",)] == [False]
+    assert ("PROBES_STAGE1=0",) in [d for _, d in stage1_ablate.VARIANTS]
+    assert [d for _, d in stage1_ablate.LEAVE_OUT] == [(f"PROBES_STAGE1_LEAVE_OUT={k}",)
+                                                       for k in (1, 2, 3)]
+    assert stage1_ablate.STRIDES[0] == 128 and 16 in stage1_ablate.STRIDES
+    assert stage1_ablate.M == layout_probe3.M and stage1_ablate.STEPS == layout_probe3.STAGE_STEPS
+
+
+@pytest.mark.parametrize("k,n", [(64, 64), (192, 128), (576, 192)])
+def test_matmul8_sweep_copies_and_launches(k, n):
+    """The copies of x the matmul sweep rotates over (and so its launches: two
+    warm-ups and one capture a copy), which the int8 ablation rotates over
+    too: 50, 20 and 9 at these shapes, 600 int8 launches over the nine and
+    306 bf16."""
+    assert matmul_probe.copies(16384, k, n) == {(64, 64): 50, (192, 128): 20, (576, 192): 9}[(k, n)]
+    assert sum(3 * matmul_probe.copies(16384, kk, nn) for _, kk, nn in MATMUL_SHAPES) == 600
+    assert sum(3 * matmul_probe.copies(16384, kk, nn, 2) for _, kk, nn in MATMUL_SHAPES) == 306
