@@ -115,14 +115,16 @@
 // of x, 128 rows x 128 k, and 120 KB of w), so every chunk has a stage and a
 // barrier of its own and one thread starts every load at the start: no ring
 // to wait on, no producer loop.  The GEMM is launched to start under the
-// image launch (see launch_early): its boxes of x load while the image is
-// written, and only the copies of the image wait for it.  Two warpgroups run
-// m64nNk32 on their 64 rows chunk by chunk as the chunks land.  The low bytes
-// are exchanged within each quad of lanes so that every thread stores 16
-// bytes.  No transpose_kernel, no mma.sync.  What holds it back at K=576
-// (the ablation's timeline): the image, then 128 blocks copying it from L2
-// (15.7 MB, more than x's 9.4 MB from HBM), before the first chunk's
-// products; a cluster of two blocks sharing each copy by multicast was slower.
+// image launch (see launch_early): its first box of x loads while the image
+// is written, and only the copies of the image wait for it; the other boxes
+// of x follow the image's chunks one by one, since the copy engine takes its
+// copies in turn (all of x first put w's first chunk behind all of x).  Two
+// warpgroups run m64nNk32 on their 64 rows chunk by chunk as the chunks land.
+// The low bytes are exchanged within each quad of lanes so that every thread
+// stores 16 bytes.  No transpose_kernel, no mma.sync.  What holds it back at
+// K=576 (the ablation's timeline): the image before any copy of it, then 128
+// blocks copying it from L2 (15.7 MB) beside x's 9.4 MB from HBM; a cluster
+// of two blocks sharing each copy by multicast was slower.
 //
 // probe_stage1 (stage1_kernel): 4 stages x (16384 x 576 x 192) is 14.7 us of
 // bf16 tensor work, far above its bytes, so the products must run back to
@@ -1518,6 +1520,10 @@ constexpr int kM8Rows = 128;                   // rows of x a block: two warpgro
 constexpr int kM8Threads = 256;
 constexpr int kM8Box = kM8Rows * 128;          // a box of x: 128 rows x 128 bytes of k, 16 KB
 constexpr int kM8MaxChunks = 5;                // K <= 640: every chunk of 128 k has a stage of its own
+#ifndef PROBES_MM8_AHEAD
+#define PROBES_MM8_AHEAD 1
+#endif
+constexpr int kM8Ahead = PROBES_MM8_AHEAD;     // boxes of x started before the image's copies
 
 // x's boxes, then w's chunks (N rows of 128 bytes of k each), then a barrier
 // per chunk, behind 1024 bytes to align the swizzle atoms
@@ -1544,20 +1550,29 @@ matmul8_kernel(const __grid_constant__ CUtensorMap xmap, const uint8_t* __restri
   __syncthreads();
   if (tid == 0) {
     prefetch_map(&xmap);
-    // every chunk under way at once: x's box (past K and M the copy engine
-    // fills zeros) and, from the image, w's chunk
+    // every chunk under way: x's box (past K and M the copy engine fills
+    // zeros) and, from the image, w's chunk.  The copy engine takes them in
+    // turn, so only the first kM8Ahead boxes of x go ahead of the image's
+    // chunks; the rest follow chunk by chunk, each after w's chunk before it
+    // (with all boxes of x first, w's first chunk landed behind all of x:
+    // PROBES_MM8_AHEAD=5 in the ablation; w's chunks by cp.async instead of
+    // the copy engine were no faster)
 #pragma unroll
-    for (int c = 0; c < chunks; ++c) {
-      mbar_expect(full + c, kM8Box + (PROBES_MM8_IMAGE ? N * 128 : 0));
-      tma_load_2d(xs + c * kM8Box, &xmap, c * 128, m0, full + c);
-    }
+    for (int c = 0; c < chunks; ++c) mbar_expect(full + c, kM8Box + (PROBES_MM8_IMAGE ? N * 128 : 0));
+    auto load_x = [&](int c) { tma_load_2d(xs + c * kM8Box, &xmap, c * 128, m0, full + c); };
+    constexpr int ahead = PROBES_MM8_IMAGE ? (chunks < kM8Ahead ? chunks : kM8Ahead) : chunks;
+#pragma unroll
+    for (int c = 0; c < ahead; ++c) load_x(c);
     if (PROBES_MM8_IMAGE) {
       wait_prior_grid();                         // the image is written
 #pragma unroll
-      for (int c = 0; c < chunks; ++c)
+      for (int c = 0; c < chunks; ++c) {
         bulk_copy(ws + c * N * 128, img + size_t(c) * N * 128, N * 128, full + c);
+        if (c + ahead < chunks) load_x(c + ahead);
+      }
     }
   }
+
   if (!PROBES_MM8_IMAGE) {
     // the block's own K-major copy of w, two pieces a warp in flight, each
     // block starting at another piece (as the chain's PROBES_CHAIN_S8_IMAGE=0)
