@@ -1344,11 +1344,16 @@ def phase_probes(dev, card: str) -> list:
     # the main path of this slice: the three sweeps through their entry points
     for name in pk.NAMES:
         pk.launches[name] = 0
+    pk.matmul_int8_launches = 0
     rows = probes_main.main([])
-    counts = dict(pk.launches)
-    int8_launches = sum(r["launches"] for r in rows["matmul"] if r["dtype"] == "int8")
+    counts, int8_launches = dict(pk.launches), pk.matmul_int8_launches
     print(f"[probes] sweeps: {', '.join(f'{k} {len(v)} lines' for k, v in rows.items())}; "
           f"launches {counts}, of probe_matmul's {int8_launches} int8")
+    int8_rows = [r for r in rows["matmul"] if r["dtype"] == "int8"]
+    print("[probes] probe_matmul int8 launches a shape (K, N): "
+          + ", ".join(f"({r['K']}, {r['N']}) {r['launches']}" for r in int8_rows))
+    check(int8_launches > 0 and sum(r["launches"] for r in int8_rows) == int8_launches,
+          "the matmul sweep's int8 shapes did not launch the int8 kernel as counted")
     check(len(rows["matmul"]) == 18 and len(rows["mxu"]) == 8 and len(rows["layout"]) == 12,
           "a sweep printed fewer lines than its script's")
     check(all(counts[name] > 0 for name in pk.NAMES), "a sweep did not reach its kernel")

@@ -1520,10 +1520,6 @@ constexpr int kM8Rows = 128;                   // rows of x a block: two warpgro
 constexpr int kM8Threads = 256;
 constexpr int kM8Box = kM8Rows * 128;          // a box of x: 128 rows x 128 bytes of k, 16 KB
 constexpr int kM8MaxChunks = 5;                // K <= 640: every chunk of 128 k has a stage of its own
-#ifndef PROBES_MM8_AHEAD
-#define PROBES_MM8_AHEAD 1
-#endif
-constexpr int kM8Ahead = PROBES_MM8_AHEAD;     // boxes of x started before the image's copies
 
 // x's boxes, then w's chunks (N rows of 128 bytes of k each), then a barrier
 // per chunk, behind 1024 bytes to align the swizzle atoms
@@ -1552,15 +1548,14 @@ matmul8_kernel(const __grid_constant__ CUtensorMap xmap, const uint8_t* __restri
     prefetch_map(&xmap);
     // every chunk under way: x's box (past K and M the copy engine fills
     // zeros) and, from the image, w's chunk.  The copy engine takes them in
-    // turn, so only the first kM8Ahead boxes of x go ahead of the image's
-    // chunks; the rest follow chunk by chunk, each after w's chunk before it
-    // (with all boxes of x first, w's first chunk landed behind all of x:
-    // PROBES_MM8_AHEAD=5 in the ablation; w's chunks by cp.async instead of
-    // the copy engine were no faster)
+    // turn, so only the first box of x goes ahead of the image's chunks; the
+    // rest follow chunk by chunk, each after w's chunk before it (with all
+    // boxes of x first, w's first chunk landed behind all of x; w's chunks by
+    // cp.async instead of the copy engine were no faster)
 #pragma unroll
     for (int c = 0; c < chunks; ++c) mbar_expect(full + c, kM8Box + (PROBES_MM8_IMAGE ? N * 128 : 0));
     auto load_x = [&](int c) { tma_load_2d(xs + c * kM8Box, &xmap, c * 128, m0, full + c); };
-    constexpr int ahead = PROBES_MM8_IMAGE ? (chunks < kM8Ahead ? chunks : kM8Ahead) : chunks;
+    constexpr int ahead = PROBES_MM8_IMAGE ? 1 : chunks;
 #pragma unroll
     for (int c = 0; c < ahead; ++c) load_x(c);
     if (PROBES_MM8_IMAGE) {
@@ -1692,10 +1687,9 @@ int launch_matmul8_k(const void* x, const void* w, void* img, void* out, int M, 
 // ---- probe_stage1 (see the header): w resident in halves, nine taps by wgmma
 // Switches (the defaults are the design that ships): PROBES_STAGE1=0 sends
 // both forms to dots_kernel, PR 5's design, with its transpose launch and
-// scratch; PROBES_STAGE1_BUFFERS=2 keeps two halo tiles where they fit (the
-// shifted form) where the design that ships keeps one: its rows are read
-// once, at the start of a tile, so the next tile's load under this one's
-// products in either case.
+// scratch.  A block keeps one halo tile, refilled with its next tile's rows
+// as soon as its warps have read it, under this tile's products (two, in
+// the shifted form, where they fit, were slower).
 // For measuring only: PROBES_STAGE1_LEAVE_OUT leaves work out, so the result
 // is wrong and only the time means something: bit 0 the products, bit 1 the
 // operands (the im2col tile's rebuild, the ldmatrix loads and their adds);
@@ -1727,15 +1721,12 @@ __device__ __forceinline__ void s1_note(int wg, int note) {
 #else
 __device__ __forceinline__ void s1_note(int, int) {}
 #endif
-#ifndef PROBES_STAGE1_BUFFERS
-#define PROBES_STAGE1_BUFFERS 1
-#endif
 constexpr int kS1N = 96;                        // columns of w a block holds: half of N = 192
 constexpr int kS1Tap = kS1N * 128;              // a tap (64 k) of the half, K-major: 12,288 B
 constexpr int kS1W = 9 * kS1Tap;                // the half, resident: 110,592 B
 constexpr int kS1Col = 9 * 64 * 128;            // im2col's tile, 64 rows x 576 k: 73,728 B
 constexpr int kS1Ex = 2 * 24 * 128 * 4;         // halves of the sums exchanged: 24,576 B
-constexpr int kS1Bars = 9 + 2 + 2;              // a barrier per tap of w, two per halo tile
+constexpr int kS1Bars = 9 + 2;                  // a barrier per tap of w, two for the halo tile
 constexpr int kS1Threads = 288;                 // two consumer warpgroups and a producer warp
 constexpr int kS1MaxSteps = 32;                 // stages a call at most
 constexpr int kS1Dd = 8 * kS1MaxSteps * 4;      // each warp's list of the stages' perturbations
@@ -1744,21 +1735,18 @@ constexpr int kS1Dd = 8 * kS1MaxSteps * 4;      // each warp's list of the stage
 // whole boxes of 8 rows.
 __host__ __device__ constexpr int s1_halo(int stride) { return (stride + 1 + 7) / 8 * 8; }
 __host__ __device__ constexpr int s1_rows(int stride) { return 64 + 2 * s1_halo(stride); }
-// Bytes of a block besides its halo tiles: 1024 to align the swizzle atoms,
+// Bytes of a block besides its halo tile: 1024 to align the swizzle atoms,
 // w's half, im2col's tile (the exchange reuses it) or the exchange, barriers,
-// the perturbation lists.  im2col at stride 128: 1024 + 110,592 + 73,728 + 104
-// + 1,024 = 186,472, and one halo tile of 336 rows x 128 B = 43,008 makes
-// 229,480 of the 232,448 a block may have; shifted: 137,320 and one halo
-// tile, 180,328 (two: 223,336).
+// the perturbation lists.  im2col at stride 128: 1024 + 110,592 + 73,728 + 88
+// + 1,024 = 186,456, and the halo tile of 336 rows x 128 B = 43,008 makes
+// 229,464 of the 232,448 a block may have; shifted: 137,304 and the halo
+// tile, 180,312.
 __host__ __device__ constexpr int s1_fixed(bool im2col) {
   return 1024 + kS1W + (im2col ? kS1Col : kS1Ex) + 8 * kS1Bars + kS1Dd;
 }
-// Halo tiles a block holds (as many as the build asks for where they fit), 0
-// where not even one fits.
-int s1_buffers(int stride, bool im2col) {
-  const long room = kMaxSmem - s1_fixed(im2col), tile = long(s1_rows(stride)) * 128;
-  const long fit = room / tile;
-  return int(fit < PROBES_STAGE1_BUFFERS ? fit : PROBES_STAGE1_BUFFERS);
+// A block's bytes: s1_fixed and the halo tile.
+constexpr long s1_smem_bytes(int stride, bool im2col) {
+  return s1_fixed(im2col) + long(s1_rows(stride)) * 128;
 }
 
 // w (576, 192) bf16 -> its K-major image in halves: img[h][t] is the half's
@@ -1833,18 +1821,18 @@ __device__ __forceinline__ void s1_rebuild(const uint8_t* hs, uint8_t* col, cons
 // A block's shared memory (see s1_fixed), from the 1024-aligned base.
 struct S1Smem {
   uint8_t* region;                               // im2col's tile, or the exchange
-  uint8_t* halo;                                 // nbuf halo tiles
+  uint8_t* halo;                                 // the halo tile
   uint64_t* wbar;                                // w's taps landed [9]
-  uint64_t* full;                                // halo tile b landed [2]
-  uint64_t* empty;                               // halo tile b read by the 8 consumer warps [2]
+  uint64_t* full;                                // the halo tile landed
+  uint64_t* empty;                               // the halo tile read by the 8 consumer warps
   uint32_t* dd;                                  // 8 lists of the stages' perturbations
-  __device__ S1Smem(uint8_t* base, bool im2col, int nbuf, int rows) {
+  __device__ S1Smem(uint8_t* base, bool im2col, int rows) {
     region = base + kS1W;
     halo = region + (im2col ? kS1Col : kS1Ex);
-    wbar = reinterpret_cast<uint64_t*>(halo + nbuf * rows * 128);
+    wbar = reinterpret_cast<uint64_t*>(halo + rows * 128);
     full = wbar + 9;
-    empty = full + 2;
-    dd = reinterpret_cast<uint32_t*>(empty + 2);
+    empty = full + 1;
+    dd = reinterpret_cast<uint32_t*>(empty + 1);
   }
 };
 
@@ -1854,11 +1842,11 @@ struct S1Smem {
 // 32 bytes of a tap's row: step k is tap k / 4, pieces 2 (k % 4) and +1.
 template <int WG, bool IM2COL>
 __device__ __forceinline__ void stage1_wg(const uint16_t* x, const uint8_t* img, float* out,
-                                          uint8_t* base, int M, int B, int stride, int nbuf) {
+                                          uint8_t* base, int M, int B, int stride) {
   constexpr int S0 = WG ? 18 : 0;
   const int tid = threadIdx.x & 127, lane = tid & 31, wl = tid >> 5, g = lane >> 2, q = lane & 3;
   const int half = blockIdx.x & 1, ha = s1_halo(stride), rows = s1_rows(stride);
-  const S1Smem sm(base, IM2COL, nbuf, rows);
+  const S1Smem sm(base, IM2COL, rows);
   uint32_t* const dd = sm.dd + (threadIdx.x >> 5) * kS1MaxSteps;
   const unsigned wsa = smem_addr(base), rega = smem_addr(sm.region);
 
@@ -1893,20 +1881,19 @@ __device__ __forceinline__ void stage1_wg(const uint16_t* x, const uint8_t* img,
   // w's taps this warpgroup reads, once: no wait falls between its wgmmas
   for (int t = S0 / 4; t <= (S0 + 17) / 4; ++t) chain_wait(sm.wbar + t, 0);
   s1_note(WG, 1);
-  // this warp is done reading halo tile b: the producer may refill it.  The
+  // this warp is done reading the halo tile: the producer may refill it.  The
   // reads are the generic proxy's and the refill the copy engine's (the async
   // proxy): without the proxy fence the refill overtook this warp's ldmatrix
   // reads of the tile (results that varied from call to call at stride 16).
-  auto release = [&](int b) {
+  auto release = [&]() {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncwarp();
-    if (lane == 0) mbar_arrive(sm.empty + b);
+    if (lane == 0) mbar_arrive(sm.empty);
   };
 
   for (int tile = blockIdx.x >> 1, it = 0; tile < M / 64; tile += gridDim.x >> 1, ++it) {
-    const int b = it % nbuf;
-    uint8_t* const hs = sm.halo + b * rows * 128;
-    chain_wait(sm.full + b, (it / nbuf) & 1);
+    const uint8_t* const hs = sm.halo;
+    chain_wait(sm.full, it & 1);
     s1_note(WG, 2 + 7 * it);
 
     float d[48];
@@ -1926,7 +1913,7 @@ __device__ __forceinline__ void stage1_wg(const uint16_t* x, const uint8_t* img,
           if (tid < 64) s1_rebuild<2 * S0>(hs, sm.region, dd, tid, ha, stride, s);
           else s1_rebuild<2 * S0 + 18>(hs, sm.region, dd, tid - 64, ha, stride, s);
         }
-        if (s == B - 1) release(b);
+        if (s == B - 1) release();
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // for the wgmma reads
         asm volatile("bar.sync %0, 128;\n" ::"r"(2 + WG) : "memory");      // this warpgroup's warps
         wgmma_fence();
@@ -1952,7 +1939,7 @@ __device__ __forceinline__ void stage1_wg(const uint16_t* x, const uint8_t* img,
           ldmatrix4(a[u], reinterpret_cast<const uint32_t*>(hs + p * 128 + ((j ^ (p & 7)) << 4)));
         }
       }
-      release(b);
+      release();
       for (int s = 0; s < B; ++s) {
         if (s > 0) {
           wgmma_wait<0>();
@@ -2019,20 +2006,20 @@ template <bool IM2COL>
 __global__ void __launch_bounds__(kS1Threads, 1)
 stage1_kernel(const __grid_constant__ CUtensorMap map64, const __grid_constant__ CUtensorMap map8,
               const uint16_t* __restrict__ x, const uint8_t* __restrict__ img,
-              float* __restrict__ out, int M, int B, int stride, int nbuf) {
+              float* __restrict__ out, int M, int B, int stride) {
   extern __shared__ uint8_t s1_smem[];
   uint8_t* const base = s1_smem + ((1024u - (smem_addr(s1_smem) & 1023u)) & 1023u);
   const int rows = s1_rows(stride), ha = s1_halo(stride), half = blockIdx.x & 1;
-  const S1Smem sm(base, IM2COL, nbuf, rows);
+  const S1Smem sm(base, IM2COL, rows);
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 9 + 2; ++i) mbar_init(sm.wbar + i, 1);      // w's taps, halo landed
-    for (int i = 0; i < 2; ++i) mbar_init(sm.empty + i, 8);         // halo read, a warp each
+    for (int i = 0; i < 9 + 1; ++i) mbar_init(sm.wbar + i, 1);      // w's taps, halo landed
+    mbar_init(sm.empty, 8);                                         // halo read, a warp each
     mbar_init_fence();
   }
   __syncthreads();
   if (threadIdx.x < 256) {
-    if (threadIdx.x < 128) stage1_wg<0, IM2COL>(x, img, out, base, M, B, stride, nbuf);
-    else stage1_wg<1, IM2COL>(x, img, out, base, M, B, stride, nbuf);
+    if (threadIdx.x < 128) stage1_wg<0, IM2COL>(x, img, out, base, M, B, stride);
+    else stage1_wg<1, IM2COL>(x, img, out, base, M, B, stride);
     return;
   }
   const int lane = threadIdx.x & 31, first = blockIdx.x >> 1, step = gridDim.x >> 1;
@@ -2040,33 +2027,30 @@ stage1_kernel(const __grid_constant__ CUtensorMap map64, const __grid_constant__
     prefetch_map(&map64);
     prefetch_map(&map8);
   }
-  if (lane == 0)
-    for (int b = 0; b < nbuf && first + b * step < M / 64; ++b)
-      s1_load_halo(&map64, &map8, sm.halo + b * rows * 128, sm.full + b, first + b * step, M, ha,
-                   rows);
+  if (lane == 0)                                  // the grid has no more pairs than tiles
+    s1_load_halo(&map64, &map8, sm.halo, sm.full, first, M, ha, rows);
   wait_prior_grid();
   if (lane < 9) {
     mbar_expect(sm.wbar + lane, kS1Tap);
     bulk_copy(base + lane * kS1Tap, img + size_t(half * 9 + lane) * kS1Tap, kS1Tap, sm.wbar + lane);
   }
   if (lane == 0)
-    for (int it = nbuf, tile = first + nbuf * step; tile < M / 64; ++it, tile += step) {
-      const int b = it % nbuf;
-      chain_wait(sm.empty + b, (it / nbuf - 1) & 1);   // released by tile it - nbuf
-      s1_load_halo(&map64, &map8, sm.halo + b * rows * 128, sm.full + b, tile, M, ha, rows);
+    for (int it = 1, tile = first + step; tile < M / 64; ++it, tile += step) {
+      chain_wait(sm.empty, (it - 1) & 1);       // released by tile it - 1
+      s1_load_halo(&map64, &map8, sm.halo, sm.full, tile, M, ha, rows);
     }
 }
 
 template <bool IM2COL>
 int launch_stage1(const void* x, const void* w, void* img, void* out, int M, int B, int stride,
                   cudaStream_t stream) {
-  const int nbuf = s1_buffers(stride, IM2COL);
-  if (nbuf < 1 || B > kS1MaxSteps || img == nullptr) return cudaErrorInvalidValue;
+  if (s1_smem_bytes(stride, IM2COL) > kMaxSmem || B > kS1MaxSteps || img == nullptr)
+    return cudaErrorInvalidValue;
   CUtensorMap map64, map8;
   int err = swizzled_map(&map64, x, 64, M, 64, 64);
   if (err == cudaSuccess) err = swizzled_map(&map8, x, 64, M, 64, 8);
   if (err != cudaSuccess) return err;
-  const int smem = s1_fixed(IM2COL) + nbuf * s1_rows(stride) * 128;
+  const int smem = int(s1_smem_bytes(stride, IM2COL));
   err = cudaFuncSetAttribute(stage1_kernel<IM2COL>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   int dev = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
@@ -2084,7 +2068,7 @@ int launch_stage1(const void* x, const void* w, void* img, void* out, int M, int
   if (err != cudaSuccess) return err;
   err = launch_early(stage1_kernel<IM2COL>, dim3(2 * pairs), dim3(kS1Threads), smem, stream, map64,
                      map8, static_cast<const uint16_t*>(x), static_cast<const uint8_t*>(img),
-                     static_cast<float*>(out), M, B, stride, nbuf);
+                     static_cast<float*>(out), M, B, stride);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 

@@ -27,7 +27,8 @@ w's K-major image in halves.  ``probe_concat_dot`` runs PR 5's ``mma.sync``
 template, which first rearranges w into a scratch tensor.  A wrapper
 launches its kernel for a CUDA tensor (and raises where the kernel does not
 take the shape) and runs the plain version for a CPU tensor; there is no
-fallback from one to the other.  ``launches[name]`` counts kernel launches.
+fallback from one to the other.  ``launches[name]`` counts kernel launches
+(``matmul_int8_launches`` those of probe_matmul's int8 form).
 
 The plain versions repeat the arithmetic step by step: bf16 operands with
 fp32 sums (``x.float() @ w.float()``), int8 operands with exact integer sums,
@@ -44,6 +45,8 @@ NAMES = ("probe_matmul", "probe_mxu", "probe_dots", "probe_concat_dot", "probe_r
          "probe_stage1")
 # Kernel launches by probe since import (or since a caller last set them to 0).
 launches = dict.fromkeys(NAMES, 0)
+# Of launches["probe_matmul"], those of the int8 GEMM (the same rule).
+matmul_int8_launches = 0
 
 _ROWS = 64                     # csrc/probes.cu kBM: rows of x per block
 _WIDTHS = (64, 128, 192)       # the N the kernel is instantiated for
@@ -61,10 +64,10 @@ _ROLL_ADD = 1e-8               # probe_roll's added constant, rounded to bf16 fi
 # probe_matmul's int8 GEMM: 128 rows a block, every chunk of 128 k resident.
 MM8_ROWS, MM8_MAX_CHUNKS = 128, 5
 # probe_stage1's kernel: a block holds 96 of w's 192 columns (110,592 B),
-# im2col's 64 x 576 tile or the warpgroups' exchange, halo tiles, barriers.
+# im2col's 64 x 576 tile or the warpgroups' exchange, one halo tile, barriers.
 STAGE1_FORMS = ("im2col", "shifted")
 STAGE1_HALF_BYTES, STAGE1_COL_BYTES, STAGE1_EXCHANGE_BYTES = 9 * 96 * 128, 9 * 64 * 128, 24576
-STAGE1_BARRIERS, STAGE1_MAX_STEPS = 13, 32
+STAGE1_BARRIERS, STAGE1_MAX_STEPS = 11, 32
 STAGE1_LIST_BYTES = 8 * STAGE1_MAX_STEPS * 4   # each warp's list of the stages' perturbations
 
 
@@ -435,8 +438,10 @@ def matmul_int8(lib: ctypes.CDLL, x: torch.Tensor, w: torch.Tensor) -> torch.Ten
 
 
 def _launch_matmul_int8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    global matmul_int8_launches
     out = matmul_int8(_library(), x, w)
     launches["probe_matmul"] += 1
+    matmul_int8_launches += 1
     return out
 
 
@@ -539,20 +544,19 @@ def stage1_plan(m: int, stride: int = 128, form: str = "im2col", steps: int = 4)
     fixed = (1024 + STAGE1_HALF_BYTES + (STAGE1_COL_BYTES if im2col else STAGE1_EXCHANGE_BYTES)
              + 8 * STAGE1_BARRIERS + STAGE1_LIST_BYTES)
     rows = 64 + 2 * stage1_halo(stride)
-    buffers = min(1, (SMEM_PER_BLOCK - fixed) // (rows * 128))
-    if buffers < 1:
+    if fixed + rows * 128 > SMEM_PER_BLOCK:
         raise ValueError(f"probe_stage1: at stride {stride} the {form} form's halo tile of {rows} "
                          f"rows does not fit beside w's half in a block's {SMEM_PER_BLOCK} bytes")
     tiles = m // _ROWS
     return {"tiles": tiles, "rows_per_tile": _ROWS, "halves": 2, "half_columns": 96,
             "ctas": 2 * min(tiles, _SMS // 2), "threads": 288, "ctas_per_sm": 1,
-            "halo_rows": rows, "halo_buffers": buffers, "split": "K",
+            "halo_rows": rows, "halo_buffers": 1, "split": "K",
             "warpgroup_steps": (18, 18),
             "a_operand": "shared (the im2col tile, rebuilt each stage)" if im2col
             else "registers (ldmatrix at the taps' shifted rows)",
             "w_layout": "K-major, its image in halves written by a launch of its own",
             "w_resident": True, "w_loads_per_block": 1,
-            "smem_bytes": fixed + buffers * rows * 128,
+            "smem_bytes": fixed + rows * 128,
             "scratch_bytes": 2 * STAGE1_HALF_BYTES, "launches": 2}
 
 

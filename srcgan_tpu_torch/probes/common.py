@@ -82,39 +82,43 @@ def graph_ms(calls, reps: int = 15, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_us(fn, match: str, calls: int = 10):
-    """Mean device microseconds per call of ``fn`` of the kernels whose name
-    holds ``match`` ("" for every kernel; torch.profiler over ``calls``
-    calls); None where the profiler reports no device time."""
+def _device_events(fn, calls: int, tries: int = 3) -> list:
+    """torch.profiler's device entries over ``calls`` calls of ``fn`` (after
+    one that builds and warms it).  Now and then a session records no device
+    activity at all, not even a plain PyTorch kernel's (seen on an H100 after
+    many sessions in one process); such a session is taken again, up to
+    ``tries`` sessions, and its empty list returned only after the last."""
     from torch import profiler
 
     fn()
     torch.cuda.synchronize()
-    with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
-                                      profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(tries):
+        with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
+                                          profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+    return events
+
+
+def device_us(fn, match: str, calls: int = 10):
+    """Mean device microseconds per call of ``fn`` of the kernels whose name
+    holds ``match`` ("" for every kernel; torch.profiler over ``calls``
+    calls); None where the profiler reports no device time."""
     # kernels only: an operator's own entry repeats the time of the kernels it launched
-    total = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-                if match in e.key and e.device_type == torch.autograd.DeviceType.CUDA)
+    total = sum(getattr(e, "self_device_time_total", 0) for e in _device_events(fn, calls)
+                if match in e.key)
     return total / calls if total > 0 else None
 
 
 def device_kernels(fn, calls: int = 5) -> dict:
     """Device kernels a call of ``fn`` runs: kernel name -> launches a call
     (torch.profiler over ``calls`` calls, after one that builds and warms it)."""
-    from torch import profiler
-
-    fn()
-    torch.cuda.synchronize()
-    with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
-                                      profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count / calls for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    return {e.key: e.count / calls for e in _device_events(fn, calls)}
 
 
 def rate(ops: float, ms: float) -> float:

@@ -15,9 +15,7 @@ reads its x from HBM): µs a call, beside ``torch._int_mm`` (int32 out).
 
 The variants, against the design that ships: every block transposing w
 into its shared memory itself, one launch a call
-(``PROBES_MM8_IMAGE=0``) | all boxes of x started ahead of the image's
-copies, where the design that ships starts one and the rest each after the
-image's chunk before it (``PROBES_MM8_AHEAD=5``) | the GEMM launched after the image is written,
+(``PROBES_MM8_IMAGE=0``) | the GEMM launched after the image is written,
 where the design that ships lets it start under that launch and wait only
 where it copies the image (``PROBES_PDL=0``) | PR 5's design, the ``mma.sync`` dots_kernel with
 its transpose launch (``PROBES_MM8=0``) | the products left out
@@ -46,7 +44,6 @@ VARIANTS = (
     ("ships (the default build)", (), True),
     ("w transposed by every block", ("PROBES_MM8_IMAGE=0",), True),
     ("no early launch", ("PROBES_PDL=0",), True),
-    ("all of x ahead of w", ("PROBES_MM8_AHEAD=5",), True),
     ("PR 5 design (PROBES_MM8=0)", ("PROBES_MM8=0",), True),
     ("products left out", ("PROBES_MM_PRODUCTS=0",), False),
 )

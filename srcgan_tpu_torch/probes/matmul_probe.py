@@ -50,6 +50,7 @@ def main(argv=None) -> list:
                           f"{tuple(out.shape)} {out.dtype}")
                     continue
                 xs = [x.clone() for _ in range(copies(m, k, n, x.element_size()))]
+                before = pk.launches["probe_matmul"]
                 ms = common.graph_ms([lambda v=v: pk.probe_matmul(v, w) for v in xs])
                 lib = torch._int_mm if name == "int8" else torch.matmul
                 lib_ms = common.graph_ms([lambda v=v: lib(v, w) for v in xs])
@@ -58,7 +59,8 @@ def main(argv=None) -> list:
                       f"{common.rate(ops, ms):7.1f} {unit}   library {lib_ms * 1e3:8.1f} us  "
                       f"{common.rate(ops, lib_ms):7.1f} {unit}")
                 rows.append({"dtype": name, "M": m, "K": k, "N": n, "ms": ms,
-                             "library_ms": lib_ms, "launches": 3 * len(xs)})
+                             "library_ms": lib_ms,
+                             "launches": pk.launches["probe_matmul"] - before})
     return rows
 
 

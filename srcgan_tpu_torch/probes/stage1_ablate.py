@@ -15,10 +15,7 @@ plain version at M = 16384, strides 16 and 128 (rel-L2 <= 1e-3, three calls
 bit-equal), and then times them all in turns (forwards, backwards, ...): a
 CUDA graph of 4 whole calls of 4 stages, µs a call.
 
-The variants, against the design that ships: two halo tiles where they fit
-(``PROBES_STAGE1_BUFFERS=2``: the shifted form, whose tile's rows are read
-once at its start, so that one suffices for the next tile's to load under
-this one's products) | the stage kernel launched after w's image is
+The variants, against the design that ships: the stage kernel launched after w's image is
 written, where the design that ships lets it start under that launch and wait
 only where it copies the image (``PROBES_PDL=0``) | PR 5's design, the ``mma.sync`` dots_kernel with
 its transpose launch (``PROBES_STAGE1=0``).  Then builds with work left out
@@ -49,7 +46,6 @@ M, STEPS, STRIDES = 16384, 4, (128, 16)
 # one the wrapper launches
 VARIANTS = (
     ("ships (the default build)", ()),
-    ("two halo tiles", ("PROBES_STAGE1_BUFFERS=2",)),
     ("no early launch", ("PROBES_PDL=0",)),
     ("PR 5 design (PROBES_STAGE1=0)", ("PROBES_STAGE1=0",)),
 )

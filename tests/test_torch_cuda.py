@@ -706,10 +706,11 @@ def probe_rel_l2(got, ref):
 @pytest.mark.parametrize("m,k,n", [(16384, 64, 64), (16384, 576, 192), (128, 192, 128)])
 def test_probe_matmul_matches_plain_version(dev, dtype, m, k, n):
     x, w = probe_operand(k, (m, k), dtype, dev), probe_operand(n, (k, n), dtype, dev)
-    before = probe_kernels.launches["probe_matmul"]
+    before = probe_kernels.launches["probe_matmul"], probe_kernels.matmul_int8_launches
     got, ref = probe_kernels.probe_matmul(x, w), probe_kernels.probe_matmul_reference(x, w)
     torch.cuda.synchronize()
-    assert probe_kernels.launches["probe_matmul"] == before + 1
+    assert probe_kernels.launches["probe_matmul"] == before[0] + 1
+    assert probe_kernels.matmul_int8_launches == before[1] + (dtype == torch.int8)
     assert got.dtype == ref.dtype == dtype and got.shape == ref.shape == (m, n)
     if dtype == torch.int8:
         assert torch.equal(got, ref)
@@ -893,11 +894,12 @@ def test_probe_matmul_int8_wraps_bit_equal(dev, m, k, n):
     """The int8 GEMM at every sweep shape: bit-equal to the plain version on
     sums that leave int8 (the cast keeps the low byte), one count a call."""
     x, w = probe_operand(k + 7, (m, k), torch.int8, dev), probe_operand(n + 1, (k, n), torch.int8, dev)
-    before = probe_kernels.launches["probe_matmul"]
+    before = probe_kernels.launches["probe_matmul"], probe_kernels.matmul_int8_launches
     got = probe_kernels.probe_matmul(x, w)
     full = probe_kernels._dot(x, w)
     torch.cuda.synchronize()
-    assert probe_kernels.launches["probe_matmul"] == before + 1
+    assert probe_kernels.launches["probe_matmul"] == before[0] + 1
+    assert probe_kernels.matmul_int8_launches == before[1] + 1
     assert bool((full.abs() > 127).any())                        # the cast really wraps
     assert got.dtype == torch.int8 and torch.equal(got, full.to(torch.int8))
 

@@ -254,6 +254,7 @@ def test_wrappers_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="bf16"):
         pk.probe_roll(x.float(), 1)
     assert set(pk.launches) == set(pk.NAMES) and not any(pk.launches.values())
+    assert pk.matmul_int8_launches == 0
 
 
 @pytest.mark.parametrize("sweep,lines", [(matmul_probe, 18), (mxu_probe, 8), (layout_probe3, 12)])
