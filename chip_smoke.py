@@ -64,10 +64,16 @@ Phases, in order; the first failure raises and the script exits non-zero:
                probe_mxu (both types) and probe_dots at every
                shape of their sweeps through the chain kernel, three calls
                bit-equal, in turns with PR 5's design (the yardstick build
-               PROBES_CHAIN=0 PROBES_MM8=0 PROBES_STAGE1=0), and 48 dots
+               PROBES_CHAIN=0 PROBES_MM8=0 PROBES_STAGE1=0 PROBES_ROLL=0
+               PROBES_CONCAT=0), and 48 dots
                taking more than twice 16 at K=576, N=192; probe_stage1 in
                both forms at strides 128 and 16, three calls bit-equal, and in
-               turns with PR 5's design, which it must beat;
+               turns with PR 5's design, which it must beat; probe_concat_dot
+               in both forms and probe_roll at shifts 1 and 128 (and 0, M - 1),
+               three calls bit-equal, each in turns with PR 5's design, which
+               it must beat, the roll with its two bounds (4 MB once through
+               HBM; 16 passes through the shared memory of the SMs its layout
+               holds) and each roll past the 16th no faster than a pass;
                then the three sweeps
                through ``python -m srcgan_tpu_torch.probes``'s entry points,
                which must reach every kernel (launch counters);
@@ -105,11 +111,13 @@ WARMUP, REPS = 3, 25         # calls per timing: warm-up, then the median of REP
 KERNELS = ("tail_x4", "gray_degrade", "ssim", "rdb5", "probes")
 # builds timed beside a kernel and never on a path: the tail's first design;
 # probe_matmul with its products left out (loads and stores only, both types);
-# PR 5's design of the four probes redesigned since (probe_mxu's and
-# probe_dots' chain, probe_matmul's int8 form, probe_stage1) on its mma.sync
-# dots_kernel
+# PR 5's design of the six probes redesigned since (probe_mxu's and
+# probe_dots' chain, probe_matmul's int8 form, probe_stage1 and
+# probe_concat_dot on its mma.sync dots_kernel; probe_roll's cooperative
+# kernel with a grid-wide barrier)
 YARDSTICKS = (("tail_x4_wmma", ()), ("probes", ("PROBES_MM_PRODUCTS=0",)),
-              ("probes", ("PROBES_CHAIN=0", "PROBES_MM8=0", "PROBES_STAGE1=0")))
+              ("probes", ("PROBES_CHAIN=0", "PROBES_MM8=0", "PROBES_STAGE1=0", "PROBES_ROLL=0",
+                          "PROBES_CONCAT=0")))
 # The card's published peaks (H100 SXM, dense): what a bound is taken against.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -1130,7 +1138,7 @@ def phase_probes(dev, card: str) -> list:
     bf16, int8 = torch.bfloat16, torch.int8
     rng = np.random.default_rng(11)
     worst = dict.fromkeys(pk.NAMES, 0.0)
-    timed, timed_int8, timed_shifted = {}, {}, {}
+    timed, timed_int8, timed_shifted, timed_twodots, timed_shift1 = {}, {}, {}, {}, {}
 
     def compare(name, label, got, ref, bound):
         """bound None: bit-equal; else rel-L2 in float64."""
@@ -1287,26 +1295,89 @@ def phase_probes(dev, card: str) -> list:
                       f"{common.rate(2 * m * k * n, per):.1f} "
                       f"{'TOP/s' if dtype == int8 else 'TFLOP/s'}")
                 check(t48 > 2 * t16, f"{name}'s time does not grow with its dots")
-        # 6d probe_concat_dot: both forms, the same function
+        # 6d probe_concat_dot: both forms against their plain versions, three
+        # calls bit-equal, PR 5's design agreeing; then both in turns with it
         a, w = pair(PROBE_M, 64, 192, bf16)
         w = torch.cat([w, pair(1, 64, 192, bf16)[1]])
-        for form in ("concat", "twodots"):
-            got = pk.probe_concat_dot(a, w, 8, form)
-            compare("probe_concat_dot", f"{form} M={PROBE_M} N=192", got,
+        outs = {}
+        for form in pk.CONCAT_FORMS:
+            got = [pk.probe_concat_dot(a, w, 8, form) for _ in range(3)]
+            compare("probe_concat_dot", f"{form} M={PROBE_M} N=192", got[0],
                     pk.probe_concat_dot_reference(a, w, 8, form), 1e-3)
-        times("probe_concat_dot", "concat N=192", lambda: pk.probe_concat_dot(a, w, 8, "concat"),
-              lambda: pk.probe_concat_dot_reference(a, w, 8, "concat"), tensor_bytes(a, w, got),
-              8 * 2 * PROBE_M * 128 * 192, "bf16", steps=8)
-        # 6e probe_roll: bit-equal, with values where the added constant shows
+            check(all(torch.equal(g, got[0]) for g in got[1:]),
+                  f"probe_concat_dot {form}: three calls are not bit-equal")
+            old = pk.concat(first, a, w, 8, form)
+            torch.cuda.synchronize()
+            check(rel_l2(old.double(), got[0].double()) <= 1e-3,
+                  f"probe_concat_dot {form}: PR 5's design disagrees")
+            outs[form] = got[0]
+        print(f"[probes] probe_concat_dot: concat and twodots bit-equal "
+              f"{torch.equal(outs['concat'], outs['twodots'])} (one instruction stream)")
+        calls = {f"{form}, {label}": (lambda f=form, lib=lib: pk.concat(lib, a, w, 8, f))
+                 for form in pk.CONCAT_FORMS for label, lib in (("kernel", pk._library()),
+                                                                 ("PR 5 design", first))}
+        rounds, order = {key: [] for key in calls}, list(calls)
+        for _ in range(2):
+            for key in order:
+                rounds[key].append(common.graph_ms([calls[key]] * 4) * 1e3)
+            order.reverse()
+        print(f"[probes] probe_concat_dot in turns on {card}, us a call of 8 steps: "
+              + "; ".join(f"{key} {' / '.join(f'{t:.2f}' for t in v)}" for key, v in rounds.items()))
+        for form in pk.CONCAT_FORMS:
+            check(max(rounds[f"{form}, kernel"]) < min(rounds[f"{form}, PR 5 design"]),
+                  f"probe_concat_dot {form} is slower than PR 5's design")
+        for form in pk.CONCAT_FORMS:
+            times("probe_concat_dot", f"{form} N=192", lambda f=form: pk.probe_concat_dot(a, w, 8, f),
+                  lambda f=form: pk.probe_concat_dot_reference(a, w, 8, f), tensor_bytes(a, w, got[0]),
+                  8 * 2 * PROBE_M * 128 * 192, "bf16", steps=8,
+                  into=timed if form == "concat" else timed_twodots)
+        # 6e probe_roll: bit-equal at shifts 1 and 128 (and 0, M - 1), with
+        # values where the added constant shows, three calls bit-equal, PR 5's
+        # design bit-equal; both shifts in turns with it; each roll past the
+        # 16th adds no less than a pass through shared memory can take
         a[0, :3] = torch.tensor([0.0, 1e-8, -1e-8], device=dev).bfloat16()
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        mhz = common.max_sm_clock_mhz(dev)
+        for shift in (1, 128, 0, PROBE_M - 1):
+            ref = pk.probe_roll_reference(a, shift, 16).view(torch.int16)
+            got = [pk.probe_roll(a, shift, 16) for _ in range(3)]
+            compare("probe_roll", f"shift {shift} ({PROBE_M},64)", got[0].view(torch.int16), ref, None)
+            check(all(torch.equal(g, got[0]) for g in got[1:]),
+                  f"probe_roll shift {shift}: three calls are not bit-equal")
+            check(torch.equal(pk.roll(first, a, shift, 16).view(torch.int16), ref),
+                  f"probe_roll shift {shift}: PR 5's design disagrees")
+        plan = pk.roll_plan(PROBE_M, 64, 128)
+        passes = 16 * 2 * tensor_bytes(a) / (min(plan["blocks"], sms) * 128 * mhz * 1e6) * 1e3
+        print(f"[probes] probe_roll plan at shift 128: {plan}; 16 passes of 4 MB through the "
+              f"shared memory of {min(plan['blocks'], sms)} SMs at 128 B a cycle, {mhz} MHz: "
+              f"{passes * 1e3:.3f} us")
+        calls = {f"shift {shift}, {label}": (lambda s=shift, lib=lib: pk.roll(lib, a, s, 16))
+                 for shift in (1, 128) for label, lib in (("kernel", pk._library()),
+                                                          ("PR 5 design", first))}
+        rounds, order = {key: [] for key in calls}, list(calls)
+        for _ in range(2):
+            for key in order:
+                rounds[key].append(common.graph_ms([calls[key]] * 4) * 1e3)
+            order.reverse()
+        print(f"[probes] probe_roll in turns on {card}, us a call of 16 rolls: "
+              + "; ".join(f"{key} {' / '.join(f'{t:.2f}' for t in v)}" for key, v in rounds.items()))
         for shift in (1, 128):
-            got, ref = pk.probe_roll(a, shift, 16), pk.probe_roll_reference(a, shift, 16)
-            compare("probe_roll", f"shift {shift} ({PROBE_M},64)", got.view(torch.int16),
-                    ref.view(torch.int16), None)
+            check(max(rounds[f"shift {shift}, kernel"]) < min(rounds[f"shift {shift}, PR 5 design"]),
+                  f"probe_roll shift {shift} is slower than PR 5's design")
+            t16, t48 = (common.graph_ms([lambda b=b: pk.probe_roll(a, shift, b)] * 4) for b in (16, 48))
+            per = (t48 - t16) / 32
+            print(f"[probes] probe_roll shift {shift} on {card}: 16 rolls {t16 * 1e3:.2f} us, 48 rolls "
+                  f"{t48 * 1e3:.2f} us: {per * 1e3:.3f} us per added roll (a pass through shared "
+                  f"memory: {passes / 16 * 1e3:.3f} us at least)")
+            check(per >= passes / 16, f"probe_roll shift {shift}: a roll took less than a pass")
         # torch.roll is the PyTorch call beside it: ONE call does one of the 16 steps
-        times("probe_roll", "shift 128", lambda: pk.probe_roll(a, 128, 16),
-              lambda: pk.probe_roll_reference(a, 128, 16), 2 * tensor_bytes(a), 0, "bf16",
-              lib=lambda: torch.roll(a, 128, dims=0), steps=16)
+        for shift in (128, 1):
+            times("probe_roll", f"shift {shift}", lambda s=shift: pk.probe_roll(a, s, 16),
+                  lambda s=shift: pk.probe_roll_reference(a, s, 16), 2 * tensor_bytes(a), 0, "bf16",
+                  lib=lambda s=shift: torch.roll(a, s, dims=0), steps=16,
+                  into=timed if shift == 128 else timed_shift1)
+        timed["probe_roll"]["passes_bound_ms"] = passes
+        timed_shift1["probe_roll"]["passes_bound_ms"] = passes
         # 6f probe_stage1: both forms against the one plain version at the
         # sweep's stride and at 16, three calls bit-equal; then in turns with
         # PR 5's design
@@ -1359,12 +1430,14 @@ def phase_probes(dev, card: str) -> list:
     check(all(counts[name] > 0 for name in pk.NAMES), "a sweep did not reach its kernel")
     lines = {"probe_matmul": 29, "probe_mxu": 23, "probe_dots": 66, "probe_concat_dot": 103,
              "probe_roll": 154, "probe_stage1": 186}
-    # the int8 forms' readings (and probe_matmul's int8 launches) and the
-    # shifted form of probe_stage1 ride in their probes' entries
+    # the int8 forms' readings (and probe_matmul's int8 launches), the shifted
+    # form of probe_stage1, twodots and the roll at shift 1 ride in their
+    # probes' entries
     timed_int8["probe_matmul"]["launches"] = int8_launches
+    extra = {"int8": timed_int8, "shifted": timed_shifted, "twodots": timed_twodots,
+             "shift1": timed_shift1}
     return [{**probe_entry(name, lines[name], worst[name], timed[name]), "launches": counts[name],
-             **({"int8": timed_int8[name]} if name in timed_int8 else {}),
-             **({"shifted": timed_shifted[name]} if name in timed_shifted else {})}
+             **{key: d[name] for key, d in extra.items() if name in d}}
             for name in pk.NAMES]
 
 

@@ -45,10 +45,43 @@
 // The ablation (python -m srcgan_tpu_torch.probes chain) times the designs
 // it was chosen over and the builds with work left out (PROBES_CHAIN_*).
 //
-// One kernel template (dots_kernel) serves probe_concat_dot, and, as the
-// yardstick of the ablations, PR 5's design of the chain (PROBES_CHAIN=0), of
-// make_matmul's int8 form (PROBES_MM8=0) and of probe_stage1
-// (PROBES_STAGE1=0).  A block of eight warps owns 64 rows of x and keeps them in shared memory across all B dots
+// probe_concat_dot runs on the chain kernel as two more of its forms
+// (chain_pair): 8 dots of [a, a/2] (M, 128) against w128 (128, 192), the
+// same products as probe_dots' 16 dots of K=64.  w128 is resident as the
+// bf16 chain holds w (TMA boxes, MN-major); the warpgroups split the columns
+// (128 and 64), each over all of K; A is in registers, k steps 0-3 a's
+// fragments loaded once and steps 4-7 a/2 made from them after every
+// perturbation, as the plain version recomputes cur * 0.5, so nothing is
+// rebuilt in shared memory; every warp computes the y[0,0] chain from row 0
+// of [a, a/2] and column 0 of w128.  "concat" is one accumulation over the 8
+// k16 steps into the running sums; "twodots" two K=64 dots (see
+// PROBES_CONCAT_SETS).  The output (12.6 MB of fp32 sums) is 3.8 us at 3.35
+// TB/s against 6.5 us of products, so its stores have to overlap other
+// blocks' products (PROBES_CONCAT_WALK).  The ablation: python -m
+// srcgan_tpu_torch.probes concat.
+//
+// probe_roll (roll_smem_kernel) does each of the B rolls as a pass over the
+// whole array held on chip, with no grid-wide barrier: rows roll and columns
+// never mix, so a column of 16-byte pieces (8 bf16 columns, M rows) lives in
+// the shared memory of one thread-block cluster for all B steps, each block
+// owning a range of rows in two buffers.  A step reads each source row (i -
+// shift) mod M from the block that owns it (its own buffer, or another
+// block's through mapa and ld.shared::cluster), adds c and writes the
+// block's other buffer; a cluster barrier falls between steps.  The first
+// step reads a from device memory and the last writes out, so the array
+// crosses HBM once each way and every step moves it through shared memory.
+// Composing the rolls into one pass (the adds commute with them) would give
+// the same bits at the byte bound and measure no roll, so it is not done.
+// What bounds it: B x 4 MB through the shared memory of the SMs it uses (128
+// B a cycle each) and one cluster barrier a step.  The layouts (cluster of
+// 16, 8, or one block holding whole columns of 4-byte pieces) are timed by
+// python -m srcgan_tpu_torch.probes roll.
+//
+// One kernel template (dots_kernel) serves, as the yardstick of the
+// ablations, PR 5's design of the chain (PROBES_CHAIN=0), of make_matmul's
+// int8 form (PROBES_MM8=0), of probe_stage1 (PROBES_STAGE1=0) and of
+// probe_concat_dot (PROBES_CONCAT=0); PROBES_ROLL=0 keeps PR 5's probe_roll,
+// a cooperative launch with a grid-wide barrier between steps.  A block of eight warps owns 64 rows of x and keeps them in shared memory across all B dots
 // (the TPU held all of x in VMEM; 64 rows x 1,152 B are 74 KB of a block's
 // 227 KB).  transpose_kernel first writes w column by column, k contiguous,
 // in slices of 256 bytes of k laid out as the shared-memory stage holds them,
@@ -80,9 +113,10 @@
 // y00, applied as a saturating byte add to each A fragment.
 //
 // Modes of the template: plain (make_matmul's int8 form with B=1 and the
-// output cast to int8 where PROBES_MM8=0; the chain where PROBES_CHAIN=0); concat and twodots (probe_concat_dot:
-// the stacked form rebuilds the [a, a/2] tile in shared memory every step,
-// the other halves the A fragments of the second dot in registers); im2col
+// output cast to int8 where PROBES_MM8=0; the chain where PROBES_CHAIN=0);
+// concat and twodots (probe_concat_dot where PROBES_CONCAT=0: the stacked
+// form rebuilds the [a, a/2] tile in shared memory every step, the other
+// halves the A fragments of the second dot in registers); im2col
 // and shifted (probe_stage1: a block holds its rows with a halo of stride+1
 // rows each way, wrapped modulo M; im2col copies the nine shifted views into
 // a 64 x 576 tile as the TPU kernel does in VMEM, shifted reads the A
@@ -157,10 +191,10 @@
 // halo tile's values as the im2col tile is rebuilt from them.  No block
 // barrier falls between stages.
 //
-// probe_roll has no dot: B steps of out[i] = bf16(in[(i - shift) mod M] + c)
-// between two buffers that stay in L2, with a grid-wide barrier between
-// steps (a cooperative launch, so every block is resident).  What bounds it
-// is the barrier, not the 2 MB moved.
+// PR 5's probe_roll (PROBES_ROLL=0): B steps of out[i] = bf16(in[(i - shift)
+// mod M] + c) between two buffers that stay in L2, with a grid-wide barrier
+// between steps (a cooperative launch, so every block is resident).  What
+// bounds it is the barrier, not the 2 MB moved.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -363,10 +397,10 @@ dots_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ wt, void*
 
   // ---- w streams in slices, each one bulk copy of N padded rows as wt holds
   // them; in plain mode x arrives with the first dot's slices, a copy per row.
-  // Warp 0 starts them all.  A stage was last read through ldmatrix by warps
-  // that have since passed a block barrier, which is all a copy that
-  // overwrites it needs (a proxy fence made every slice slower and ordered
-  // nothing more).
+  // Warp 0 starts them all.  A stage that streams was last read through
+  // ldmatrix, a generic read, and the copy that refills it writes through the
+  // async proxy: the block barrier alone does not order the two, so every
+  // thread fences the proxies after its reads and before that barrier.
   constexpr unsigned kWsBytes = N * kSliceStride * 4;
   auto load_slice = [&](int s) {
     const int ks = s % nslices;
@@ -403,6 +437,7 @@ dots_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ wt, void*
   for (int it = 0; it < total; ++it) {
     if (it < loads) {
       mbar_wait(full + it % stages, (it / stages) & 1);
+      if (!resident) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();            // slice `it` has landed; slice it-1 is read by no one
       if (warp == 0 && !resident && it + stages - 1 < loads) load_slice(it + stages - 1);
     }
@@ -831,6 +866,28 @@ int launch_matmul(const void* x, const void* w, void* out, int M, int K, cudaStr
 #define PROBES_CHAIN_S8_IMAGE 1
 #endif
 
+// probe_concat_dot's forms of the chain kernel (chain_pair).  Switches of
+// its ablation (python -m srcgan_tpu_torch.probes concat); the defaults are
+// the design that ships.  PROBES_CONCAT=0 sends probe_concat_dot to PR 5's
+// dots_kernel (modes concat and twodots) with its transpose launch.
+// PROBES_CONCAT_SETS: "twodots" runs both dots into the running sums (1,
+// ships: the instruction stream of "concat"), or sums each K=64 dot into an
+// accumulator set of its own and adds the two to the running sums after
+// wgmma.wait_group (2, the JAX kernel's arithmetic: y = y1 + y2, acc += y;
+// one block an SM for its 3 x 64 sums a thread).
+// PROBES_CONCAT_WALK=1 launches one block an SM, each walking over tiles
+// with w128 resident (a tile's stores then overlap the next one's loads and
+// products), where the design that ships launches a block a tile.
+#ifndef PROBES_CONCAT
+#define PROBES_CONCAT 1
+#endif
+#ifndef PROBES_CONCAT_SETS
+#define PROBES_CONCAT_SETS 1
+#endif
+#ifndef PROBES_CONCAT_WALK
+#define PROBES_CONCAT_WALK 0
+#endif
+
 // ---- s8 w in the K-major form of the 128-byte swizzle: chunks of 128 k, each
 // N rows (one a column of w) of 128 bytes, zero past K.  A piece is 128 k of
 // 32 columns: lane l reads 32 bytes (one sector) of each of rows k..k+3 of w,
@@ -931,9 +988,17 @@ __device__ __forceinline__ float row0_dot(const uint32_t (&x0)[CW], const uint32
   return y;
 }
 
-#if PROBES_CHAIN
+#if PROBES_CHAIN || PROBES_CONCAT
 constexpr int kChThreads = 256;    // two warpgroups over a tile of 64 rows
 constexpr int kChMaxK = 576;
+// What a chain kernel computes: probe_mxu / probe_dots (x (M, K) against w),
+// or probe_concat_dot's two forms (chain_pair).
+enum ChainForm { kChainDots = 0, kChainConcat = 1, kChainTwoDots = 2 };
+// Blocks an SM the chain kernel asks ptxas for: two at K <= 128, except the
+// two accumulator sets of "twodots" (3 x 64 fp32 sums and 32 words of A).
+template <int KC, int FORM> __host__ __device__ constexpr int ch_blocks() {
+  return KC > 128 || (FORM == kChainTwoDots && PROBES_CONCAT_SETS == 2) ? 1 : PROBES_CHAIN_BLOCKS;
+}
 
 // k16 steps (bf16) or k32 steps (s8) of a depth class KC; four steps make a
 // chunk, one 128-byte swizzled row of k.
@@ -1225,6 +1290,106 @@ __device__ __forceinline__ void chain_bf16_nsplit(const uint8_t* x, const uint8_
   }
 }
 
+// probe_concat_dot (see the header): warpgroup WG's columns [C0, C0 + NW)
+// of 8 k16 steps of [a, a/2] (M, 128) against w128 (128, 192), for each tile
+// of the block.  a is (M, 64): A's steps 0-3 are its fragments, loaded once
+// a tile, and steps 4-7 their halves, remade after every perturbation.
+// "concat" accumulates all 8 steps into the running sums; "twodots" with
+// PROBES_CONCAT_SETS=2 runs each K=64 dot into a set of its own (scale-d 0
+// on its first step) and adds y1 + y2 to the running sums once both are done.
+// PROBES_CHAIN_LEAVE_OUT=1 and 2 leave out the wgmmas and the dots as they do
+// for the chain (the ablation's split of a call's time; results wrong).
+template <int WG, int FORM>
+__device__ __forceinline__ void chain_pair(const uint8_t* x, const uint8_t* w, float* out,
+                                           uint8_t* region, uint64_t* full, int M, int B) {
+  constexpr int N = 192, C0 = WG ? 128 : 0, NW = WG ? 64 : 128;
+  constexpr bool kSets = FORM == kChainTwoDots && PROBES_CONCAT_SETS == 2;
+  const int lane = threadIdx.x & 31, wl = (threadIdx.x >> 5) & 3, g = lane >> 2, q = lane & 3;
+  const uint32_t* xw = reinterpret_cast<const uint32_t*>(x);   // 32 words a row of a
+  const uint16_t* wh = reinterpret_cast<const uint16_t*>(w);
+  const unsigned wbase = smem_addr(region) + (C0 / 64) * 8192;
+  // column 0 of w128 (rows 2j and 2j + 1 as a bf16 pair), j = lane + 32 i
+  uint32_t wc[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = lane + 32 * i;
+    wc[i] = uint32_t(__ldg(wh + size_t(2 * j) * N)) | (uint32_t(__ldg(wh + size_t(2 * j + 1) * N)) << 16);
+  }
+  for (int tile = blockIdx.x; tile < M / 64; tile += gridDim.x) {
+    const int row = tile * 64 + 16 * wl + g;
+    uint32_t a[8][4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int c = 8 * s + q;
+      a[s][0] = __ldg(xw + size_t(row) * 32 + c);
+      a[s][1] = __ldg(xw + size_t(row + 8) * 32 + c);
+      a[s][2] = __ldg(xw + size_t(row) * 32 + c + 4);
+      a[s][3] = __ldg(xw + size_t(row + 8) * 32 + c + 4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[s + 4][e] = bf2_half(a[s][e]);
+    }
+    // the warp's own row 0 of [a, a/2]: word `lane` of a, then its half
+    uint32_t x0[2];
+    x0[0] = __ldg(xw + lane);
+    x0[1] = bf2_half(x0[0]);
+
+    float d[NW / 2], y1[kSets ? NW / 2 : 1], y2[kSets ? NW / 2 : 1];
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) d[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (kSets ? NW / 2 : 1); ++i) y1[i] = y2[i] = 0.f;
+    for (int b = 0; b < (PROBES_CHAIN_LEAVE_OUT >= 2 ? 0 : B); ++b) {
+      // a commit group per chunk of w128 (one K=64 dot), each behind that
+      // chunk's barrier (waited on once; later dots and tiles find it complete)
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        if (s % 4 == 0) {
+          if (s != 0) wgmma_commit();
+          chain_wait(full + s / 4, 0);
+          wgmma_fence();
+        }
+        const uint64_t wdesc = descriptor(wbase + (s / 4) * N * 128 + (s % 4) * 2048, 8192, 1024, true);
+        if constexpr (PROBES_CHAIN_LEAVE_OUT != 0) {
+        } else if constexpr (kSets) {
+          if (s < 4) RsT<NW>::mma(y1, a[s], wdesc, s != 0);
+          else RsT<NW>::mma(y2, a[s], wdesc, s != 4);
+        } else {
+          RsT<NW>::mma(d, a[s], wdesc, 1);
+        }
+      }
+      wgmma_commit();
+      // meanwhile the chain: y[0,0] of this dot, and the perturbation of the next a
+      const float dd = __bfloat162float(__float2bfloat16_rn(row0_dot(x0, wc) * 1e-36f));
+      const uint32_t dd2 = pack(dd, dd);
+      x0[0] = bf2_add_once(x0[0], dd2);
+      x0[1] = bf2_half(x0[0]);
+      wgmma_wait<0>();                            // the dot has read its A registers
+      keep(a);
+      if constexpr (kSets) {
+        keep(y1);
+        keep(y2);
+#pragma unroll
+        for (int i = 0; i < NW / 2; ++i) d[i] += y1[i] + y2[i];
+      } else {
+        keep(d);
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          a[s][e] = bf2_add_once(a[s][e], dd2);
+          a[s + 4][e] = bf2_half(a[s][e]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < NW / 8; ++j) {
+      const int col = C0 + 8 * j + 2 * q;
+      *reinterpret_cast<float2*>(out + size_t(row) * N + col) = float2{d[4 * j], d[4 * j + 1]};
+      *reinterpret_cast<float2*>(out + size_t(row + 8) * N + col) = float2{d[4 * j + 2], d[4 * j + 3]};
+    }
+  }
+}
+
 // s8: warpgroup WG's k32 steps [S0, S1) of every dot, A and B through
 // descriptors, for each tile of the block; the operand of a dot, x or
 // clip(x + 1), is a choice of base.  x arrives by TMA on barrier full[NCH], a
@@ -1272,8 +1437,10 @@ __device__ __forceinline__ void chain_s8(const CUtensorMap* xmap, const uint8_t*
   const unsigned ws = smem_addr(region), xsa = smem_addr(xs), x1sa = xsa + NCH * 8192;
   for (int tile = blockIdx.x, it = 0; tile < M / 64; tile += gridDim.x, ++it) {
     if (PROBES_CHAIN_LEAVE_OUT < 3) {
-      // the tile's x (the first tile's is on its way; the last tile's reads
-      // ended at ch_store's first barrier)
+      // the tile's x (the first tile's is on its way).  The copy overwrites
+      // the last tile's x: its wgmma reads were waited for before ch_store's
+      // first barrier, and every thread's generic reads of it (building x1)
+      // before the proxy fence below, which comes before that barrier too
       if (threadIdx.x == 0 && it > 0) {
         mbar_expect(full + NCH, cv * 8192);
         for (int c = 0; c < cv; ++c) tma_load_2d(xs + c * 8192, xmap, c * 128, tile * 64, full + NCH);
@@ -1286,7 +1453,9 @@ __device__ __forceinline__ void chain_s8(const CUtensorMap* xmap, const uint8_t*
         v.x = s8x4_next(v.x); v.y = s8x4_next(v.y); v.z = s8x4_next(v.z); v.w = s8x4_next(v.w);
         x1[i] = v;
       }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // for the wgmma reads
+      // the generic accesses above (reads of x, writes of x1) before the async
+      // proxy's: this tile's wgmma reads and the next tile's copy of x
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     }
     block_sync();
 
@@ -1320,12 +1489,13 @@ __device__ __forceinline__ void chain_s8(const CUtensorMap* xmap, const uint8_t*
   }
 }
 
-template <int N, int KC, bool S8>
-__global__ void __launch_bounds__(kChThreads, KC <= 128 ? PROBES_CHAIN_BLOCKS : 1)
+template <int N, int KC, bool S8, int FORM = kChainDots>
+__global__ void __launch_bounds__(kChThreads, ch_blocks<KC, FORM>())
 chain_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
              const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
              const uint8_t* __restrict__ img, void* __restrict__ out, int M, int K, int B) {
   constexpr int NCH = ch_chunks<KC, S8>();
+  constexpr bool kXtma = PROBES_CHAIN_A_SMEM && FORM == kChainDots;   // x by TMA beside w
   extern __shared__ uint8_t ch_smem[];
   uint8_t* const region = ch_smem + ((1024u - (smem_addr(ch_smem) & 1023u)) & 1023u);
   uint8_t* const ex = region + (ch_separate<N, KC, S8>() ? ch_operands<N, KC, S8>() : 0);
@@ -1342,14 +1512,18 @@ chain_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ C
     const int cv = (K + 63) / 64;
     if (tid == 0 && PROBES_CHAIN_LEAVE_OUT < 3) {
       for (int c = 0; c < cv; ++c) {
-        mbar_expect(full + c, N * 128 + (PROBES_CHAIN_A_SMEM ? 8192 : 0));
+        mbar_expect(full + c, N * 128 + (kXtma ? 8192 : 0));
         for (int j = 0; j < N / 64; ++j)
           tma_load_2d(region + c * N * 128 + j * 8192, &wmap, j * 64, c * 64, full + c);
-        if (PROBES_CHAIN_A_SMEM)      // one tile a block
+        if (kXtma)                    // one tile a block
           tma_load_2d(region + NCH * N * 128 + c * 8192, &xmap, c * 64, blockIdx.x * 64, full + c);
       }
     }
-    if constexpr (ch_nsplit<N, KC, S8>()) {
+    if constexpr (FORM != kChainDots) {
+      static_assert(N == 192 && KC == 128, "probe_concat_dot's forms are built for w128 (128, 192)");
+      if (tid < 128) chain_pair<0, FORM>(x, w, static_cast<float*>(out), region, full, M, B);
+      else chain_pair<1, FORM>(x, w, static_cast<float*>(out), region, full, M, B);
+    } else if constexpr (ch_nsplit<N, KC, S8>()) {
       if (tid < 128) chain_bf16_nsplit<N, KC, 0>(x, w, static_cast<float*>(out), region, full, M, K, B);
       else chain_bf16_nsplit<N, KC, 1>(x, w, static_cast<float*>(out), region, full, M, K, B);
     } else {
@@ -1396,8 +1570,9 @@ chain_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ C
 
 // Blocks of the chain kernel a launch takes: every tile its own block where
 // the exchange shares the operands' bytes (or a variant holds one tile),
-// else no more than the card holds at once, each walking over tiles.
-template <int N, int KC, bool S8>
+// else no more than the card holds at once (PROBES_CONCAT_WALK: one an SM,
+// for probe_concat_dot's forms), each walking over tiles.
+template <int N, int KC, bool S8, int FORM = kChainDots>
 int chain_grid(int tiles, int* grid) {
   *grid = tiles;
   if (!ch_separate<N, KC, S8>()) return cudaSuccess;
@@ -1405,9 +1580,10 @@ int chain_grid(int tiles, int* grid) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_kernel<N, KC, S8>, kChThreads,
-                                                        ch_smem_bytes<N, KC, S8>());
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_kernel<N, KC, S8, FORM>,
+                                                        kChThreads, ch_smem_bytes<N, KC, S8>());
   if (err != cudaSuccess) return err;
+  if (FORM != kChainDots && PROBES_CONCAT_WALK && per_sm > 1) per_sm = 1;
   if (per_sm > 0 && sms * per_sm < tiles) *grid = sms * per_sm;
   return cudaSuccess;
 }
@@ -1451,7 +1627,25 @@ int launch_chain_n(const void* x, const void* w, void* img, void* out, int M, in
   if (K <= 288) return launch_chain<N, 288, S8>(x, w, img, out, M, K, B, s);
   return launch_chain<N, 576, S8>(x, w, img, out, M, K, B, s);
 }
-#endif  // PROBES_CHAIN
+
+// probe_concat_dot on the chain kernel: a (M, 64), w128 (128, 192), one launch.
+template <int FORM>
+int launch_concat(const void* a, const void* w, void* out, int M, int B, cudaStream_t stream) {
+  constexpr int smem = ch_smem_bytes<192, 128, false>();
+  CUtensorMap xmap{}, wmap{};
+  int err = swizzled_map(&wmap, w, 192, 128, 64, 64);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(chain_kernel<192, 128, false, FORM>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int grid = 0;
+  if (err == cudaSuccess) err = chain_grid<192, 128, false, FORM>(M / 64, &grid);
+  if (err != cudaSuccess) return err;
+  chain_kernel<192, 128, false, FORM><<<grid, kChThreads, smem, stream>>>(
+      xmap, wmap, static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(w), nullptr, out, M,
+      128, B);
+  return cudaGetLastError();
+}
+#endif  // PROBES_CHAIN || PROBES_CONCAT
 
 // ---- a kernel that may start before the launch it depends on has ended
 // (programmatic dependent launch): what it does not need from that launch
@@ -2072,6 +2266,364 @@ int launch_stage1(const void* x, const void* w, void* img, void* out, int M, int
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// ---- probe_roll (see the header): the rolls in shared memory, a cluster of
+// blocks holding each column of pieces.  PROBES_ROLL=0 keeps PR 5's design
+// (roll_kernel below: a cooperative launch, the steps between two buffers in
+// device memory, a grid-wide barrier between them), the yardstick of probes
+// roll and of chip_smoke.py.
+#ifndef PROBES_ROLL
+#define PROBES_ROLL 1
+#endif
+
+#if PROBES_ROLL
+constexpr int kRollThreads = 1024;
+constexpr int kRollBuffers = 3;
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// The block's threads are done with a step: one thread fences its block's
+// shared-memory writes (ordered before it by the block barrier) at cluster
+// scope, then every thread arrives, relaxed.  An arrival with release
+// semantics by all 1,024 threads cost more than the fence of one.
+__device__ __forceinline__ void cluster_arrive() {
+  __syncthreads();
+  if (threadIdx.x == 0) asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ unsigned cluster_map(unsigned addr, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+// A piece of PW bytes: its words, loaded from a block's shared memory
+// through the cluster window or from this block's, and stored.
+template <int PW> struct alignas(PW) RollPiece {
+  uint32_t w[PW / 4];
+  __device__ __forceinline__ void load_cluster(unsigned addr) {
+    if constexpr (PW == 16)
+      asm volatile("ld.shared::cluster.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+                   : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3]) : "r"(addr) : "memory");
+    else if constexpr (PW == 8)
+      asm volatile("ld.shared::cluster.v2.u32 {%0,%1}, [%2];\n" : "=r"(w[0]), "=r"(w[1]) : "r"(addr) : "memory");
+    else
+      asm volatile("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(w[0]) : "r"(addr) : "memory");
+  }
+  __device__ __forceinline__ void load(unsigned addr) {
+    if constexpr (PW == 16)
+      asm volatile("ld.shared.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+                   : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3]) : "r"(addr) : "memory");
+    else if constexpr (PW == 8)
+      asm volatile("ld.shared.v2.u32 {%0,%1}, [%2];\n" : "=r"(w[0]), "=r"(w[1]) : "r"(addr) : "memory");
+    else
+      asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(w[0]) : "r"(addr) : "memory");
+  }
+  __device__ __forceinline__ void store(unsigned addr) const {
+    if constexpr (PW == 16)
+      asm volatile("st.shared.v4.u32 [%0], {%1,%2,%3,%4};\n"
+                   ::"r"(addr), "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3]) : "memory");
+    else if constexpr (PW == 8)
+      asm volatile("st.shared.v2.u32 [%0], {%1,%2};\n" ::"r"(addr), "r"(w[0]), "r"(w[1]) : "memory");
+    else
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(w[0]) : "memory");
+  }
+  __device__ __forceinline__ void add(uint32_t c2) {
+#pragma unroll
+    for (int j = 0; j < PW / 4; ++j) w[j] = bf2_add_once(w[j], c2);
+  }
+};
+
+// 16, 8 or 4 bytes into shared memory of another block of the cluster, the
+// bytes counted on that block's barrier `bar` when they land (st.async: the
+// barrier's completion makes them visible, no fence needed).
+template <int PW>
+__device__ __forceinline__ void push_piece(unsigned addr, const RollPiece<PW>& v, unsigned bar) {
+  if constexpr (PW == 16)
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1,%2,%3,%4}, [%5];\n"
+                 ::"r"(addr), "r"(v.w[0]), "r"(v.w[1]), "r"(v.w[2]), "r"(v.w[3]), "r"(bar) : "memory");
+  else if constexpr (PW == 8)
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1,%2}, [%3];\n"
+                 ::"r"(addr), "r"(v.w[0]), "r"(v.w[1]), "r"(bar) : "memory");
+  else
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+                 ::"r"(addr), "r"(v.w[0]), "r"(bar) : "memory");
+}
+
+// A block's rows a halo slot holds at most (below: rows / 2), the bytes of
+// the slots' barriers (CS + 1 of them, first in shared memory), and the
+// shared memory a block of layout (CS, PW) needs: after the barriers, three
+// buffers of its rows for steps behind cluster barriers, or two and CS + 1
+// halo slots for steps whose remote rows are pushed.
+__host__ __device__ constexpr int roll_halo_rows(int rows) { return rows / 2 < 256 ? rows / 2 : 256; }
+__host__ __device__ constexpr int roll_bar_bytes(int CS) { return ((CS + 1) * 8 + 15) / 16 * 16; }
+__host__ __device__ constexpr long roll_smem_bytes(int rows, int CS, int PW) {
+  const long pull = long(kRollBuffers) * rows * PW;
+  const long push = 2l * rows * PW + long(CS + 1) * roll_halo_rows(rows) * PW;
+  return roll_bar_bytes(CS) + (pull > push ? pull : push);
+}
+
+// Rows [begin, end) of a step, a thread's rows begin + threadIdx.x + k
+// kRollThreads four at a time: the four loads first, then the adds and the
+// puts, so that a warp waits for its loads once, not once a row.
+template <int PW, typename Load, typename Put>
+__device__ __forceinline__ void roll_rows(int begin, int end, uint32_t c2, Load load, Put put) {
+  constexpr int kBatch = 4;
+  for (int li0 = begin + int(threadIdx.x); li0 < end; li0 += kBatch * kRollThreads) {
+    RollPiece<PW> v[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k)
+      if (li0 + k * kRollThreads < end) v[k] = load(li0 + k * kRollThreads);
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k)
+      if (li0 + k * kRollThreads < end) {
+        v[k].add(c2);
+        put(li0 + k * kRollThreads, v[k]);
+      }
+  }
+}
+
+// Rows [begin, end) of a step whose sources this block holds: row li from
+// src[li + off], plus c, put; two rows a thread at a time, both loads first.
+template <int PW, typename Put>
+__device__ __forceinline__ void roll_local(const RollPiece<PW>* src, int off, int begin, int end,
+                                           uint32_t c2, Put put) {
+  int li = begin + int(threadIdx.x);
+  for (; li + kRollThreads < end; li += 2 * kRollThreads) {
+    RollPiece<PW> v0 = src[li + off], v1 = src[li + kRollThreads + off];
+    v0.add(c2);
+    v1.add(c2);
+    put(li, v0);
+    put(li + kRollThreads, v1);
+  }
+  if (li < end) {
+    RollPiece<PW> v = src[li + off];
+    v.add(c2);
+    put(li, v);
+  }
+}
+
+// B steps of dst[i] = bf16(src[(i - shift) mod M] + c) on a (M, rb bytes)
+// row-major.  A cluster of CS blocks holds one column of PW-byte pieces of
+// every row; block `rank` owns rows [rank R, (rank + 1) R) of it, R = M / CS.
+// With shift = q R + t, the block's rows [t, R) read rows of block rank - q
+// and [0, t) rows of block rank - q - 1 (mod CS).  Step 0 reads a, the last
+// step writes out.  Two ways to share the rows another block holds:
+//   push (where they come from one neighbour, q = 0 or q = CS - 1, and are
+//     at most a halo slot's rows): every block computes first the rows its
+//     neighbour reads next, and stores them into that neighbour's halo slot
+//     for the step (st.async, counted on the slot's barrier), then its other
+//     rows from its own buffer, then, once its own slot has landed, the rows
+//     that read it; a block barrier between steps, none across the cluster.
+//     No block runs more than CS steps ahead of another around the ring, so
+//     CS + 1 slots are never overwritten before they are read.
+//   pull (any shift): three buffers; the rows whose source this block holds
+//     run while the cluster barrier of the step before completes, then the
+//     others are read from the other block's buffer (mapa, ld.shared::cluster).
+template <int CS, int PW>
+__global__ void __launch_bounds__(kRollThreads, 1)
+roll_smem_kernel(const uint8_t* __restrict__ a, uint8_t* __restrict__ out, int M, int rb, int shift,
+                 int B, float c, int push) {
+  using Piece = RollPiece<PW>;
+  extern __shared__ __align__(16) uint8_t roll_smem[];
+  const int rows = M / CS, q = shift / rows, t = shift - q * rows;
+  const int rank = CS > 1 ? int(cluster_rank()) : 0;
+  const size_t col = size_t(blockIdx.x / CS) * PW;   // the piece's byte offset in a row
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(roll_smem);   // the halo slots' (push)
+  const unsigned base = smem_addr(roll_smem) + roll_bar_bytes(CS), bytes = unsigned(rows) * PW;
+  const uint32_t c2 = pack(c, c);
+  // where step b puts row li: out after the last step, else buffer b
+  Piece* const x = reinterpret_cast<Piece*>(roll_smem + roll_bar_bytes(CS));   // the buffers
+  auto put_to = [&](int b) {
+    Piece* const to = x + (push ? b & 1 : b % kRollBuffers) * rows;
+    return [=](int li, const Piece& v) {
+      if (b == B - 1) *reinterpret_cast<Piece*>(out + size_t(rank * rows + li) * rb + col) = v;
+      else to[li] = v;
+    };
+  };
+  auto from_a = [=](int li) {     // step 0 reads a itself
+    int from = rank * rows + li - shift;
+    if (from < 0) from += M;
+    return *reinterpret_cast<const Piece*>(a + size_t(from) * rb + col);
+  };
+
+  if (push) {
+    // the remote rows: [0, t) from block rank - 1 (below) or [t, R) from rank + 1
+    const bool below = q == 0;
+    const int h = CS == 1 ? 0 : (below ? t : rows - t), slots = CS + 1;
+    const int e0 = below ? rows - h : 0;              // rows [e0, e0 + h) go to the neighbour
+    const int d0 = below ? 0 : t;                     // rows [d0, d0 + h) read the halo
+    const int halo_rows = roll_halo_rows(rows);
+    Piece* const halo = x + 2 * rows;                 // the slots, halo_rows pieces each
+    const int next = ((below ? rank + 1 : rank - 1) % CS + CS) % CS;
+    unsigned next_halo = 0, next_bars = 0;
+    if (h > 0) {
+      if (threadIdx.x == 0) {
+        for (int k = 0; k < slots; ++k) mbar_init(bars + k, 1);
+        mbar_init_fence();
+      }
+      next_halo = cluster_map(smem_addr(halo), unsigned(next));
+      next_bars = cluster_map(smem_addr(bars), unsigned(next));
+      cluster_arrive();             // every block started, its barriers initialised
+      cluster_wait();
+    }
+    // this block's rows read its own rows of the step before: [t, R) at li - t
+    // and [0, t) at li - t + R; those in [e0, e0 + h) go to the neighbour too
+    const int own[2][3] = {{CS == 1 || below ? t : 0, CS == 1 || below ? rows : 0, -t},
+                           {0, CS == 1 || !below ? t : 0, rows - t}};
+    for (int b = 0; b < B; ++b) {
+      const Piece* const src = x + ((b - 1) & 1) * rows;
+      Piece* const dst = x + (b & 1) * rows;
+      const bool last = b == B - 1, send = h > 0 && !last;
+      const unsigned k = unsigned(b % slots);
+      auto put = [&](int li, const Piece& v) {
+        if (last) *reinterpret_cast<Piece*>(out + size_t(rank * rows + li) * rb + col) = v;
+        else dst[li] = v;
+        if (send && li >= e0 && li < e0 + h)
+          push_piece<PW>(next_halo + (k * halo_rows + unsigned(li - e0)) * PW, v, next_bars + k * 8);
+      };
+      if (b == 0) {
+        roll_rows<PW>(0, rows, c2, from_a, put);
+      } else {
+        // the rows the neighbour reads next first, then the others, then the halo's
+        for (const auto& r : own) {
+          const int x0 = send && r[0] <= e0 && e0 < r[1] ? e0 : r[0];
+          const int x1 = send && r[0] <= e0 && e0 < r[1] ? e0 + h : r[0];
+          roll_local<PW>(src, r[2], x0, x1, c2, put);
+          roll_local<PW>(src, r[2], r[0], x0, c2, put);
+          roll_local<PW>(src, r[2], x1, r[1], c2, put);
+        }
+        if (h > 0) {
+          // only the threads that read the slot wait for it (h <= kRollThreads)
+          const int kk = (b - 1) % slots;
+          if (int(threadIdx.x) < h) {
+            if (threadIdx.x == 0) mbar_expect(bars + kk, unsigned(h) * PW);
+            chain_wait(bars + kk, unsigned((b - 1) / slots) & 1u);
+          }
+          roll_local<PW>(halo + kk * halo_rows, -d0, d0, d0 + h, c2, put);
+        }
+      }
+      __syncthreads();
+    }
+    return;
+  }
+
+  // pull: the blocks rows [t, rows) and [0, t) read from, and where they hold their buffers
+  const int hi = ((rank - q) % CS + CS) % CS, lo = ((rank - q - 1) % CS + CS) % CS;
+  const unsigned hi_base = CS > 1 ? cluster_map(base, unsigned(hi)) : base;
+  const unsigned lo_base = CS > 1 ? cluster_map(base, unsigned(lo)) : base;
+  // one step over local rows [begin, end): from buffer b - 1 of the block
+  // whose shared memory starts at sbase, at row li - t (+ rows below t)
+  auto step = [&](int b, int begin, int end, bool local, unsigned sbase) {
+    const int off = begin >= t ? -t : rows - t;       // [begin, end) lies on one side of t
+    if (local) {
+      roll_local<PW>(x + ((b - 1) % kRollBuffers) * rows, off, begin, end, c2, put_to(b));
+      return;
+    }
+    const unsigned from = sbase + unsigned((b - 1) % kRollBuffers) * bytes;
+    auto load = [=](int li) {
+      Piece v;
+      v.load_cluster(from + unsigned(li + off) * PW);
+      return v;
+    };
+    roll_rows<PW>(begin, end, c2, load, put_to(b));
+  };
+  roll_rows<PW>(0, rows, c2, from_a, put_to(0));
+  if (B == 1) return;
+  if (CS > 1) cluster_arrive();
+  for (int b = 1; b < B; ++b) {
+    if (CS == 1) {
+      __syncthreads();
+      step(b, 0, rows, true, base);
+      continue;
+    }
+    // rows this block's last step wrote, then (after the barrier) the others
+    if (hi == rank) step(b, t, rows, true, base);
+    if (lo == rank) step(b, 0, t, true, base);
+    cluster_wait();
+    if (hi != rank) step(b, t, rows, false, hi_base);
+    if (lo != rank) step(b, 0, t, false, lo_base);
+    cluster_arrive();
+  }
+  if (CS > 1) cluster_wait();     // no block leaves while another may read its shared memory
+}
+
+// The launch of layout (CS, PW) for a (M, C) bf16: validated, the kernel's
+// attributes set, `cfg` filled (its stream left to the caller).
+template <int CS, int PW>
+int roll_config(int M, int C, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  const long smem = roll_smem_bytes(M / CS, CS, PW);
+  if (M % CS != 0 || (2 * C) % PW != 0 || smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(roll_smem_kernel<CS, PW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err == cudaSuccess && CS > 8)
+    err = cudaFuncSetAttribute(roll_smem_kernel<CS, PW>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((2 * C) / PW * CS);
+  cfg->blockDim = dim3(kRollThreads);
+  cfg->dynamicSmemBytes = size_t(smem);
+  cfg->attrs = attr;
+  cfg->numAttrs = CS > 1 ? 1 : 0;
+  return err;
+}
+
+template <int CS, int PW>
+int launch_roll(const void* a, void* out, int M, int C, int shift, int B, float c, int push,
+                cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int err = roll_config<CS, PW>(M, C, &cfg, attr);
+  if (err != cudaSuccess) return err;
+  // push takes rows from one neighbour, at most a halo slot of them
+  const int rows = M / CS, q = shift / rows, t = shift - q * rows;
+  const int h = CS == 1 ? 0 : q == 0 ? t : q == CS - 1 ? rows - t : rows + 1;
+  if (push && h > roll_halo_rows(rows)) return cudaErrorInvalidValue;
+  cfg.stream = stream;
+  err = cudaLaunchKernelEx(&cfg, roll_smem_kernel<CS, PW>, static_cast<const uint8_t*>(a),
+                           static_cast<uint8_t*>(out), M, 2 * C, shift, B, c, push);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Clusters of layout (CS, PW) the card holds at once.
+template <int CS, int PW>
+int roll_clusters(int M, int C, int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  const int err = roll_config<CS, PW>(M, C, &cfg, attr);
+  if (err != cudaSuccess) return err;
+  cfg.numAttrs = 1;               // a cluster of one block where CS = 1
+  return cudaOccupancyMaxActiveClusters(clusters, roll_smem_kernel<CS, PW>, &cfg);
+}
+
+// fn(RollLayout<CS, PW>{}) for the layouts the kernel is built for: pieces
+// of 16 or 8 bytes in clusters of 1, 2, 4, 8 or 16 blocks, pieces of 4 bytes
+// in one block; cudaErrorInvalidValue for any other.
+template <int CS, int PW> struct RollLayout {
+  static constexpr int kCS = CS, kPW = PW;
+};
+template <typename Fn> int roll_layout(int cluster, int piece, Fn fn) {
+  if (piece == 4) return cluster == 1 ? fn(RollLayout<1, 4>{}) : int(cudaErrorInvalidValue);
+  if (piece != 16 && piece != 8) return cudaErrorInvalidValue;
+  const bool wide = piece == 16;
+  switch (cluster) {
+    case 1: return wide ? fn(RollLayout<1, 16>{}) : fn(RollLayout<1, 8>{});
+    case 2: return wide ? fn(RollLayout<2, 16>{}) : fn(RollLayout<2, 8>{});
+    case 4: return wide ? fn(RollLayout<4, 16>{}) : fn(RollLayout<4, 8>{});
+    case 8: return wide ? fn(RollLayout<8, 16>{}) : fn(RollLayout<8, 8>{});
+    case 16: return wide ? fn(RollLayout<16, 16>{}) : fn(RollLayout<16, 8>{});
+  }
+  return cudaErrorInvalidValue;
+}
+#else
 // One roll step per grid barrier.  counter counts arrivals and is 0 at launch.
 __device__ __forceinline__ void grid_barrier(unsigned* counter, unsigned target) {
   __syncthreads();
@@ -2107,10 +2659,7 @@ roll_kernel(const uint4* __restrict__ a, uint4* buf, uint4* out, int M, int vpr,
     src = dst;
   }
 }
-
-}  // namespace
-
-extern "C" {
+#endif  // PROBES_ROLL
 
 // A dot probe on dots_kernel, PR 5's design.  x: (M, K) for mode 0, (M, 64)
 // bf16 for modes 1-4; w: (K, N) row-major; wt: scratch of ceil(K * element
@@ -2118,21 +2667,24 @@ extern "C" {
 // fp32 (bf16 forms) or int32 (s8 != 0), or x's type when cast_out.  mode: 0
 // plain, 1 concat, 2 twodots (K = 128), 3 im2col, 4 shifted (K = 576, N = 192;
 // stride is the row stride of the dy taps).  M % 64 == 0, K % 32 == 0, N in
-// {64, 128, 192} (192 for modes 1-4); every pointer 16-byte aligned.  The
-// default build instantiates modes 1 and 2 only (probe_concat_dot); plain
-// where PROBES_CHAIN=0 or PROBES_MM8=0, 3 and 4 where PROBES_STAGE1=0.
-// Launches the transpose of w and then the kernel on `stream`; returns
-// cudaGetLastError(), cudaErrorInvalidValue for a mode the build lacks.
-int probes_dots_launch(const void* x, const void* w, void* wt, void* out, int M, int K, int N,
-                       int B, int s8, int cast_out, int mode, int stride, void* stream) {
+// {64, 128, 192} (192 for modes 1-4); every pointer 16-byte aligned.  Built
+// only in the yardstick builds, each mode where its switch sends the probe
+// here: plain where PROBES_CHAIN=0 or PROBES_MM8=0, 1 and 2 where
+// PROBES_CONCAT=0, 3 and 4 where PROBES_STAGE1=0.  Launches the transpose of
+// w and then the kernel on `stream`; returns cudaGetLastError(),
+// cudaErrorInvalidValue for a mode the build lacks.
+#define PROBES_DOTS (!PROBES_CHAIN || !PROBES_MM8 || !PROBES_STAGE1 || !PROBES_CONCAT)
+#if PROBES_DOTS
+int dots_launch(const void* x, const void* w, void* wt, void* out, int M, int K, int N, int B,
+                int s8, int cast_out, int mode, int stride, cudaStream_t s) {
   constexpr bool kPlainBuilt = !PROBES_CHAIN || !PROBES_MM8, kStage1Built = !PROBES_STAGE1;
+  constexpr bool kPairBuilt = !PROBES_CONCAT;
   if (M <= 0 || M % kBM != 0 || K <= 0 || K % 32 != 0 || N % 32 != 0 || B < 1 || mode < 0 ||
       mode > 4 || (mode != kPlain && (s8 || cast_out || N != 192)) ||
-      ((mode == kConcat || mode == kTwoDots) && K != 128) ||
+      ((mode == kConcat || mode == kTwoDots) && (K != 128 || !kPairBuilt)) ||
       ((mode == kIm2col || mode == kShifted) && (K != 576 || stride < 1)) ||
       (mode == kPlain && !kPlainBuilt) || ((mode == kIm2col || mode == kShifted) && !kStage1Built))
     return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 tgrid(N / 32, K / 32), tblock(32, 8);
   if (s8)
     transpose_kernel<uint8_t><<<tgrid, tblock, 0, s>>>(static_cast<const uint8_t*>(w),
@@ -2151,8 +2703,10 @@ int probes_dots_launch(const void* x, const void* w, void* wt, void* out, int M,
       return s8 ? launch_plain<true>(N, xb, wb, out, M, kb, B, cast_out, s)
                 : launch_plain<false>(N, xb, wb, out, M, kb, B, cast_out, s);
 #endif
+#if !PROBES_CONCAT
     case kConcat: return launch_dots<6, false, kConcat>(xb, wb, out, M, kb, B, 0, 0, s);
     case kTwoDots: return launch_dots<6, false, kTwoDots>(xb, wb, out, M, kb, B, 0, 0, s);
+#endif
 #if !PROBES_STAGE1
     case kIm2col: return launch_dots<6, false, kIm2col>(xb, wb, out, M, kb, B, 0, stride, s);
     case kShifted: return launch_dots<6, false, kShifted>(xb, wb, out, M, kb, B, 0, stride, s);
@@ -2160,6 +2714,11 @@ int probes_dots_launch(const void* x, const void* w, void* wt, void* out, int M,
   }
   return cudaErrorInvalidValue;
 }
+#endif  // PROBES_DOTS
+
+}  // namespace
+
+extern "C" {
 
 // Scratch bytes probes_chain_launch needs: none for bf16; for s8 w's K-major
 // image (chunks of 128 k, N rows of 128 bytes); w's staged form where the
@@ -2201,7 +2760,7 @@ int probes_chain_launch(const void* x, const void* w, void* wt, void* out, int M
                        : launch_chain_n<192, false>(x, w, img, out, M, K, B, s);
   }
 #else
-  return probes_dots_launch(x, w, wt, out, M, K, N, B, s8, 0, kPlain, 0, s);
+  return dots_launch(x, w, wt, out, M, K, N, B, s8, 0, kPlain, 0, s);
 #endif
 }
 
@@ -2252,7 +2811,7 @@ int probes_matmul8_launch(const void* x, const void* w, void* scratch, void* out
     default: return launch_matmul8_k<192>(x, w, scratch, out, M, K, s);
   }
 #else
-  return probes_dots_launch(x, w, scratch, out, M, K, N, 1, 1, 1, kPlain, 0, s);
+  return dots_launch(x, w, scratch, out, M, K, N, 1, 1, 1, kPlain, 0, s);
 #endif
 }
 
@@ -2282,8 +2841,8 @@ int probes_stage1_launch(const void* x, const void* w, void* scratch, void* out,
   return form == 0 ? launch_stage1<true>(x, w, scratch, out, M, B, stride, s)
                    : launch_stage1<false>(x, w, scratch, out, M, B, stride, s);
 #else
-  return probes_dots_launch(x, w, scratch, out, M, 576, 192, B, 0, 0, form ? kShifted : kIm2col,
-                            stride, s);
+  return dots_launch(x, w, scratch, out, M, 576, 192, B, 0, 0, form ? kShifted : kIm2col, stride,
+                     s);
 #endif
 }
 
@@ -2309,31 +2868,104 @@ int probes_stage1_timeline(long long* host) {
 #endif
 }
 
-// B dependent rolls of a (M, C) bf16 tensor along rows by `shift` in [0, M),
-// each followed by + c (c a bf16 value).  buf: scratch of a's size; counter:
-// 4 bytes of scratch.  C % 8 == 0.  A cooperative launch on `stream`.
-int probes_roll_launch(const void* a, void* buf, void* out, void* counter, int M, int C, int shift,
-                       int B, float c, void* stream) {
-  if (M <= 0 || C <= 0 || C % 8 != 0 || shift < 0 || shift >= M || B < 1)
-    return cudaErrorInvalidValue;
+// Scratch bytes probes_concat_launch needs: none; w's staged form where
+// PROBES_CONCAT=0.
+int probes_concat_scratch_bytes() {
+#if PROBES_CONCAT
+  return 0;
+#else
+  return (128 * 2 + kSliceBytes - 1) / kSliceBytes * 192 * kSliceStride * 4;
+#endif
+}
+
+// probe_concat_dot: B dependent steps of [a, a/2] @ w128, a (M, 64) and w128
+// (128, 192) bf16 row-major, into out (M, 192) fp32.  form 0 "concat" (one
+// K=128 dot), 1 "twodots" (two K=64 dots).  M % 64 == 0, B >= 1; every
+// pointer 16-byte aligned; scratch of probes_concat_scratch_bytes.  One
+// launch on `stream` (the chain kernel; PROBES_CONCAT=0: the transpose of w
+// and dots_kernel); returns cudaGetLastError(), cudaErrorInvalidValue for
+// what it does not take, cudaErrorNotSupported without cuTensorMapEncodeTiled.
+int probes_concat_launch(const void* a, const void* w, void* scratch, void* out, int M, int B,
+                         int form, void* stream) {
+  if (M <= 0 || M % 64 != 0 || B < 1 || (form != 0 && form != 1)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#if PROBES_CONCAT
+  (void)scratch;
+  return form == 0 ? launch_concat<kChainConcat>(a, w, out, M, B, s)
+                   : launch_concat<kChainTwoDots>(a, w, out, M, B, s);
+#else
+  return dots_launch(a, w, scratch, out, M, 128, 192, B, 0, 0, form ? kTwoDots : kConcat, 0, s);
+#endif
+}
+
+// Scratch bytes probes_roll_launch needs for a (M, C) bf16: none; where
+// PROBES_ROLL=0 a buffer of a's size and 16 bytes for the grid barrier's count.
+int probes_roll_scratch_bytes(int M, int C) {
+#if PROBES_ROLL
+  (void)M; (void)C;
+  return 0;
+#else
+  return M * C * 2 + 16;
+#endif
+}
+
+// B dependent rolls of a (M, C) bf16 tensor along rows by `shift` in [0, M),
+// each followed by + c (c a bf16 value), into out.  The layout: a cluster of
+// `cluster` blocks (1, 2, 4, 8, 16) holds each column of `piece`-byte pieces
+// (16 or 8; or 4 with cluster 1), three buffers of M / cluster pieces a
+// block (probe_kernels.roll_plan); 2 C % piece == 0.  push: the rows another
+// block holds are pushed into halo slots (where they come from one
+// neighbour and fit a slot; else cudaErrorInvalidValue), not read after a
+// cluster barrier.
+// One launch on `stream`; returns cudaGetLastError(), cudaErrorInvalidValue
+// for a layout or a shape it does not take.  PROBES_ROLL=0: PR 5's design,
+// a cooperative launch, the layout ignored; scratch of
+// probes_roll_scratch_bytes.
+int probes_roll_launch(const void* a, void* scratch, void* out, int M, int C, int shift, int B,
+                       float c, int cluster, int piece, int push, void* stream) {
+  if (M <= 0 || C <= 0 || shift < 0 || shift >= M || B < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#if PROBES_ROLL
+  (void)scratch;
+  return roll_layout(cluster, piece, [&](auto layout) {
+    return launch_roll<decltype(layout)::kCS, decltype(layout)::kPW>(a, out, M, C, shift, B, c, push,
+                                                                      s);
+  });
+#else
+  (void)cluster; (void)piece; (void)push;
+  if (C % 8 != 0) return cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaMemsetAsync(counter, 0, sizeof(unsigned), s);
+  uint4* bp = static_cast<uint4*>(scratch);
+  unsigned* cp = reinterpret_cast<unsigned*>(static_cast<uint8_t*>(scratch) + size_t(M) * C * 2);
+  if (err == cudaSuccess) err = cudaMemsetAsync(cp, 0, sizeof(unsigned), s);
   if (err != cudaSuccess) return err;
   int vpr = C / 8;
   const int total = M * vpr;
   int grid = (total + 255) / 256;
   if (grid > sms) grid = sms;      // one block per SM: all resident, as the barrier needs
   const uint4* ap = static_cast<const uint4*>(a);
-  uint4* bp = static_cast<uint4*>(buf);
   uint4* op = static_cast<uint4*>(out);
-  unsigned* cp = static_cast<unsigned*>(counter);
   void* args[] = {&ap, &bp, &op, &M, &vpr, &shift, &B, &c, &cp};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(roll_kernel), dim3(grid),
                                     dim3(256), args, 0, s);
   return err != cudaSuccess ? err : cudaGetLastError();
+#endif
+}
+
+// How many clusters of the layout (cluster, piece) for a (M, C) bf16 the
+// card holds at once, into *clusters; cudaErrorNotSupported where
+// PROBES_ROLL=0.
+int probes_roll_max_clusters(int M, int C, int cluster, int piece, int* clusters) {
+#if PROBES_ROLL
+  return roll_layout(cluster, piece, [&](auto layout) {
+    return roll_clusters<decltype(layout)::kCS, decltype(layout)::kPW>(M, C, clusters);
+  });
+#else
+  (void)M; (void)C; (void)cluster; (void)piece; (void)clusters;
+  return cudaErrorNotSupported;
+#endif
 }
 
 const char* probes_error_string(int err) {

@@ -23,8 +23,11 @@ for bf16, and for int8 a launch before it that writes w's K-major image
 (``chain_plan`` says where each operand lives).  ``probe_stage1`` holds half
 of w's columns per block, resident for every stage and tile, the nine taps
 read from a halo tile by ``wgmma`` (``stage1_plan``), after a launch writing
-w's K-major image in halves.  ``probe_concat_dot`` runs PR 5's ``mma.sync``
-template, which first rearranges w into a scratch tensor.  A wrapper
+w's K-major image in halves.  ``probe_concat_dot`` runs on the chain kernel
+too, as two more of its forms: w128 resident, A in registers (a's fragments
+and their halves), one launch.  ``probe_roll`` holds each column of 16-byte
+pieces in the shared memory of a cluster of blocks for all its steps, one
+cluster barrier between steps (``roll_plan``).  A wrapper
 launches its kernel for a CUDA tensor (and raises where the kernel does not
 take the shape) and runs the plain version for a CPU tensor; there is no
 fallback from one to the other.  ``launches[name]`` counts kernel launches
@@ -50,8 +53,6 @@ matmul_int8_launches = 0
 
 _ROWS = 64                     # csrc/probes.cu kBM: rows of x per block
 _WIDTHS = (64, 128, 192)       # the N the kernel is instantiated for
-_SLICE_BYTES, _STAGE_ROW_BYTES = 256, 272   # kSliceBytes; 4 * kSliceStride
-_MODES = {"concat": 1, "twodots": 2}   # probe_concat_dot's forms in probes_dots_launch
 _PERTURB = 1e-36               # the probes' scale of y[0,0] in the next operand
 # The chain kernel (probes_chain_launch): its depth classes, the instances
 # built for each type (a K runs in the smallest class that covers it, the
@@ -61,6 +62,14 @@ CHAIN_THREADS = 256            # two warpgroups
 SMEM_PER_BLOCK = 232448
 _SMS = 132                     # an H100 SXM's SMs (the kernel asks the card for its own count)
 _ROLL_ADD = 1e-8               # probe_roll's added constant, rounded to bf16 first
+# probe_roll's kernel: the cluster sizes it is built for (pieces of 16 or 8
+# bytes; pieces of 4 bytes with one block a column), the design's layout,
+# threads and buffers a block.
+ROLL_CLUSTERS, ROLL_PIECES = (1, 2, 4, 8, 16), (16, 8, 4)
+ROLL_CLUSTER, ROLL_PIECE, ROLL_THREADS, ROLL_BUFFERS = 8, 16, 1024, 3
+ROLL_HALO_ROWS = 256           # rows a halo slot holds at most (and half a block's)
+# probe_concat_dot's forms (probes_concat_launch's form 0 and 1)
+CONCAT_FORMS = ("concat", "twodots")
 # probe_matmul's int8 GEMM: 128 rows a block, every chunk of 128 k resident.
 MM8_ROWS, MM8_MAX_CHUNKS = 128, 5
 # probe_stage1's kernel: a block holds 96 of w's 192 columns (110,592 B),
@@ -208,9 +217,6 @@ def _library() -> ctypes.CDLL:
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of a build of csrc/probes.cu (of a variant too)."""
-    lib.probes_dots_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    lib.probes_dots_launch.restype = ctypes.c_int
     lib.probes_chain_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     lib.probes_chain_launch.restype = ctypes.c_int
@@ -233,9 +239,18 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.probes_stage1_timeline.restype = ctypes.c_int
     lib.probes_matmul8_timeline.argtypes = [ctypes.c_void_p]
     lib.probes_matmul8_timeline.restype = ctypes.c_int
-    lib.probes_roll_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_void_p]
+    lib.probes_concat_scratch_bytes.argtypes = []
+    lib.probes_concat_scratch_bytes.restype = ctypes.c_int
+    lib.probes_concat_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    lib.probes_concat_launch.restype = ctypes.c_int
+    lib.probes_roll_scratch_bytes.argtypes = [ctypes.c_int] * 2
+    lib.probes_roll_scratch_bytes.restype = ctypes.c_int
+    lib.probes_roll_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.probes_roll_launch.restype = ctypes.c_int
+    lib.probes_roll_max_clusters.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.probes_roll_max_clusters.restype = ctypes.c_int
     lib.probes_error_string.argtypes = [ctypes.c_int]
     lib.probes_error_string.restype = ctypes.c_char_p
     return lib
@@ -262,27 +277,6 @@ def check_shape(name: str, m: int, k: int, n: int, steps: int = 1, mode: str = "
 def _check_contiguous(name: str, *tensors):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: the operands must be contiguous")
-
-
-def _launch_dots(name: str, x: torch.Tensor, w: torch.Tensor, steps: int,
-                 form: str) -> torch.Tensor:
-    """probe_concat_dot on PR 5's template: check, allocate, launch, count."""
-    m, (k, n) = x.shape[0], w.shape
-    _check_contiguous(name, x, w)
-    check_shape(name, m, k, n, steps, form)
-    lib = _library()
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    # w in the kernel's staged form: slices of 256 bytes of k, N rows of 272 bytes each
-    slices = -(-k * w.element_size() // _SLICE_BYTES)
-    wt = torch.empty(slices * n * _STAGE_ROW_BYTES, dtype=torch.uint8, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = lib.probes_dots_launch(x.data_ptr(), w.data_ptr(), wt.data_ptr(), out.data_ptr(),
-                                     m, k, n, steps, 0, 0, _MODES[form], 0, stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: {lib.probes_error_string(err).decode()}")
-    launches[name] += 1
-    return out
 
 
 def _aligned(name: str, *tensors):
@@ -473,20 +467,118 @@ def probe_dots(x: torch.Tensor, w: torch.Tensor, steps: int = 16) -> torch.Tenso
     return probe_dots_reference(x, w, steps)
 
 
+def concat(lib: ctypes.CDLL, a: torch.Tensor, w: torch.Tensor, steps: int = 8,
+           form: str = "concat") -> torch.Tensor:
+    """probe_concat_dot's kernel in the build ``lib`` (the default build: the
+    chain kernel's forms, w128 resident, one launch; PROBES_CONCAT=0: PR 5's
+    dots_kernel with its transpose of w into a scratch tensor); no launch
+    counted.  a (M, 64) and w (128, 192) bf16, M % 64 == 0."""
+    m = a.shape[0]
+    _check_contiguous("probe_concat_dot", a, w)
+    if a.shape[1] != 64 or w.shape[0] != 128:
+        raise ValueError(f"probe_concat_dot: the kernel takes a (M, 64) and w (128, N), got "
+                         f"{tuple(a.shape)} and {tuple(w.shape)}")
+    check_shape("probe_concat_dot", m, 128, w.shape[1], steps, form)
+    _aligned("probe_concat_dot", a, w)
+    out = torch.empty((m, 192), dtype=torch.float32, device=a.device)
+    scratch = _scratch(lib.probes_concat_scratch_bytes(), a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        err = lib.probes_concat_launch(a.data_ptr(), w.data_ptr(), _ptr(scratch), out.data_ptr(),
+                                       m, steps, CONCAT_FORMS.index(form), stream)
+    if err:
+        raise RuntimeError(f"probe_concat_dot launch failed: {lib.probes_error_string(err).decode()}")
+    return out
+
+
 def probe_concat_dot(a: torch.Tensor, w: torch.Tensor, steps: int = 8,
                      form: str = "concat") -> torch.Tensor:
     """``steps`` dependent [a, a * 0.5] @ w with a (M,64), w (128,N) bf16, as one
     stacked K=128 dot (form "concat") or two K=64 dots ("twodots"); fp32 out."""
     _check_pair("probe_concat_dot", a, w, (torch.bfloat16,))
-    if form not in ("concat", "twodots"):
+    if form not in CONCAT_FORMS:
         raise ValueError(f"probe_concat_dot: form {form!r} is neither 'concat' nor 'twodots'")
     if w.shape[0] != 2 * a.shape[1]:
         raise ValueError(f"probe_concat_dot: w has {w.shape[0]} rows for a of {a.shape[1]} columns")
     if a.is_cuda:
-        if a.shape[1] != 64:
-            raise ValueError(f"probe_concat_dot: the kernel takes a of 64 columns, got {a.shape[1]}")
-        return _launch_dots("probe_concat_dot", a, w, steps, form)
+        out = concat(_library(), a, w, steps, form)
+        launches["probe_concat_dot"] += 1
+        return out
     return probe_concat_dot_reference(a, w, steps, form)
+
+
+def roll_plan(m: int, c: int, shift: int = 1, cluster: int = ROLL_CLUSTER,
+              piece: int = ROLL_PIECE, push: bool | None = None) -> dict:
+    """How probe_roll's kernel runs its steps on a (M, C) bf16, as
+    csrc/probes.cu lays it out: each row cut into pieces of ``piece`` bytes
+    (16: 8 columns; 8: 4; 4: 2); a column of pieces (M of them) held by a
+    cluster of ``cluster`` blocks, each owning R = M / cluster rows of it in
+    shared memory for all the steps; ROLL_THREADS threads a block; none of
+    its barriers falls across the grid.  A step reads each source row (i -
+    shift) mod M where it lies, ``remote_rows`` a block in another block of
+    the cluster.  Where those come from one neighbour (shift mod M below R or
+    above M - R) and fill at most a halo slot (min(ROLL_HALO_ROWS, R / 2)
+    rows), that neighbour pushes them into the block's halo slot for the step
+    as soon as it has them (``push``: "halo pushes", a block barrier between
+    steps); else (or with ``push=False``) the block reads them from the other
+    block's buffer after a cluster barrier ("cluster barrier", three buffers).
+    The first step reads a, the last writes out.  Raises ValueError for a
+    layout the kernel is not built for, a C whose rows do not cut into whole
+    pieces, an M the cluster does not divide or whose buffers do not fit a
+    block's shared memory, or ``push=True`` where the rows cannot be pushed."""
+    if piece not in ROLL_PIECES or cluster not in ROLL_CLUSTERS or (piece == 4 and cluster != 1):
+        raise ValueError(f"probe_roll: the kernel takes 16- or 8-byte pieces in clusters of "
+                         f"{ROLL_CLUSTERS} blocks or 4-byte pieces in one block, got "
+                         f"{piece}-byte pieces in {cluster}")
+    if m <= 0 or c <= 0 or (2 * c) % piece:
+        raise ValueError(f"probe_roll: a row of {c} bf16 columns does not cut into {piece}-byte "
+                         f"pieces")
+    rows = m // cluster
+    halo = min(ROLL_HALO_ROWS, rows // 2)
+    bars = -(-(cluster + 1) * 8 // 16) * 16
+    smem = bars + max(ROLL_BUFFERS * rows * piece, (2 * rows + (cluster + 1) * halo) * piece)
+    if m % cluster or smem > SMEM_PER_BLOCK:
+        raise ValueError(f"probe_roll: a column of {m} {piece}-byte pieces does not fit a cluster "
+                         f"of {cluster} blocks: {cluster} must divide M and each block's "
+                         f"{ROLL_BUFFERS} buffers ({smem} bytes) fit its {SMEM_PER_BLOCK} bytes of "
+                         f"shared memory")
+    s = shift % m
+    q, t = divmod(s, rows)
+    remote = (t if (q + 1) % cluster else 0) + ((rows - t) if q % cluster else 0)
+    pushable = cluster == 1 or (q in (0, cluster - 1) and remote <= halo)
+    if push and not pushable:
+        raise ValueError(f"probe_roll: at shift {shift} a block of {rows} rows reads {remote} rows "
+                         f"of other blocks, more than one neighbour's halo slot of {halo}")
+    push = pushable if push is None else push
+    sync = ("block barrier" if cluster == 1 else "halo pushes" if push else "cluster barrier")
+    columns = 2 * c // piece
+    return {"cluster": cluster, "piece_bytes": piece, "piece_columns": columns,
+            "blocks": columns * cluster, "threads": ROLL_THREADS, "rows_per_block": rows,
+            "smem_bytes": smem, "remote_rows": remote, "push": push, "sync": sync,
+            "grid_barrier": False, "launches": 1}
+
+
+def roll(lib: ctypes.CDLL, a: torch.Tensor, shift: int, steps: int = 16,
+         plan: dict | None = None) -> torch.Tensor:
+    """probe_roll's kernel in the build ``lib`` (the default build: the layout
+    of ``plan``, roll_plan's by default; PROBES_ROLL=0: PR 5's cooperative
+    kernel, the plan's layout ignored); no launch counted."""
+    m, c = a.shape
+    if not a.is_contiguous() or steps < 1:
+        raise ValueError(f"probe_roll: the kernel takes a contiguous (M, C) and steps >= 1, got "
+                         f"{m}x{c}, steps {steps}")
+    plan = plan or roll_plan(m, c, shift)
+    _aligned("probe_roll", a)
+    out = torch.empty_like(a)
+    scratch = _scratch(lib.probes_roll_scratch_bytes(m, c), a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        err = lib.probes_roll_launch(a.data_ptr(), _ptr(scratch), out.data_ptr(), m, c, shift % m,
+                                     steps, _roll_constant(), plan["cluster"],
+                                     plan["piece_bytes"], int(plan["push"]), stream)
+    if err:
+        raise RuntimeError(f"probe_roll launch failed: {lib.probes_error_string(err).decode()}")
+    return out
 
 
 def probe_roll(a: torch.Tensor, shift: int, steps: int = 16) -> torch.Tensor:
@@ -495,19 +587,7 @@ def probe_roll(a: torch.Tensor, shift: int, steps: int = 16) -> torch.Tensor:
         raise ValueError(f"probe_roll: expected a 2-D bf16 tensor, got {tuple(a.shape)} {a.dtype}")
     if not a.is_cuda:
         return probe_roll_reference(a, shift, steps)
-    m, c = a.shape
-    if not a.is_contiguous() or c % 8 or steps < 1:
-        raise ValueError(f"probe_roll: the kernel takes a contiguous (M, C % 8 == 0), got {m}x{c}")
-    lib = _library()
-    out, buf = torch.empty_like(a), torch.empty_like(a)
-    counter = torch.empty(1, dtype=torch.int32, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    with torch.cuda.device(a.device):
-        err = lib.probes_roll_launch(a.data_ptr(), buf.data_ptr(), out.data_ptr(),
-                                     counter.data_ptr(), m, c, shift % m, steps,
-                                     _roll_constant(), stream)
-    if err:
-        raise RuntimeError(f"probe_roll launch failed: {lib.probes_error_string(err).decode()}")
+    out = roll(_library(), a, shift, steps)
     launches["probe_roll"] += 1
     return out
 

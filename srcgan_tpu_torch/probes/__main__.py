@@ -16,19 +16,24 @@ option it beat, PR 5's design, the build without products and
 ``torch._int_mm`` at every shape of the matmul sweep (``matmul8_ablate``).
 ``... probes stage1 [--rounds N]``: probe_stage1's kernel in both forms
 against PR 5's design, its variants and builds with work left out, and one
-block's timeline (``stage1_ablate``).  Each runs only when named, and only on
-the card."""
+block's timeline (``stage1_ablate``).  ``... probes roll [--rounds N]``:
+probe_roll's kernel in each of its layouts against PR 5's design at shifts 1
+and 128, with its two bounds (``roll_ablate``).  ``... probes concat [--rounds
+N]``: probe_concat_dot's forms of the chain kernel, their variants, PR 5's
+design and builds with work left out (``concat_ablate``).  Each runs only
+when named, and only on the card."""
 from __future__ import annotations
 
 import sys
 
-from srcgan_tpu_torch.probes import (chain_ablate, layout_probe3, matmul8_ablate, matmul_probe,
-                                     mxu_probe, rdb5_ablate, ssim_ablate, stage1_ablate,
-                                     tail_ablate)
+from srcgan_tpu_torch.probes import (chain_ablate, concat_ablate, layout_probe3, matmul8_ablate,
+                                     matmul_probe, mxu_probe, rdb5_ablate, roll_ablate,
+                                     ssim_ablate, stage1_ablate, tail_ablate)
 
 SWEEPS = {"matmul": matmul_probe, "mxu": mxu_probe, "layout": layout_probe3}
 NAMED_ONLY = {"rdb5": rdb5_ablate, "tail": tail_ablate, "ssim": ssim_ablate,
-              "chain": chain_ablate, "matmul8": matmul8_ablate, "stage1": stage1_ablate}
+              "chain": chain_ablate, "matmul8": matmul8_ablate, "stage1": stage1_ablate,
+              "roll": roll_ablate, "concat": concat_ablate}
 USAGE = (f"usage: python -m srcgan_tpu_torch.probes [{'|'.join(SWEEPS)} ...] [abcd] "
          f"[--device cpu]  |  python -m srcgan_tpu_torch.probes {'|'.join(NAMED_ONLY)} [--rounds N]")
 

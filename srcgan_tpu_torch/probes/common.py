@@ -13,8 +13,10 @@ from srcgan_tpu_torch import config
 
 CPU_ROWS = 256                 # M of a --device cpu run (the plain versions)
 L2_BYTES = 50 * 1024 * 1024    # an H100's L2: operands meant to come from HBM must exceed it
-# An H100 SXM's dense tensor-core peaks (NVIDIA's data sheet): operations a second.
+# An H100 SXM's dense tensor-core peaks and memory rate (NVIDIA's data sheet):
+# operations and bytes a second.
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def parser(description: str) -> argparse.ArgumentParser:
@@ -34,6 +36,14 @@ def card_line(dev: torch.device) -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout
     return out.strip().splitlines()[dev.index or 0]
+
+
+def max_sm_clock_mhz(dev: torch.device) -> int:
+    """The card's highest SM clock in MHz (nvidia-smi clocks.max.sm): the rate
+    a bound on shared-memory passes is taken at."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return int(out.strip().splitlines()[dev.index or 0])
 
 
 def operand(rng: np.random.Generator, shape, dtype: torch.dtype, dev) -> torch.Tensor:
