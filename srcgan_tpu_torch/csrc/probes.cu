@@ -49,7 +49,8 @@
 // (chain_pair): 8 dots of [a, a/2] (M, 128) against w128 (128, 192), the
 // same products as probe_dots' 16 dots of K=64.  w128 is resident as the
 // bf16 chain holds w (TMA boxes, MN-major); the warpgroups split the columns
-// (128 and 64), each over all of K; A is in registers, k steps 0-3 a's
+// (128 and 64, the first in two passes of 64 so that its first pass's
+// stores run under its second pass), each over all of K; A is in registers, k steps 0-3 a's
 // fragments loaded once and steps 4-7 a/2 made from them after every
 // perturbation, as the plain version recomputes cur * 0.5, so nothing is
 // rebuilt in shared memory; every warp computes the y[0,0] chain from row 0
@@ -63,19 +64,20 @@
 // probe_roll (roll_smem_kernel) does each of the B rolls as a pass over the
 // whole array held on chip, with no grid-wide barrier: rows roll and columns
 // never mix, so a column of 16-byte pieces (8 bf16 columns, M rows) lives in
-// the shared memory of one thread-block cluster for all B steps, each block
-// owning a range of rows in two buffers.  A step reads each source row (i -
-// shift) mod M from the block that owns it (its own buffer, or another
-// block's through mapa and ld.shared::cluster), adds c and writes the
-// block's other buffer; a cluster barrier falls between steps.  The first
-// step reads a from device memory and the last writes out, so the array
-// crosses HBM once each way and every step moves it through shared memory.
-// Composing the rolls into one pass (the adds commute with them) would give
-// the same bits at the byte bound and measure no roll, so it is not done.
-// What bounds it: B x 4 MB through the shared memory of the SMs it uses (128
-// B a cycle each) and one cluster barrier a step.  The layouts (cluster of
-// 16, 8, or one block holding whole columns of 4-byte pieces) are timed by
-// python -m srcgan_tpu_torch.probes roll.
+// the shared memory of one thread-block cluster of 8 for all B steps, each
+// block owning 2,048 rows in three buffers (64 blocks).  A step reads each
+// source row (i - shift) mod M where it lies: the rows its own block holds
+// while the cluster barrier of the step before completes, then the others
+// from another block's buffer (mapa, ld.shared::cluster); it adds c and
+// writes the next buffer.  The first step reads a from device memory and the
+// last writes out, so the array crosses HBM once each way and every step
+// moves it through shared memory.  Composing the rolls into one pass (the
+// adds commute with them) would give the same bits at the byte bound and
+// measure no roll, so it is not done.  What bounds it: B x 4 MB through the
+// shared memory of the SMs it uses (128 B a cycle each; a cluster of 16
+// would use 128 SMs, but the card holds only 7 such clusters at once, and 8
+// of 8-byte pieces only 15 clusters of 8) and a cluster barrier a step.  The
+// layouts are timed by python -m srcgan_tpu_torch.probes roll.
 //
 // One kernel template (dots_kernel) serves, as the yardstick of the
 // ablations, PR 5's design of the chain (PROBES_CHAIN=0), of make_matmul's
@@ -995,7 +997,7 @@ constexpr int kChMaxK = 576;
 // or probe_concat_dot's two forms (chain_pair).
 enum ChainForm { kChainDots = 0, kChainConcat = 1, kChainTwoDots = 2 };
 // Blocks an SM the chain kernel asks ptxas for: two at K <= 128, except the
-// two accumulator sets of "twodots" (3 x 64 fp32 sums and 32 words of A).
+// two accumulator sets of "twodots" (3 x 32 fp32 sums, 48 words of A).
 template <int KC, int FORM> __host__ __device__ constexpr int ch_blocks() {
   return KC > 128 || (FORM == kChainTwoDots && PROBES_CONCAT_SETS == 2) ? 1 : PROBES_CHAIN_BLOCKS;
 }
@@ -1290,24 +1292,27 @@ __device__ __forceinline__ void chain_bf16_nsplit(const uint8_t* x, const uint8_
   }
 }
 
-// probe_concat_dot (see the header): warpgroup WG's columns [C0, C0 + NW)
-// of 8 k16 steps of [a, a/2] (M, 128) against w128 (128, 192), for each tile
-// of the block.  a is (M, 64): A's steps 0-3 are its fragments, loaded once
-// a tile, and steps 4-7 their halves, remade after every perturbation.
-// "concat" accumulates all 8 steps into the running sums; "twodots" with
-// PROBES_CONCAT_SETS=2 runs each K=64 dot into a set of its own (scale-d 0
-// on its first step) and adds y1 + y2 to the running sums once both are done.
-// PROBES_CHAIN_LEAVE_OUT=1 and 2 leave out the wgmmas and the dots as they do
-// for the chain (the ablation's split of a call's time; results wrong).
+// probe_concat_dot (see the header): 8 k16 steps of [a, a/2] (M, 128)
+// against w128 (128, 192) for each tile of the block, in passes of 64
+// columns (m64n64k16): warpgroup 0 takes columns [0, 64) and then [64, 128),
+// warpgroup 1 [128, 192), so that the stores of warpgroup 0's first pass run
+// under its second pass's products.  a is (M, 64): A's steps 0-3 are its
+// fragments, loaded once a tile, and steps 4-7 their halves, remade after
+// every perturbation; each pass starts again from a and replays the y[0,0]
+// chain, which every warp computes itself.  "concat" accumulates all 8 steps
+// into the running sums; "twodots" with PROBES_CONCAT_SETS=2 runs each K=64
+// dot into a set of its own (scale-d 0 on its first step) and adds y1 + y2
+// to the running sums once both are done.  PROBES_CHAIN_LEAVE_OUT=1 and 2
+// leave out the wgmmas and the dots as they do for the chain (the
+// ablation's split of a call's time; results wrong).
 template <int WG, int FORM>
 __device__ __forceinline__ void chain_pair(const uint8_t* x, const uint8_t* w, float* out,
                                            uint8_t* region, uint64_t* full, int M, int B) {
-  constexpr int N = 192, C0 = WG ? 128 : 0, NW = WG ? 64 : 128;
+  constexpr int N = 192, NW = 64, kPasses = WG ? 1 : 2;
   constexpr bool kSets = FORM == kChainTwoDots && PROBES_CONCAT_SETS == 2;
   const int lane = threadIdx.x & 31, wl = (threadIdx.x >> 5) & 3, g = lane >> 2, q = lane & 3;
   const uint32_t* xw = reinterpret_cast<const uint32_t*>(x);   // 32 words a row of a
   const uint16_t* wh = reinterpret_cast<const uint16_t*>(w);
-  const unsigned wbase = smem_addr(region) + (C0 / 64) * 8192;
   // column 0 of w128 (rows 2j and 2j + 1 as a bf16 pair), j = lane + 32 i
   uint32_t wc[2];
 #pragma unroll
@@ -1317,75 +1322,82 @@ __device__ __forceinline__ void chain_pair(const uint8_t* x, const uint8_t* w, f
   }
   for (int tile = blockIdx.x; tile < M / 64; tile += gridDim.x) {
     const int row = tile * 64 + 16 * wl + g;
-    uint32_t a[8][4];
+    uint32_t a0[4][4];                            // this warp's rows of a, as loaded
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
       const int c = 8 * s + q;
-      a[s][0] = __ldg(xw + size_t(row) * 32 + c);
-      a[s][1] = __ldg(xw + size_t(row + 8) * 32 + c);
-      a[s][2] = __ldg(xw + size_t(row) * 32 + c + 4);
-      a[s][3] = __ldg(xw + size_t(row + 8) * 32 + c + 4);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) a[s + 4][e] = bf2_half(a[s][e]);
+      a0[s][0] = __ldg(xw + size_t(row) * 32 + c);
+      a0[s][1] = __ldg(xw + size_t(row + 8) * 32 + c);
+      a0[s][2] = __ldg(xw + size_t(row) * 32 + c + 4);
+      a0[s][3] = __ldg(xw + size_t(row + 8) * 32 + c + 4);
     }
-    // the warp's own row 0 of [a, a/2]: word `lane` of a, then its half
-    uint32_t x0[2];
-    x0[0] = __ldg(xw + lane);
-    x0[1] = bf2_half(x0[0]);
-
-    float d[NW / 2], y1[kSets ? NW / 2 : 1], y2[kSets ? NW / 2 : 1];
-#pragma unroll
-    for (int i = 0; i < NW / 2; ++i) d[i] = 0.f;
-#pragma unroll
-    for (int i = 0; i < (kSets ? NW / 2 : 1); ++i) y1[i] = y2[i] = 0.f;
-    for (int b = 0; b < (PROBES_CHAIN_LEAVE_OUT >= 2 ? 0 : B); ++b) {
-      // a commit group per chunk of w128 (one K=64 dot), each behind that
-      // chunk's barrier (waited on once; later dots and tiles find it complete)
-#pragma unroll
-      for (int s = 0; s < 8; ++s) {
-        if (s % 4 == 0) {
-          if (s != 0) wgmma_commit();
-          chain_wait(full + s / 4, 0);
-          wgmma_fence();
-        }
-        const uint64_t wdesc = descriptor(wbase + (s / 4) * N * 128 + (s % 4) * 2048, 8192, 1024, true);
-        if constexpr (PROBES_CHAIN_LEAVE_OUT != 0) {
-        } else if constexpr (kSets) {
-          if (s < 4) RsT<NW>::mma(y1, a[s], wdesc, s != 0);
-          else RsT<NW>::mma(y2, a[s], wdesc, s != 4);
-        } else {
-          RsT<NW>::mma(d, a[s], wdesc, 1);
-        }
-      }
-      wgmma_commit();
-      // meanwhile the chain: y[0,0] of this dot, and the perturbation of the next a
-      const float dd = __bfloat162float(__float2bfloat16_rn(row0_dot(x0, wc) * 1e-36f));
-      const uint32_t dd2 = pack(dd, dd);
-      x0[0] = bf2_add_once(x0[0], dd2);
-      x0[1] = bf2_half(x0[0]);
-      wgmma_wait<0>();                            // the dot has read its A registers
-      keep(a);
-      if constexpr (kSets) {
-        keep(y1);
-        keep(y2);
-#pragma unroll
-        for (int i = 0; i < NW / 2; ++i) d[i] += y1[i] + y2[i];
-      } else {
-        keep(d);
-      }
+    const uint32_t x00 = __ldg(xw + lane);        // the warp's own word `lane` of row 0
+#pragma unroll 1
+    for (int p = 0; p < kPasses; ++p) {
+      const int c0 = WG ? 128 : 64 * p;
+      const unsigned wbase = smem_addr(region) + unsigned(c0 / 64) * 8192;
+      uint32_t a[8][4], x0[2] = {x00, bf2_half(x00)};   // x0: row 0 of [a, a/2]
 #pragma unroll
       for (int s = 0; s < 4; ++s)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          a[s][e] = bf2_add_once(a[s][e], dd2);
-          a[s + 4][e] = bf2_half(a[s][e]);
+          a[s][e] = a0[s][e];
+          a[s + 4][e] = bf2_half(a0[s][e]);
         }
-    }
+      float d[NW / 2], y1[kSets ? NW / 2 : 1], y2[kSets ? NW / 2 : 1];
 #pragma unroll
-    for (int j = 0; j < NW / 8; ++j) {
-      const int col = C0 + 8 * j + 2 * q;
-      *reinterpret_cast<float2*>(out + size_t(row) * N + col) = float2{d[4 * j], d[4 * j + 1]};
-      *reinterpret_cast<float2*>(out + size_t(row + 8) * N + col) = float2{d[4 * j + 2], d[4 * j + 3]};
+      for (int i = 0; i < NW / 2; ++i) d[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < (kSets ? NW / 2 : 1); ++i) y1[i] = y2[i] = 0.f;
+      for (int b = 0; b < (PROBES_CHAIN_LEAVE_OUT >= 2 ? 0 : B); ++b) {
+        // a commit group per chunk of w128 (one K=64 dot), each behind that
+        // chunk's barrier (waited on once; later dots and tiles find it complete)
+#pragma unroll
+        for (int s = 0; s < 8; ++s) {
+          if (s % 4 == 0) {
+            if (s != 0) wgmma_commit();
+            chain_wait(full + s / 4, 0);
+            wgmma_fence();
+          }
+          const uint64_t wdesc = descriptor(wbase + (s / 4) * N * 128 + (s % 4) * 2048, 8192, 1024, true);
+          if constexpr (PROBES_CHAIN_LEAVE_OUT != 0) {
+          } else if constexpr (kSets) {
+            if (s < 4) RsT<NW>::mma(y1, a[s], wdesc, s != 0);
+            else RsT<NW>::mma(y2, a[s], wdesc, s != 4);
+          } else {
+            RsT<NW>::mma(d, a[s], wdesc, 1);
+          }
+        }
+        wgmma_commit();
+        // meanwhile the chain: y[0,0] of this dot, and the perturbation of the next a
+        const float dd = __bfloat162float(__float2bfloat16_rn(row0_dot(x0, wc) * 1e-36f));
+        const uint32_t dd2 = pack(dd, dd);
+        x0[0] = bf2_add_once(x0[0], dd2);
+        x0[1] = bf2_half(x0[0]);
+        wgmma_wait<0>();                          // the dot has read its A registers
+        keep(a);
+        if constexpr (kSets) {
+          keep(y1);
+          keep(y2);
+#pragma unroll
+          for (int i = 0; i < NW / 2; ++i) d[i] += y1[i] + y2[i];
+        } else {
+          keep(d);
+        }
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            a[s][e] = bf2_add_once(a[s][e], dd2);
+            a[s + 4][e] = bf2_half(a[s][e]);
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j) {
+        const int col = c0 + 8 * j + 2 * q;
+        *reinterpret_cast<float2*>(out + size_t(row) * N + col) = float2{d[4 * j], d[4 * j + 1]};
+        *reinterpret_cast<float2*>(out + size_t(row + 8) * N + col) = float2{d[4 * j + 2], d[4 * j + 3]};
+      }
     }
   }
 }
@@ -2284,13 +2296,14 @@ __device__ __forceinline__ unsigned cluster_rank() {
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
   return r;
 }
-// The block's threads are done with a step: one thread fences its block's
+// The block's threads are done with a step: one thread releases its block's
 // shared-memory writes (ordered before it by the block barrier) at cluster
-// scope, then every thread arrives, relaxed.  An arrival with release
-// semantics by all 1,024 threads cost more than the fence of one.
+// scope, then every thread arrives, relaxed.  The fence is restricted to
+// shared memory: a full fence.acq_rel.cluster, or an arrival with release
+// semantics by all 1,024 threads, made every step longer.
 __device__ __forceinline__ void cluster_arrive() {
   __syncthreads();
-  if (threadIdx.x == 0) asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+  if (threadIdx.x == 0) asm volatile("fence.release.sync_restrict::shared::cta.cluster;\n" ::: "memory");
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 }
 __device__ __forceinline__ void cluster_wait() {
@@ -2301,8 +2314,8 @@ __device__ __forceinline__ unsigned cluster_map(unsigned addr, unsigned rank) {
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
   return r;
 }
-// A piece of PW bytes: its words, loaded from a block's shared memory
-// through the cluster window or from this block's, and stored.
+// A piece of PW bytes (a row's share of a column of pieces): its words,
+// loaded from another block's shared memory through the cluster window.
 template <int PW> struct alignas(PW) RollPiece {
   uint32_t w[PW / 4];
   __device__ __forceinline__ void load_cluster(unsigned addr) {
@@ -2314,58 +2327,11 @@ template <int PW> struct alignas(PW) RollPiece {
     else
       asm volatile("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(w[0]) : "r"(addr) : "memory");
   }
-  __device__ __forceinline__ void load(unsigned addr) {
-    if constexpr (PW == 16)
-      asm volatile("ld.shared.v4.u32 {%0,%1,%2,%3}, [%4];\n"
-                   : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3]) : "r"(addr) : "memory");
-    else if constexpr (PW == 8)
-      asm volatile("ld.shared.v2.u32 {%0,%1}, [%2];\n" : "=r"(w[0]), "=r"(w[1]) : "r"(addr) : "memory");
-    else
-      asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(w[0]) : "r"(addr) : "memory");
-  }
-  __device__ __forceinline__ void store(unsigned addr) const {
-    if constexpr (PW == 16)
-      asm volatile("st.shared.v4.u32 [%0], {%1,%2,%3,%4};\n"
-                   ::"r"(addr), "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3]) : "memory");
-    else if constexpr (PW == 8)
-      asm volatile("st.shared.v2.u32 [%0], {%1,%2};\n" ::"r"(addr), "r"(w[0]), "r"(w[1]) : "memory");
-    else
-      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(w[0]) : "memory");
-  }
   __device__ __forceinline__ void add(uint32_t c2) {
 #pragma unroll
     for (int j = 0; j < PW / 4; ++j) w[j] = bf2_add_once(w[j], c2);
   }
 };
-
-// 16, 8 or 4 bytes into shared memory of another block of the cluster, the
-// bytes counted on that block's barrier `bar` when they land (st.async: the
-// barrier's completion makes them visible, no fence needed).
-template <int PW>
-__device__ __forceinline__ void push_piece(unsigned addr, const RollPiece<PW>& v, unsigned bar) {
-  if constexpr (PW == 16)
-    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1,%2,%3,%4}, [%5];\n"
-                 ::"r"(addr), "r"(v.w[0]), "r"(v.w[1]), "r"(v.w[2]), "r"(v.w[3]), "r"(bar) : "memory");
-  else if constexpr (PW == 8)
-    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1,%2}, [%3];\n"
-                 ::"r"(addr), "r"(v.w[0]), "r"(v.w[1]), "r"(bar) : "memory");
-  else
-    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
-                 ::"r"(addr), "r"(v.w[0]), "r"(bar) : "memory");
-}
-
-// A block's rows a halo slot holds at most (below: rows / 2), the bytes of
-// the slots' barriers (CS + 1 of them, first in shared memory), and the
-// shared memory a block of layout (CS, PW) needs: after the barriers, three
-// buffers of its rows for steps behind cluster barriers, or two and CS + 1
-// halo slots for steps whose remote rows are pushed.
-__host__ __device__ constexpr int roll_halo_rows(int rows) { return rows / 2 < 256 ? rows / 2 : 256; }
-__host__ __device__ constexpr int roll_bar_bytes(int CS) { return ((CS + 1) * 8 + 15) / 16 * 16; }
-__host__ __device__ constexpr long roll_smem_bytes(int rows, int CS, int PW) {
-  const long pull = long(kRollBuffers) * rows * PW;
-  const long push = 2l * rows * PW + long(CS + 1) * roll_halo_rows(rows) * PW;
-  return roll_bar_bytes(CS) + (pull > push ? pull : push);
-}
 
 // Rows [begin, end) of a step, a thread's rows begin + threadIdx.x + k
 // kRollThreads four at a time: the four loads first, then the adds and the
@@ -2409,136 +2375,67 @@ __device__ __forceinline__ void roll_local(const RollPiece<PW>* src, int off, in
 
 // B steps of dst[i] = bf16(src[(i - shift) mod M] + c) on a (M, rb bytes)
 // row-major.  A cluster of CS blocks holds one column of PW-byte pieces of
-// every row; block `rank` owns rows [rank R, (rank + 1) R) of it, R = M / CS.
-// With shift = q R + t, the block's rows [t, R) read rows of block rank - q
-// and [0, t) rows of block rank - q - 1 (mod CS).  Step 0 reads a, the last
-// step writes out.  Two ways to share the rows another block holds:
-//   push (where they come from one neighbour, q = 0 or q = CS - 1, and are
-//     at most a halo slot's rows): every block computes first the rows its
-//     neighbour reads next, and stores them into that neighbour's halo slot
-//     for the step (st.async, counted on the slot's barrier), then its other
-//     rows from its own buffer, then, once its own slot has landed, the rows
-//     that read it; a block barrier between steps, none across the cluster.
-//     No block runs more than CS steps ahead of another around the ring, so
-//     CS + 1 slots are never overwritten before they are read.
-//   pull (any shift): three buffers; the rows whose source this block holds
-//     run while the cluster barrier of the step before completes, then the
-//     others are read from the other block's buffer (mapa, ld.shared::cluster).
+// every row; block `rank` owns rows [rank R, (rank + 1) R) of it, R = M / CS,
+// in three buffers of shared memory, step b writing buffer b % 3.  With
+// shift = q R + t, the block's rows [t, R) read rows of block rank - q and
+// [0, t) rows of block rank - q - 1 (mod CS): the part its own block holds
+// needs only this block's last step, so it runs while the cluster barrier
+// of that step completes, and the part another block holds after it, read
+// from that block's buffer (mapa, ld.shared::cluster).  Step 0 reads a, the
+// last step writes out.  Three buffers let a step write before the barrier:
+// the buffer it writes was last read two steps before.
 template <int CS, int PW>
 __global__ void __launch_bounds__(kRollThreads, 1)
 roll_smem_kernel(const uint8_t* __restrict__ a, uint8_t* __restrict__ out, int M, int rb, int shift,
-                 int B, float c, int push) {
+                 int B, float c) {
   using Piece = RollPiece<PW>;
   extern __shared__ __align__(16) uint8_t roll_smem[];
   const int rows = M / CS, q = shift / rows, t = shift - q * rows;
   const int rank = CS > 1 ? int(cluster_rank()) : 0;
   const size_t col = size_t(blockIdx.x / CS) * PW;   // the piece's byte offset in a row
-  uint64_t* const bars = reinterpret_cast<uint64_t*>(roll_smem);   // the halo slots' (push)
-  const unsigned base = smem_addr(roll_smem) + roll_bar_bytes(CS), bytes = unsigned(rows) * PW;
+  Piece* const x = reinterpret_cast<Piece*>(roll_smem);   // the three buffers
+  const unsigned base = smem_addr(roll_smem), bytes = unsigned(rows) * PW;
   const uint32_t c2 = pack(c, c);
-  // where step b puts row li: out after the last step, else buffer b
-  Piece* const x = reinterpret_cast<Piece*>(roll_smem + roll_bar_bytes(CS));   // the buffers
+  // where step b puts row li: out after the last step, else buffer b % 3
   auto put_to = [&](int b) {
-    Piece* const to = x + (push ? b & 1 : b % kRollBuffers) * rows;
+    Piece* const to = x + (b % kRollBuffers) * rows;
     return [=](int li, const Piece& v) {
       if (b == B - 1) *reinterpret_cast<Piece*>(out + size_t(rank * rows + li) * rb + col) = v;
       else to[li] = v;
     };
   };
-  auto from_a = [=](int li) {     // step 0 reads a itself
-    int from = rank * rows + li - shift;
-    if (from < 0) from += M;
-    return *reinterpret_cast<const Piece*>(a + size_t(from) * rb + col);
-  };
-
-  if (push) {
-    // the remote rows: [0, t) from block rank - 1 (below) or [t, R) from rank + 1
-    const bool below = q == 0;
-    const int h = CS == 1 ? 0 : (below ? t : rows - t), slots = CS + 1;
-    const int e0 = below ? rows - h : 0;              // rows [e0, e0 + h) go to the neighbour
-    const int d0 = below ? 0 : t;                     // rows [d0, d0 + h) read the halo
-    const int halo_rows = roll_halo_rows(rows);
-    Piece* const halo = x + 2 * rows;                 // the slots, halo_rows pieces each
-    const int next = ((below ? rank + 1 : rank - 1) % CS + CS) % CS;
-    unsigned next_halo = 0, next_bars = 0;
-    if (h > 0) {
-      if (threadIdx.x == 0) {
-        for (int k = 0; k < slots; ++k) mbar_init(bars + k, 1);
-        mbar_init_fence();
-      }
-      next_halo = cluster_map(smem_addr(halo), unsigned(next));
-      next_bars = cluster_map(smem_addr(bars), unsigned(next));
-      cluster_arrive();             // every block started, its barriers initialised
-      cluster_wait();
-    }
-    // this block's rows read its own rows of the step before: [t, R) at li - t
-    // and [0, t) at li - t + R; those in [e0, e0 + h) go to the neighbour too
-    const int own[2][3] = {{CS == 1 || below ? t : 0, CS == 1 || below ? rows : 0, -t},
-                           {0, CS == 1 || !below ? t : 0, rows - t}};
-    for (int b = 0; b < B; ++b) {
-      const Piece* const src = x + ((b - 1) & 1) * rows;
-      Piece* const dst = x + (b & 1) * rows;
-      const bool last = b == B - 1, send = h > 0 && !last;
-      const unsigned k = unsigned(b % slots);
-      auto put = [&](int li, const Piece& v) {
-        if (last) *reinterpret_cast<Piece*>(out + size_t(rank * rows + li) * rb + col) = v;
-        else dst[li] = v;
-        if (send && li >= e0 && li < e0 + h)
-          push_piece<PW>(next_halo + (k * halo_rows + unsigned(li - e0)) * PW, v, next_bars + k * 8);
-      };
-      if (b == 0) {
-        roll_rows<PW>(0, rows, c2, from_a, put);
-      } else {
-        // the rows the neighbour reads next first, then the others, then the halo's
-        for (const auto& r : own) {
-          const int x0 = send && r[0] <= e0 && e0 < r[1] ? e0 : r[0];
-          const int x1 = send && r[0] <= e0 && e0 < r[1] ? e0 + h : r[0];
-          roll_local<PW>(src, r[2], x0, x1, c2, put);
-          roll_local<PW>(src, r[2], r[0], x0, c2, put);
-          roll_local<PW>(src, r[2], x1, r[1], c2, put);
-        }
-        if (h > 0) {
-          // only the threads that read the slot wait for it (h <= kRollThreads)
-          const int kk = (b - 1) % slots;
-          if (int(threadIdx.x) < h) {
-            if (threadIdx.x == 0) mbar_expect(bars + kk, unsigned(h) * PW);
-            chain_wait(bars + kk, unsigned((b - 1) / slots) & 1u);
-          }
-          roll_local<PW>(halo + kk * halo_rows, -d0, d0, d0 + h, c2, put);
-        }
-      }
-      __syncthreads();
-    }
-    return;
-  }
-
-  // pull: the blocks rows [t, rows) and [0, t) read from, and where they hold their buffers
+  // the blocks rows [t, rows) and [0, t) read from, and where they hold their buffers
   const int hi = ((rank - q) % CS + CS) % CS, lo = ((rank - q - 1) % CS + CS) % CS;
   const unsigned hi_base = CS > 1 ? cluster_map(base, unsigned(hi)) : base;
   const unsigned lo_base = CS > 1 ? cluster_map(base, unsigned(lo)) : base;
-  // one step over local rows [begin, end): from buffer b - 1 of the block
-  // whose shared memory starts at sbase, at row li - t (+ rows below t)
+  // step b over rows [begin, end) (on one side of t): from buffer b - 1 of
+  // this block or of the block whose shared memory starts at sbase
   auto step = [&](int b, int begin, int end, bool local, unsigned sbase) {
-    const int off = begin >= t ? -t : rows - t;       // [begin, end) lies on one side of t
+    const int off = begin >= t ? -t : rows - t, from = (b - 1) % kRollBuffers;
     if (local) {
-      roll_local<PW>(x + ((b - 1) % kRollBuffers) * rows, off, begin, end, c2, put_to(b));
+      roll_local<PW>(x + from * rows, off, begin, end, c2, put_to(b));
       return;
     }
-    const unsigned from = sbase + unsigned((b - 1) % kRollBuffers) * bytes;
-    auto load = [=](int li) {
+    const unsigned src = sbase + unsigned(from) * bytes;
+    roll_rows<PW>(begin, end, c2, [=](int li) {
       Piece v;
-      v.load_cluster(from + unsigned(li + off) * PW);
+      v.load_cluster(src + unsigned(li + off) * PW);
       return v;
-    };
-    roll_rows<PW>(begin, end, c2, load, put_to(b));
+    }, put_to(b));
   };
-  roll_rows<PW>(0, rows, c2, from_a, put_to(0));
+
+  roll_rows<PW>(0, rows, c2, [=](int li) {     // step 0 reads a itself
+    int from = rank * rows + li - shift;
+    if (from < 0) from += M;
+    return *reinterpret_cast<const Piece*>(a + size_t(from) * rb + col);
+  }, put_to(0));
   if (B == 1) return;
   if (CS > 1) cluster_arrive();
   for (int b = 1; b < B; ++b) {
     if (CS == 1) {
       __syncthreads();
-      step(b, 0, rows, true, base);
+      step(b, t, rows, true, base);
+      step(b, 0, t, true, base);
       continue;
     }
     // rows this block's last step wrote, then (after the barrier) the others
@@ -2556,7 +2453,7 @@ roll_smem_kernel(const uint8_t* __restrict__ a, uint8_t* __restrict__ out, int M
 // attributes set, `cfg` filled (its stream left to the caller).
 template <int CS, int PW>
 int roll_config(int M, int C, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  const long smem = roll_smem_bytes(M / CS, CS, PW);
+  const long smem = long(kRollBuffers) * (M / CS) * PW;
   if (M % CS != 0 || (2 * C) % PW != 0 || smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(roll_smem_kernel<CS, PW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -2577,19 +2474,15 @@ int roll_config(int M, int C, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr
 }
 
 template <int CS, int PW>
-int launch_roll(const void* a, void* out, int M, int C, int shift, int B, float c, int push,
+int launch_roll(const void* a, void* out, int M, int C, int shift, int B, float c,
                 cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int err = roll_config<CS, PW>(M, C, &cfg, attr);
   if (err != cudaSuccess) return err;
-  // push takes rows from one neighbour, at most a halo slot of them
-  const int rows = M / CS, q = shift / rows, t = shift - q * rows;
-  const int h = CS == 1 ? 0 : q == 0 ? t : q == CS - 1 ? rows - t : rows + 1;
-  if (push && h > roll_halo_rows(rows)) return cudaErrorInvalidValue;
   cfg.stream = stream;
   err = cudaLaunchKernelEx(&cfg, roll_smem_kernel<CS, PW>, static_cast<const uint8_t*>(a),
-                           static_cast<uint8_t*>(out), M, 2 * C, shift, B, c, push);
+                           static_cast<uint8_t*>(out), M, 2 * C, shift, B, c);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -2913,26 +2806,22 @@ int probes_roll_scratch_bytes(int M, int C) {
 // each followed by + c (c a bf16 value), into out.  The layout: a cluster of
 // `cluster` blocks (1, 2, 4, 8, 16) holds each column of `piece`-byte pieces
 // (16 or 8; or 4 with cluster 1), three buffers of M / cluster pieces a
-// block (probe_kernels.roll_plan); 2 C % piece == 0.  push: the rows another
-// block holds are pushed into halo slots (where they come from one
-// neighbour and fit a slot; else cudaErrorInvalidValue), not read after a
-// cluster barrier.
+// block (probe_kernels.roll_plan); 2 C % piece == 0.
 // One launch on `stream`; returns cudaGetLastError(), cudaErrorInvalidValue
 // for a layout or a shape it does not take.  PROBES_ROLL=0: PR 5's design,
 // a cooperative launch, the layout ignored; scratch of
 // probes_roll_scratch_bytes.
 int probes_roll_launch(const void* a, void* scratch, void* out, int M, int C, int shift, int B,
-                       float c, int cluster, int piece, int push, void* stream) {
+                       float c, int cluster, int piece, void* stream) {
   if (M <= 0 || C <= 0 || shift < 0 || shift >= M || B < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #if PROBES_ROLL
   (void)scratch;
   return roll_layout(cluster, piece, [&](auto layout) {
-    return launch_roll<decltype(layout)::kCS, decltype(layout)::kPW>(a, out, M, C, shift, B, c, push,
-                                                                      s);
+    return launch_roll<decltype(layout)::kCS, decltype(layout)::kPW>(a, out, M, C, shift, B, c, s);
   });
 #else
-  (void)cluster; (void)piece; (void)push;
+  (void)cluster; (void)piece;
   if (C % 8 != 0) return cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);

@@ -1,8 +1,8 @@
 """Training losses of the cascade trainer, as in ``srcgan_tpu.losses``.
 
 Means over every element, as the JAX functions reduce.  The GAN objectives
-and DSSIM wait for the adversarial family and SSIM (ROADMAP A8, A10), the
-VGG perceptual loss for A13.
+and DSSIM wait for the adversarial family (ROADMAP A10), the VGG perceptual
+loss for A13.
 """
 from __future__ import annotations
 

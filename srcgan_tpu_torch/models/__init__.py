@@ -1,7 +1,7 @@
 """Model registry of the port: the cascade's SR generators and colorizer.
 
 ``create(name, ...)`` builds a model by name, as ``srcgan_tpu.models.create``
-does; the rest of the JAX zoo is still to be ported (ROADMAP A3, A11).
+does; the rest of the JAX zoo is still to be ported (ROADMAP A10, A11).
 """
 from __future__ import annotations
 

@@ -67,7 +67,6 @@ _ROLL_ADD = 1e-8               # probe_roll's added constant, rounded to bf16 fi
 # threads and buffers a block.
 ROLL_CLUSTERS, ROLL_PIECES = (1, 2, 4, 8, 16), (16, 8, 4)
 ROLL_CLUSTER, ROLL_PIECE, ROLL_THREADS, ROLL_BUFFERS = 8, 16, 1024, 3
-ROLL_HALO_ROWS = 256           # rows a halo slot holds at most (and half a block's)
 # probe_concat_dot's forms (probes_concat_launch's form 0 and 1)
 CONCAT_FORMS = ("concat", "twodots")
 # probe_matmul's int8 GEMM: 128 rows a block, every chunk of 128 k resident.
@@ -247,7 +246,7 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.probes_roll_scratch_bytes.argtypes = [ctypes.c_int] * 2
     lib.probes_roll_scratch_bytes.restype = ctypes.c_int
     lib.probes_roll_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-        ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.probes_roll_launch.restype = ctypes.c_int
     lib.probes_roll_max_clusters.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.probes_roll_max_clusters.restype = ctypes.c_int
@@ -508,24 +507,20 @@ def probe_concat_dot(a: torch.Tensor, w: torch.Tensor, steps: int = 8,
 
 
 def roll_plan(m: int, c: int, shift: int = 1, cluster: int = ROLL_CLUSTER,
-              piece: int = ROLL_PIECE, push: bool | None = None) -> dict:
+              piece: int = ROLL_PIECE) -> dict:
     """How probe_roll's kernel runs its steps on a (M, C) bf16, as
     csrc/probes.cu lays it out: each row cut into pieces of ``piece`` bytes
     (16: 8 columns; 8: 4; 4: 2); a column of pieces (M of them) held by a
     cluster of ``cluster`` blocks, each owning R = M / cluster rows of it in
-    shared memory for all the steps; ROLL_THREADS threads a block; none of
-    its barriers falls across the grid.  A step reads each source row (i -
-    shift) mod M where it lies, ``remote_rows`` a block in another block of
-    the cluster.  Where those come from one neighbour (shift mod M below R or
-    above M - R) and fill at most a halo slot (min(ROLL_HALO_ROWS, R / 2)
-    rows), that neighbour pushes them into the block's halo slot for the step
-    as soon as it has them (``push``: "halo pushes", a block barrier between
-    steps); else (or with ``push=False``) the block reads them from the other
-    block's buffer after a cluster barrier ("cluster barrier", three buffers).
-    The first step reads a, the last writes out.  Raises ValueError for a
-    layout the kernel is not built for, a C whose rows do not cut into whole
-    pieces, an M the cluster does not divide or whose buffers do not fit a
-    block's shared memory, or ``push=True`` where the rows cannot be pushed."""
+    ROLL_BUFFERS buffers of shared memory for all the steps; ROLL_THREADS
+    threads a block.  A step reads each source row (i - shift) mod M where it
+    lies: the rows its own block holds first, then, after the cluster barrier
+    of the step before, ``remote_rows`` rows from another block's buffer
+    (one block alone: a block barrier); none of its barriers falls across the
+    grid.  The first step reads a, the last writes out.  Raises ValueError
+    for a layout the kernel is not built for, a C whose rows do not cut into
+    whole pieces, or an M the cluster does not divide or whose buffers do not
+    fit a block's shared memory."""
     if piece not in ROLL_PIECES or cluster not in ROLL_CLUSTERS or (piece == 4 and cluster != 1):
         raise ValueError(f"probe_roll: the kernel takes 16- or 8-byte pieces in clusters of "
                          f"{ROLL_CLUSTERS} blocks or 4-byte pieces in one block, got "
@@ -534,28 +529,20 @@ def roll_plan(m: int, c: int, shift: int = 1, cluster: int = ROLL_CLUSTER,
         raise ValueError(f"probe_roll: a row of {c} bf16 columns does not cut into {piece}-byte "
                          f"pieces")
     rows = m // cluster
-    halo = min(ROLL_HALO_ROWS, rows // 2)
-    bars = -(-(cluster + 1) * 8 // 16) * 16
-    smem = bars + max(ROLL_BUFFERS * rows * piece, (2 * rows + (cluster + 1) * halo) * piece)
+    smem = ROLL_BUFFERS * rows * piece
     if m % cluster or smem > SMEM_PER_BLOCK:
         raise ValueError(f"probe_roll: a column of {m} {piece}-byte pieces does not fit a cluster "
                          f"of {cluster} blocks: {cluster} must divide M and each block's "
                          f"{ROLL_BUFFERS} buffers ({smem} bytes) fit its {SMEM_PER_BLOCK} bytes of "
                          f"shared memory")
-    s = shift % m
-    q, t = divmod(s, rows)
+    q, t = divmod(shift % m, rows)
     remote = (t if (q + 1) % cluster else 0) + ((rows - t) if q % cluster else 0)
-    pushable = cluster == 1 or (q in (0, cluster - 1) and remote <= halo)
-    if push and not pushable:
-        raise ValueError(f"probe_roll: at shift {shift} a block of {rows} rows reads {remote} rows "
-                         f"of other blocks, more than one neighbour's halo slot of {halo}")
-    push = pushable if push is None else push
-    sync = ("block barrier" if cluster == 1 else "halo pushes" if push else "cluster barrier")
     columns = 2 * c // piece
     return {"cluster": cluster, "piece_bytes": piece, "piece_columns": columns,
             "blocks": columns * cluster, "threads": ROLL_THREADS, "rows_per_block": rows,
-            "smem_bytes": smem, "remote_rows": remote, "push": push, "sync": sync,
-            "grid_barrier": False, "launches": 1}
+            "smem_bytes": smem, "remote_rows": remote,
+            "barrier": "cluster" if cluster > 1 else "block", "grid_barrier": False,
+            "launches": 1}
 
 
 def roll(lib: ctypes.CDLL, a: torch.Tensor, shift: int, steps: int = 16,
@@ -575,7 +562,7 @@ def roll(lib: ctypes.CDLL, a: torch.Tensor, shift: int, steps: int = 16,
     with torch.cuda.device(a.device):
         err = lib.probes_roll_launch(a.data_ptr(), _ptr(scratch), out.data_ptr(), m, c, shift % m,
                                      steps, _roll_constant(), plan["cluster"],
-                                     plan["piece_bytes"], int(plan["push"]), stream)
+                                     plan["piece_bytes"], stream)
     if err:
         raise RuntimeError(f"probe_roll launch failed: {lib.probes_error_string(err).decode()}")
     return out

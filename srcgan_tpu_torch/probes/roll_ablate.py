@@ -6,12 +6,10 @@
 each followed by + bf16(1e-8), in one launch of ``csrc/probes.cu``'s roll
 kernel: a column of pieces of every row (16, 8 or 4 bytes) lives in the
 shared memory of a cluster of blocks for all the steps, each block owning a
-range of rows, and no barrier falls across the grid
-(``probe_kernels.roll_plan``).  The rows a block reads from another block
-are pushed into its halo slot by that block (st.async, counted on the slot's
-barrier) or read from that block's buffer after a cluster barrier.  The
-layout and the way of sharing are arguments of the launch, so one build
-holds them all.  This builds the default build and PR 5's design
+range of rows, the rows it reads from another block read from that block's
+buffer after a cluster barrier, and no barrier falls across the grid
+(``probe_kernels.roll_plan``).  The layout is an argument of the launch, so
+one build holds them all.  This builds the default build and PR 5's design
 (``PROBES_ROLL=0``: a cooperative launch, a grid-wide barrier between steps)
 together, holds every layout bit-equal to the plain version at shifts 0, 1,
 128 and M - 1 (three calls bit-equal), prints how many clusters of each the
@@ -39,14 +37,10 @@ from srcgan_tpu_torch import config
 from srcgan_tpu_torch.probes import common
 
 M, C, STEPS, SHIFTS = 16384, 64, 16, (1, 128)
-# (label, cluster, piece bytes, push); the first is the layout roll_plan picks
-LAYOUTS = (("16 B pieces, cluster of 8, halo pushes", 8, 16, True),
-           ("16 B pieces, cluster of 8, cluster barrier", 8, 16, False),
-           ("16 B pieces, cluster of 16, halo pushes", 16, 16, True),
-           ("16 B pieces, cluster of 4, halo pushes", 4, 16, True),
-           ("8 B pieces, cluster of 8, halo pushes", 8, 8, True),
-           ("8 B pieces, cluster of 4, halo pushes", 4, 8, True),
-           ("4 B pieces, one block a column", 1, 4, None))
+# (label, cluster, piece bytes); the first is the layout roll_plan picks
+LAYOUTS = (("16 B pieces, cluster of 8", 8, 16), ("16 B pieces, cluster of 16", 16, 16),
+           ("16 B pieces, cluster of 4", 4, 16), ("8 B pieces, cluster of 8", 8, 8),
+           ("8 B pieces, cluster of 4", 4, 8), ("4 B pieces, one block a column", 1, 4))
 FIRST_DESIGN = ("PROBES_ROLL=0",)
 
 
@@ -83,8 +77,7 @@ def main(argv=None) -> list:
 
     a = common.operand(np.random.default_rng(2), (M, C), torch.bfloat16, dev)
     a[0, :3] = torch.tensor([0.0, 1e-8, -1e-8], device=dev).bfloat16()   # where the add shows
-    plans = {label: pk.roll_plan(M, C, 1, cluster, piece, push)
-             for label, cluster, piece, push in LAYOUTS}
+    plans = {label: pk.roll_plan(M, C, 1, cluster, piece) for label, cluster, piece in LAYOUTS}
     for shift in (0, 1, 128, M - 1):
         ref = pk.probe_roll_reference(a, shift, STEPS).view(torch.int16)
         for label, *_ in LAYOUTS:
@@ -100,7 +93,7 @@ def main(argv=None) -> list:
         torch.cuda.synchronize()
         if not torch.equal(old.view(torch.int16), ref):
             raise RuntimeError(f"PR 5's probe_roll disagrees at shift {shift}")
-    for label, cluster, piece, _ in LAYOUTS:
+    for label, cluster, piece in LAYOUTS:
         plan = plans[label]
         print(f"# {label}: {plan['blocks']} blocks of {plan['rows_per_block']} rows, "
               f"{plan['smem_bytes']} bytes of shared memory a block; clusters held at once "
@@ -125,7 +118,7 @@ def main(argv=None) -> list:
           f" {'us a roll past 16':>18}")
     rows = []
     for shift in SHIFTS:
-        for label, cluster, piece, _ in LAYOUTS + (("PR 5 design", 0, 0, None),):
+        for label, cluster, piece in LAYOUTS + (("PR 5 design", 0, 0),):
             key = f"{label}, shift {shift}"
             t = times[key]
             med = statistics.median(t)

@@ -856,26 +856,55 @@ def test_chain_kernel_agrees_with_the_first_design(dev):
 
 
 @pytest.mark.parametrize("form", ["concat", "twodots"])
-def test_probe_concat_dot_matches_plain_version(dev, form):
-    a, w = probe_operand(1, (16384, 64), torch.bfloat16, dev), probe_operand(
+@pytest.mark.parametrize("m,steps", [(16384, 8), (16384, 1), (320, 3)])
+def test_probe_concat_dot_matches_plain_version(dev, form, m, steps):
+    """The chain kernel's forms within rel-L2 1e-3 of the plain version, three
+    calls bit-equal, one count a call."""
+    a, w = probe_operand(1, (m, 64), torch.bfloat16, dev), probe_operand(
         2, (128, 192), torch.bfloat16, dev)
-    got = probe_kernels.probe_concat_dot(a, w, 8, form)
-    ref = probe_kernels.probe_concat_dot_reference(a, w, 8, form)
+    before = probe_kernels.launches["probe_concat_dot"]
+    got = [probe_kernels.probe_concat_dot(a, w, steps, form) for _ in range(3)]
+    ref = probe_kernels.probe_concat_dot_reference(a, w, steps, form)
     torch.cuda.synchronize()
-    assert probe_rel_l2(got, ref) <= 1e-3
+    assert probe_kernels.launches["probe_concat_dot"] == before + 3
+    assert all(torch.equal(g, got[0]) for g in got[1:])
+    assert probe_rel_l2(got[0], ref) <= 1e-3
 
 
-@pytest.mark.parametrize("shift", [1, 128, -1, 16383])
-@pytest.mark.parametrize("steps", [1, 16])
+@pytest.mark.parametrize("shift", [0, 1, 128, -1, 16383])
+@pytest.mark.parametrize("steps", [1, 2, 16])
 def test_probe_roll_is_bit_equal(dev, shift, steps):
+    """The cluster kernel bit-equal to the plain version, three calls
+    bit-equal, one count a call, the input not written."""
     a = probe_operand(3, (16384, 64), torch.bfloat16, dev)
     a[0, :3] = torch.tensor([0.0, 1e-8, -1e-8], device=dev).bfloat16()
     keep = a.clone()
-    got, ref = probe_kernels.probe_roll(a, shift, steps), probe_kernels.probe_roll_reference(
-        a, shift, steps)
+    before = probe_kernels.launches["probe_roll"]
+    got = [probe_kernels.probe_roll(a, shift, steps) for _ in range(3)]
+    ref = probe_kernels.probe_roll_reference(a, shift, steps)
+    torch.cuda.synchronize()
+    assert probe_kernels.launches["probe_roll"] == before + 3
+    assert torch.equal(got[0].view(torch.int16), ref.view(torch.int16))
+    assert all(torch.equal(g, got[0]) for g in got[1:])
+    assert torch.equal(a, keep)                                  # the input is not written
+
+
+@pytest.mark.parametrize("cluster,piece", [(8, 16), (16, 16), (4, 16), (8, 8), (4, 8), (2, 8),
+                                           (1, 4)])
+@pytest.mark.parametrize("m,shift", [(16384, 128), (16384, 16383), (2048, 700), (512, 1)])
+def test_roll_layouts_bit_equal(dev, cluster, piece, m, shift):
+    """Every layout the kernel is built for (the ablation's), bit-equal to the
+    plain version at 16 steps, shifts within a block's rows and across them."""
+    a = probe_operand(13, (m, 64), torch.bfloat16, dev)
+    try:
+        plan = probe_kernels.roll_plan(m, 64, shift, cluster, piece)
+    except ValueError:
+        assert 3 * (m // cluster) * piece > probe_kernels.SMEM_PER_BLOCK
+        return
+    got = probe_kernels.roll(probe_kernels._library(), a, shift, 16, plan)
+    ref = probe_kernels.probe_roll_reference(a, shift, 16)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
-    assert torch.equal(a, keep)                                  # the input is not written
 
 
 @pytest.mark.parametrize("form", ["im2col", "shifted"])
@@ -914,6 +943,12 @@ g = torch.Generator().manual_seed(9)
 if sys.argv[1] == "probe_matmul":
     x, w = (torch.randint(-100, 100, s, generator=g).to("cuda", torch.int8) for s in ((16384, 576), (576, 192)))
     fn = lambda: pk.probe_matmul(x, w)
+elif sys.argv[1] == "probe_roll":
+    x = (torch.rand((16384, 64), generator=g) * 2 - 1).to("cuda", torch.bfloat16)
+    fn = lambda: pk.probe_roll(x, int(sys.argv[2]), 16)
+elif sys.argv[1] == "probe_concat_dot":
+    x, w = ((torch.rand(s, generator=g) * 2 - 1).to("cuda", torch.bfloat16) for s in ((16384, 64), (128, 192)))
+    fn = lambda: pk.probe_concat_dot(x, w, 8, sys.argv[2])
 else:
     x, w = ((torch.rand(s, generator=g) * 2 - 1).to("cuda", torch.bfloat16) for s in ((16384, 64), (576, 192)))
     fn = lambda: pk.probe_stage1(x, w, 4, 128, sys.argv[2])
@@ -924,10 +959,16 @@ print(json.dumps(common.device_kernels(fn)))
 @pytest.mark.parametrize("probe,arg,want", [
     ("probe_matmul", "int8", ("s8_image_kernel", "matmul8_kernel")),
     ("probe_stage1", "im2col", ("s1_image_kernel", "stage1_kernel")),
-    ("probe_stage1", "shifted", ("s1_image_kernel", "stage1_kernel"))])
+    ("probe_stage1", "shifted", ("s1_image_kernel", "stage1_kernel")),
+    ("probe_roll", "128", ("roll_smem_kernel",)),
+    ("probe_roll", "1", ("roll_smem_kernel",)),
+    ("probe_concat_dot", "concat", ("chain_kernel",)),
+    ("probe_concat_dot", "twodots", ("chain_kernel",))])
 def test_redesigned_probes_run_their_kernels_only(dev, probe, arg, want):
     """probe_matmul's int8 form and probe_stage1 (both forms) run w's image
-    and their own kernel once each a call: no dots_kernel, no transpose."""
+    and their own kernel once each a call, probe_roll its cluster kernel and
+    probe_concat_dot the chain kernel once a call: no dots_kernel, no
+    transpose, no cooperative roll_kernel."""
     root = Path(__file__).resolve().parents[1]
     run = subprocess.run([sys.executable, "-c", PROFILE_PROBE, probe, arg], capture_output=True,
                          text=True, timeout=600, cwd=root, check=True,
@@ -955,12 +996,14 @@ def test_probe_stage1_three_calls_bit_equal(dev, form, m, stride):
 
 
 def test_redesigned_probes_agree_with_their_first_design(dev):
-    """The PROBES_MM8=0 and PROBES_STAGE1=0 builds (PR 5's dots_kernel, the
-    yardstick of the ablations and of chip_smoke.py) compute the same
-    functions: int8 bit-equal, the stages within rel-L2 1e-3."""
+    """The PROBES_MM8=0 PROBES_STAGE1=0 PROBES_ROLL=0 PROBES_CONCAT=0 build
+    (PR 5's designs, the yardstick of the ablations and of chip_smoke.py)
+    computes the same functions: int8 and the roll bit-equal, the stages and
+    the pairs within rel-L2 1e-3."""
     from srcgan_tpu_torch.ops.kernels import build
 
-    first = probe_kernels.declare(build.load("probes", ("PROBES_MM8=0", "PROBES_STAGE1=0")))
+    first = probe_kernels.declare(build.load("probes", ("PROBES_MM8=0", "PROBES_STAGE1=0",
+                                                        "PROBES_ROLL=0", "PROBES_CONCAT=0")))
     x, w = probe_operand(16, (16384, 576), torch.int8, dev), probe_operand(17, (576, 192), torch.int8, dev)
     assert torch.equal(probe_kernels.matmul_int8(first, x, w), probe_kernels.probe_matmul(x, w))
     x, w = probe_operand(18, (16384, 64), torch.bfloat16, dev), probe_operand(
@@ -970,6 +1013,14 @@ def test_redesigned_probes_agree_with_their_first_design(dev):
         new = probe_kernels.probe_stage1(x, w, 4, 128, form)
         torch.cuda.synchronize()
         assert probe_rel_l2(old, new) <= 1e-3
+    w = probe_operand(20, (128, 192), torch.bfloat16, dev)
+    for form in ("concat", "twodots"):
+        old = probe_kernels.concat(first, x, w, 8, form)
+        new = probe_kernels.probe_concat_dot(x, w, 8, form)
+        torch.cuda.synchronize()
+        assert probe_rel_l2(old, new) <= 1e-3
+    for shift in (1, 128):
+        assert torch.equal(probe_kernels.roll(first, x, shift, 16), probe_kernels.probe_roll(x, shift, 16))
 
 
 def test_probes_reject_what_the_kernels_cannot_run(dev):
@@ -991,6 +1042,15 @@ def test_probes_reject_what_the_kernels_cannot_run(dev):
     with pytest.raises(ValueError, match="K <= 640"):
         probe_kernels.probe_matmul(probe_operand(10, (64, 672), torch.int8, dev),
                                    probe_operand(11, (672, 64), torch.int8, dev))
+    with pytest.raises(ValueError, match="8 must divide M"):
+        probe_kernels.probe_roll(x, 1)                           # 100 rows, clusters of 8
+    with pytest.raises(ValueError, match="does not cut"):
+        probe_kernels.probe_roll(probe_operand(12, (64, 60), torch.bfloat16, dev), 1)
+    with pytest.raises(ValueError, match="fit its"):
+        probe_kernels.probe_roll(probe_operand(12, (8 * 8192, 64), torch.bfloat16, dev), 1)
+    with pytest.raises(ValueError, match="a \\(M, 64\\)"):
+        probe_kernels.probe_concat_dot(probe_operand(13, (64, 32), torch.bfloat16, dev),
+                                       probe_operand(14, (64, 192), torch.bfloat16, dev))
     assert probe_kernels.launches == before
 
 

@@ -606,3 +606,102 @@ def test_matmul8_sweep_copies_and_launches(k, n):
     assert matmul_probe.copies(16384, k, n) == {(64, 64): 50, (192, 128): 20, (576, 192): 9}[(k, n)]
     assert sum(3 * matmul_probe.copies(16384, kk, nn) for _, kk, nn in MATMUL_SHAPES) == 600
     assert sum(3 * matmul_probe.copies(16384, kk, nn, 2) for _, kk, nn in MATMUL_SHAPES) == 306
+
+
+# -- probe_roll's cluster plan and probe_concat_dot on the chain kernel -------------
+
+@pytest.mark.parametrize("m,shift", [(512, 0), (512, 511), (256, 1), (1024, 128), (384, 200)])
+def test_roll_bit_equal_at_every_shift(m, shift):
+    """The plain version against the restated JAX kernel (see above) at
+    shift 0, M - 1 and shifts inside and across a block's rows, 1 and 16
+    steps: bit-equal."""
+    a = np.random.default_rng(m + shift).uniform(-1, 1, (m, 64)).astype(np.float32)
+    a[0, :3] = [0.0, 1e-8, -1e-8]
+    for steps in (1, 16):
+        aa = j_bf16(a)
+        for _ in range(steps):
+            aa = jnp.roll(aa, shift, axis=0) + jnp.bfloat16(1e-8)
+        got = pk.probe_roll(t_bf16(a), shift, steps)
+        np.testing.assert_array_equal(got.view(torch.int16).numpy(), np.asarray(aa).view(np.int16))
+
+
+@pytest.mark.parametrize("shift,remote", [(128, 128), (1, 1), (0, 0), (16383, 1), (2048, 2048),
+                                          (5000, 2048)])
+def test_roll_plan_of_the_sweep_shape(shift, remote):
+    """(16384, 64) bf16, the sweep's shape: 16-byte pieces in clusters of 8
+    blocks, 64 blocks of 2,048 rows, three buffers of 32 KB; the rows a block
+    reads from another block after the cluster barrier; no grid barrier."""
+    plan = pk.roll_plan(16384, 64, shift)
+    assert (plan["cluster"], plan["piece_bytes"], plan["piece_columns"], plan["blocks"]) == (8, 16, 8, 64)
+    assert plan["rows_per_block"] == 2048 and plan["smem_bytes"] == 3 * 2048 * 16
+    assert plan["threads"] == 1024 and plan["barrier"] == "cluster" and not plan["grid_barrier"]
+    assert plan["remote_rows"] == remote and plan["launches"] == 1
+    from srcgan_tpu_torch.probes import roll_ablate
+    assert roll_ablate.LAYOUTS[0][1:] == (pk.ROLL_CLUSTER, pk.ROLL_PIECE)
+    for _, cluster, piece in roll_ablate.LAYOUTS:       # every layout it times fits
+        assert pk.roll_plan(roll_ablate.M, roll_ablate.C, 128, cluster, piece)["smem_bytes"] \
+            <= pk.SMEM_PER_BLOCK
+    one = pk.roll_plan(16384, 64, 128, 1, 4)
+    assert (one["blocks"], one["rows_per_block"], one["barrier"], one["remote_rows"]) == \
+        (32, 16384, "block", 0)
+
+
+@pytest.mark.parametrize("m,c,cluster,piece,match", [
+    (16388, 64, 8, 16, "8 must divide M"),                   # M not a multiple of the cluster
+    (131072, 64, 8, 16, "fit its 232448 bytes"),             # a block's buffers too large
+    (16384, 60, 8, 16, "does not cut into 16-byte pieces"),  # rows not whole pieces
+    (16384, 64, 8, 4, "4-byte pieces in one block"),         # a layout not built
+    (16384, 64, 32, 16, "clusters of"),
+    (16384, 64, 1, 16, "fit its 232448 bytes")])
+def test_roll_plan_refuses_what_the_kernel_does_not_take(m, c, cluster, piece, match):
+    with pytest.raises(ValueError, match=match):
+        pk.roll_plan(m, c, 1, cluster, piece)
+
+
+@pytest.mark.parametrize("steps", [1, 8])
+@pytest.mark.parametrize("form", ["concat", "twodots"])
+def test_concat_dot_matches_the_restated_kernels_at_each_depth(form, steps):
+    """Both forms against the restated JAX kernels at 1 and 8 steps; on the
+    CPU the wrapper's plain version, which the card's chain kernel is held to
+    (the y[0,0] chain of 1e-36 moves no operand here, so both are the same
+    function)."""
+    a, w = bf16_pair(21, 128, 64, 192)
+    w = np.concatenate([w, bf16_pair(22, 1, 64, 192)[1]])
+    want = jax_concat_dot(j_bf16(a), j_bf16(w), steps, form)
+    got = pk.probe_concat_dot(t_bf16(a), t_bf16(w), steps, form)
+    assert got.dtype == torch.float32 and rel_l2(got.numpy(), want) <= 1e-5
+    assert pk.CONCAT_FORMS == ("concat", "twodots")
+
+
+@pytest.mark.parametrize("argv,match", [(["roll"], "no CUDA card"),
+                                        (["roll", "--device", "cpu"], "no CPU mode"),
+                                        (["concat"], "no CUDA card"),
+                                        (["concat", "--device", "cpu"], "no CPU mode")],
+                         ids=["roll-default-device", "roll-cpu-asked", "concat-default-device",
+                              "concat-cpu-asked"])
+def test_roll_and_concat_ablations_run_only_on_the_card(monkeypatch, argv, match):
+    """Both ablations are named subcommands, like the others."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=match):
+        probes_main.main(argv)
+
+
+def test_roll_and_concat_ablations_time_the_shipped_design_first(capsys):
+    """The usage names both; the concat ablation times the default build
+    first, then the options the issue asked for, PR 5's design and builds
+    with work left out; the roll ablation PR 5's design beside its layouts."""
+    from srcgan_tpu_torch.probes import concat_ablate, roll_ablate
+
+    assert probes_main.main(["--help"]) == {}
+    out = capsys.readouterr().out
+    assert "roll" in out and "concat" in out
+    assert probes_main.NAMED_ONLY["roll"] is roll_ablate
+    assert probes_main.NAMED_ONLY["concat"] is concat_ablate
+    assert concat_ablate.VARIANTS[0][1] == ()
+    switches = [d for _, d in concat_ablate.VARIANTS]
+    assert ("PROBES_CONCAT=0",) in switches and ("PROBES_CONCAT_SETS=2",) in switches
+    assert ("PROBES_CONCAT_WALK=1",) in switches
+    assert [d for _, d in concat_ablate.LEAVE_OUT] == [(f"PROBES_CHAIN_LEAVE_OUT={k}",) for k in (1, 2)]
+    assert roll_ablate.FIRST_DESIGN == ("PROBES_ROLL=0",) and roll_ablate.SHIFTS == (1, 128)
+    assert roll_ablate.M == layout_probe3.M and roll_ablate.STEPS == layout_probe3.ROLL_STEPS
+    assert concat_ablate.M == layout_probe3.M and concat_ablate.STEPS == layout_probe3.PAIR_STEPS
