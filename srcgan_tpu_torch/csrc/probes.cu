@@ -49,8 +49,7 @@
 // (chain_pair): 8 dots of [a, a/2] (M, 128) against w128 (128, 192), the
 // same products as probe_dots' 16 dots of K=64.  w128 is resident as the
 // bf16 chain holds w (TMA boxes, MN-major); the warpgroups split the columns
-// (128 and 64, the first in two passes of 64 so that its first pass's
-// stores run under its second pass), each over all of K; A is in registers, k steps 0-3 a's
+// (128 and 64), each over all of K; A is in registers, k steps 0-3 a's
 // fragments loaded once and steps 4-7 a/2 made from them after every
 // perturbation, as the plain version recomputes cur * 0.5, so nothing is
 // rebuilt in shared memory; every warp computes the y[0,0] chain from row 0
@@ -997,7 +996,7 @@ constexpr int kChMaxK = 576;
 // or probe_concat_dot's two forms (chain_pair).
 enum ChainForm { kChainDots = 0, kChainConcat = 1, kChainTwoDots = 2 };
 // Blocks an SM the chain kernel asks ptxas for: two at K <= 128, except the
-// two accumulator sets of "twodots" (3 x 32 fp32 sums, 48 words of A).
+// two accumulator sets of "twodots" (3 x 64 fp32 sums and 32 words of A).
 template <int KC, int FORM> __host__ __device__ constexpr int ch_blocks() {
   return KC > 128 || (FORM == kChainTwoDots && PROBES_CONCAT_SETS == 2) ? 1 : PROBES_CHAIN_BLOCKS;
 }
@@ -1292,27 +1291,24 @@ __device__ __forceinline__ void chain_bf16_nsplit(const uint8_t* x, const uint8_
   }
 }
 
-// probe_concat_dot (see the header): 8 k16 steps of [a, a/2] (M, 128)
-// against w128 (128, 192) for each tile of the block, in passes of 64
-// columns (m64n64k16): warpgroup 0 takes columns [0, 64) and then [64, 128),
-// warpgroup 1 [128, 192), so that the stores of warpgroup 0's first pass run
-// under its second pass's products.  a is (M, 64): A's steps 0-3 are its
-// fragments, loaded once a tile, and steps 4-7 their halves, remade after
-// every perturbation; each pass starts again from a and replays the y[0,0]
-// chain, which every warp computes itself.  "concat" accumulates all 8 steps
-// into the running sums; "twodots" with PROBES_CONCAT_SETS=2 runs each K=64
-// dot into a set of its own (scale-d 0 on its first step) and adds y1 + y2
-// to the running sums once both are done.  PROBES_CHAIN_LEAVE_OUT=1 and 2
-// leave out the wgmmas and the dots as they do for the chain (the
-// ablation's split of a call's time; results wrong).
+// probe_concat_dot (see the header): warpgroup WG's columns [C0, C0 + NW)
+// of 8 k16 steps of [a, a/2] (M, 128) against w128 (128, 192), for each tile
+// of the block.  a is (M, 64): A's steps 0-3 are its fragments, loaded once
+// a tile, and steps 4-7 their halves, remade after every perturbation.
+// "concat" accumulates all 8 steps into the running sums; "twodots" with
+// PROBES_CONCAT_SETS=2 runs each K=64 dot into a set of its own (scale-d 0
+// on its first step) and adds y1 + y2 to the running sums once both are done.
+// PROBES_CHAIN_LEAVE_OUT=1 and 2 leave out the wgmmas and the dots as they do
+// for the chain (the ablation's split of a call's time; results wrong).
 template <int WG, int FORM>
 __device__ __forceinline__ void chain_pair(const uint8_t* x, const uint8_t* w, float* out,
                                            uint8_t* region, uint64_t* full, int M, int B) {
-  constexpr int N = 192, NW = 64, kPasses = WG ? 1 : 2;
+  constexpr int N = 192, C0 = WG ? 128 : 0, NW = WG ? 64 : 128;
   constexpr bool kSets = FORM == kChainTwoDots && PROBES_CONCAT_SETS == 2;
   const int lane = threadIdx.x & 31, wl = (threadIdx.x >> 5) & 3, g = lane >> 2, q = lane & 3;
   const uint32_t* xw = reinterpret_cast<const uint32_t*>(x);   // 32 words a row of a
   const uint16_t* wh = reinterpret_cast<const uint16_t*>(w);
+  const unsigned wbase = smem_addr(region) + (C0 / 64) * 8192;
   // column 0 of w128 (rows 2j and 2j + 1 as a bf16 pair), j = lane + 32 i
   uint32_t wc[2];
 #pragma unroll
@@ -1322,82 +1318,75 @@ __device__ __forceinline__ void chain_pair(const uint8_t* x, const uint8_t* w, f
   }
   for (int tile = blockIdx.x; tile < M / 64; tile += gridDim.x) {
     const int row = tile * 64 + 16 * wl + g;
-    uint32_t a0[4][4];                            // this warp's rows of a, as loaded
+    uint32_t a[8][4];
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
       const int c = 8 * s + q;
-      a0[s][0] = __ldg(xw + size_t(row) * 32 + c);
-      a0[s][1] = __ldg(xw + size_t(row + 8) * 32 + c);
-      a0[s][2] = __ldg(xw + size_t(row) * 32 + c + 4);
-      a0[s][3] = __ldg(xw + size_t(row + 8) * 32 + c + 4);
+      a[s][0] = __ldg(xw + size_t(row) * 32 + c);
+      a[s][1] = __ldg(xw + size_t(row + 8) * 32 + c);
+      a[s][2] = __ldg(xw + size_t(row) * 32 + c + 4);
+      a[s][3] = __ldg(xw + size_t(row + 8) * 32 + c + 4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[s + 4][e] = bf2_half(a[s][e]);
     }
-    const uint32_t x00 = __ldg(xw + lane);        // the warp's own word `lane` of row 0
-#pragma unroll 1
-    for (int p = 0; p < kPasses; ++p) {
-      const int c0 = WG ? 128 : 64 * p;
-      const unsigned wbase = smem_addr(region) + unsigned(c0 / 64) * 8192;
-      uint32_t a[8][4], x0[2] = {x00, bf2_half(x00)};   // x0: row 0 of [a, a/2]
+    // the warp's own row 0 of [a, a/2]: word `lane` of a, then its half
+    uint32_t x0[2];
+    x0[0] = __ldg(xw + lane);
+    x0[1] = bf2_half(x0[0]);
+
+    float d[NW / 2], y1[kSets ? NW / 2 : 1], y2[kSets ? NW / 2 : 1];
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) d[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (kSets ? NW / 2 : 1); ++i) y1[i] = y2[i] = 0.f;
+    for (int b = 0; b < (PROBES_CHAIN_LEAVE_OUT >= 2 ? 0 : B); ++b) {
+      // a commit group per chunk of w128 (one K=64 dot), each behind that
+      // chunk's barrier (waited on once; later dots and tiles find it complete)
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        if (s % 4 == 0) {
+          if (s != 0) wgmma_commit();
+          chain_wait(full + s / 4, 0);
+          wgmma_fence();
+        }
+        const uint64_t wdesc = descriptor(wbase + (s / 4) * N * 128 + (s % 4) * 2048, 8192, 1024, true);
+        if constexpr (PROBES_CHAIN_LEAVE_OUT != 0) {
+        } else if constexpr (kSets) {
+          if (s < 4) RsT<NW>::mma(y1, a[s], wdesc, s != 0);
+          else RsT<NW>::mma(y2, a[s], wdesc, s != 4);
+        } else {
+          RsT<NW>::mma(d, a[s], wdesc, 1);
+        }
+      }
+      wgmma_commit();
+      // meanwhile the chain: y[0,0] of this dot, and the perturbation of the next a
+      const float dd = __bfloat162float(__float2bfloat16_rn(row0_dot(x0, wc) * 1e-36f));
+      const uint32_t dd2 = pack(dd, dd);
+      x0[0] = bf2_add_once(x0[0], dd2);
+      x0[1] = bf2_half(x0[0]);
+      wgmma_wait<0>();                            // the dot has read its A registers
+      keep(a);
+      if constexpr (kSets) {
+        keep(y1);
+        keep(y2);
+#pragma unroll
+        for (int i = 0; i < NW / 2; ++i) d[i] += y1[i] + y2[i];
+      } else {
+        keep(d);
+      }
 #pragma unroll
       for (int s = 0; s < 4; ++s)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          a[s][e] = a0[s][e];
-          a[s + 4][e] = bf2_half(a0[s][e]);
+          a[s][e] = bf2_add_once(a[s][e], dd2);
+          a[s + 4][e] = bf2_half(a[s][e]);
         }
-      float d[NW / 2], y1[kSets ? NW / 2 : 1], y2[kSets ? NW / 2 : 1];
+    }
 #pragma unroll
-      for (int i = 0; i < NW / 2; ++i) d[i] = 0.f;
-#pragma unroll
-      for (int i = 0; i < (kSets ? NW / 2 : 1); ++i) y1[i] = y2[i] = 0.f;
-      for (int b = 0; b < (PROBES_CHAIN_LEAVE_OUT >= 2 ? 0 : B); ++b) {
-        // a commit group per chunk of w128 (one K=64 dot), each behind that
-        // chunk's barrier (waited on once; later dots and tiles find it complete)
-#pragma unroll
-        for (int s = 0; s < 8; ++s) {
-          if (s % 4 == 0) {
-            if (s != 0) wgmma_commit();
-            chain_wait(full + s / 4, 0);
-            wgmma_fence();
-          }
-          const uint64_t wdesc = descriptor(wbase + (s / 4) * N * 128 + (s % 4) * 2048, 8192, 1024, true);
-          if constexpr (PROBES_CHAIN_LEAVE_OUT != 0) {
-          } else if constexpr (kSets) {
-            if (s < 4) RsT<NW>::mma(y1, a[s], wdesc, s != 0);
-            else RsT<NW>::mma(y2, a[s], wdesc, s != 4);
-          } else {
-            RsT<NW>::mma(d, a[s], wdesc, 1);
-          }
-        }
-        wgmma_commit();
-        // meanwhile the chain: y[0,0] of this dot, and the perturbation of the next a
-        const float dd = __bfloat162float(__float2bfloat16_rn(row0_dot(x0, wc) * 1e-36f));
-        const uint32_t dd2 = pack(dd, dd);
-        x0[0] = bf2_add_once(x0[0], dd2);
-        x0[1] = bf2_half(x0[0]);
-        wgmma_wait<0>();                          // the dot has read its A registers
-        keep(a);
-        if constexpr (kSets) {
-          keep(y1);
-          keep(y2);
-#pragma unroll
-          for (int i = 0; i < NW / 2; ++i) d[i] += y1[i] + y2[i];
-        } else {
-          keep(d);
-        }
-#pragma unroll
-        for (int s = 0; s < 4; ++s)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            a[s][e] = bf2_add_once(a[s][e], dd2);
-            a[s + 4][e] = bf2_half(a[s][e]);
-          }
-      }
-#pragma unroll
-      for (int j = 0; j < NW / 8; ++j) {
-        const int col = c0 + 8 * j + 2 * q;
-        *reinterpret_cast<float2*>(out + size_t(row) * N + col) = float2{d[4 * j], d[4 * j + 1]};
-        *reinterpret_cast<float2*>(out + size_t(row + 8) * N + col) = float2{d[4 * j + 2], d[4 * j + 3]};
-      }
+    for (int j = 0; j < NW / 8; ++j) {
+      const int col = C0 + 8 * j + 2 * q;
+      *reinterpret_cast<float2*>(out + size_t(row) * N + col) = float2{d[4 * j], d[4 * j + 1]};
+      *reinterpret_cast<float2*>(out + size_t(row + 8) * N + col) = float2{d[4 * j + 2], d[4 * j + 3]};
     }
   }
 }
@@ -2314,16 +2303,14 @@ __device__ __forceinline__ unsigned cluster_map(unsigned addr, unsigned rank) {
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
   return r;
 }
-// A piece of PW bytes (a row's share of a column of pieces): its words,
-// loaded from another block's shared memory through the cluster window.
+// A piece of PW bytes (16 or 4: a row's share of a column of pieces): its
+// words, loaded from another block's shared memory through the cluster window.
 template <int PW> struct alignas(PW) RollPiece {
   uint32_t w[PW / 4];
   __device__ __forceinline__ void load_cluster(unsigned addr) {
     if constexpr (PW == 16)
       asm volatile("ld.shared::cluster.v4.u32 {%0,%1,%2,%3}, [%4];\n"
                    : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3]) : "r"(addr) : "memory");
-    else if constexpr (PW == 8)
-      asm volatile("ld.shared::cluster.v2.u32 {%0,%1}, [%2];\n" : "=r"(w[0]), "=r"(w[1]) : "r"(addr) : "memory");
     else
       asm volatile("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(w[0]) : "r"(addr) : "memory");
   }
@@ -2497,23 +2484,16 @@ int roll_clusters(int M, int C, int* clusters) {
   return cudaOccupancyMaxActiveClusters(clusters, roll_smem_kernel<CS, PW>, &cfg);
 }
 
-// fn(RollLayout<CS, PW>{}) for the layouts the kernel is built for: pieces
-// of 16 or 8 bytes in clusters of 1, 2, 4, 8 or 16 blocks, pieces of 4 bytes
-// in one block; cudaErrorInvalidValue for any other.
+// fn(RollLayout<CS, PW>{}) for the layouts the kernel is built for (the
+// ablation's): 16-byte pieces in clusters of 8 (the design) or 16, 4-byte
+// pieces in one block a column; cudaErrorInvalidValue for any other.
 template <int CS, int PW> struct RollLayout {
   static constexpr int kCS = CS, kPW = PW;
 };
 template <typename Fn> int roll_layout(int cluster, int piece, Fn fn) {
-  if (piece == 4) return cluster == 1 ? fn(RollLayout<1, 4>{}) : int(cudaErrorInvalidValue);
-  if (piece != 16 && piece != 8) return cudaErrorInvalidValue;
-  const bool wide = piece == 16;
-  switch (cluster) {
-    case 1: return wide ? fn(RollLayout<1, 16>{}) : fn(RollLayout<1, 8>{});
-    case 2: return wide ? fn(RollLayout<2, 16>{}) : fn(RollLayout<2, 8>{});
-    case 4: return wide ? fn(RollLayout<4, 16>{}) : fn(RollLayout<4, 8>{});
-    case 8: return wide ? fn(RollLayout<8, 16>{}) : fn(RollLayout<8, 8>{});
-    case 16: return wide ? fn(RollLayout<16, 16>{}) : fn(RollLayout<16, 8>{});
-  }
+  if (piece == 16 && cluster == 8) return fn(RollLayout<8, 16>{});
+  if (piece == 16 && cluster == 16) return fn(RollLayout<16, 16>{});
+  if (piece == 4 && cluster == 1) return fn(RollLayout<1, 4>{});
   return cudaErrorInvalidValue;
 }
 #else
@@ -2804,9 +2784,9 @@ int probes_roll_scratch_bytes(int M, int C) {
 
 // B dependent rolls of a (M, C) bf16 tensor along rows by `shift` in [0, M),
 // each followed by + c (c a bf16 value), into out.  The layout: a cluster of
-// `cluster` blocks (1, 2, 4, 8, 16) holds each column of `piece`-byte pieces
-// (16 or 8; or 4 with cluster 1), three buffers of M / cluster pieces a
-// block (probe_kernels.roll_plan); 2 C % piece == 0.
+// `cluster` blocks holds each column of `piece`-byte pieces, three buffers of
+// M / cluster pieces a block (probe_kernels.roll_plan): 16-byte pieces in
+// clusters of 8 or 16, 4-byte pieces in one block; 2 C % piece == 0.
 // One launch on `stream`; returns cudaGetLastError(), cudaErrorInvalidValue
 // for a layout or a shape it does not take.  PROBES_ROLL=0: PR 5's design,
 // a cooperative launch, the layout ignored; scratch of

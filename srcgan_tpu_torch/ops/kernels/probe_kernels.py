@@ -62,11 +62,12 @@ CHAIN_THREADS = 256            # two warpgroups
 SMEM_PER_BLOCK = 232448
 _SMS = 132                     # an H100 SXM's SMs (the kernel asks the card for its own count)
 _ROLL_ADD = 1e-8               # probe_roll's added constant, rounded to bf16 first
-# probe_roll's kernel: the cluster sizes it is built for (pieces of 16 or 8
-# bytes; pieces of 4 bytes with one block a column), the design's layout,
-# threads and buffers a block.
-ROLL_CLUSTERS, ROLL_PIECES = (1, 2, 4, 8, 16), (16, 8, 4)
-ROLL_CLUSTER, ROLL_PIECE, ROLL_THREADS, ROLL_BUFFERS = 8, 16, 1024, 3
+# probe_roll's kernel: the layouts it is built for, (cluster size, piece
+# bytes), the first the design's (the others the ablation's); threads and
+# buffers a block.
+ROLL_LAYOUTS = ((8, 16), (16, 16), (1, 4))
+ROLL_CLUSTER, ROLL_PIECE = ROLL_LAYOUTS[0]
+ROLL_THREADS, ROLL_BUFFERS = 1024, 3
 # probe_concat_dot's forms (probes_concat_launch's form 0 and 1)
 CONCAT_FORMS = ("concat", "twodots")
 # probe_matmul's int8 GEMM: 128 rows a block, every chunk of 128 k resident.
@@ -510,7 +511,7 @@ def roll_plan(m: int, c: int, shift: int = 1, cluster: int = ROLL_CLUSTER,
               piece: int = ROLL_PIECE) -> dict:
     """How probe_roll's kernel runs its steps on a (M, C) bf16, as
     csrc/probes.cu lays it out: each row cut into pieces of ``piece`` bytes
-    (16: 8 columns; 8: 4; 4: 2); a column of pieces (M of them) held by a
+    (16: 8 columns; 4: 2); a column of pieces (M of them) held by a
     cluster of ``cluster`` blocks, each owning R = M / cluster rows of it in
     ROLL_BUFFERS buffers of shared memory for all the steps; ROLL_THREADS
     threads a block.  A step reads each source row (i - shift) mod M where it
@@ -521,10 +522,9 @@ def roll_plan(m: int, c: int, shift: int = 1, cluster: int = ROLL_CLUSTER,
     for a layout the kernel is not built for, a C whose rows do not cut into
     whole pieces, or an M the cluster does not divide or whose buffers do not
     fit a block's shared memory."""
-    if piece not in ROLL_PIECES or cluster not in ROLL_CLUSTERS or (piece == 4 and cluster != 1):
-        raise ValueError(f"probe_roll: the kernel takes 16- or 8-byte pieces in clusters of "
-                         f"{ROLL_CLUSTERS} blocks or 4-byte pieces in one block, got "
-                         f"{piece}-byte pieces in {cluster}")
+    if (cluster, piece) not in ROLL_LAYOUTS:
+        raise ValueError(f"probe_roll: the kernel is built for the layouts (cluster, piece bytes) "
+                         f"{ROLL_LAYOUTS}, got ({cluster}, {piece})")
     if m <= 0 or c <= 0 or (2 * c) % piece:
         raise ValueError(f"probe_roll: a row of {c} bf16 columns does not cut into {piece}-byte "
                          f"pieces")

@@ -4,7 +4,7 @@
 
 ``probe_roll`` runs 16 dependent rolls of a (16384, 64) bf16 along rows,
 each followed by + bf16(1e-8), in one launch of ``csrc/probes.cu``'s roll
-kernel: a column of pieces of every row (16, 8 or 4 bytes) lives in the
+kernel: a column of pieces of every row (16 or 4 bytes) lives in the
 shared memory of a cluster of blocks for all the steps, each block owning a
 range of rows, the rows it reads from another block read from that block's
 buffer after a cluster barrier, and no barrier falls across the grid
@@ -37,10 +37,10 @@ from srcgan_tpu_torch import config
 from srcgan_tpu_torch.probes import common
 
 M, C, STEPS, SHIFTS = 16384, 64, 16, (1, 128)
-# (label, cluster, piece bytes); the first is the layout roll_plan picks
+# (label, cluster, piece bytes), probe_kernels.ROLL_LAYOUTS; the first is the
+# layout roll_plan picks
 LAYOUTS = (("16 B pieces, cluster of 8", 8, 16), ("16 B pieces, cluster of 16", 16, 16),
-           ("16 B pieces, cluster of 4", 4, 16), ("8 B pieces, cluster of 8", 8, 8),
-           ("8 B pieces, cluster of 4", 4, 8), ("4 B pieces, one block a column", 1, 4))
+           ("4 B pieces, one block a column", 1, 4))
 FIRST_DESIGN = ("PROBES_ROLL=0",)
 
 

@@ -889,18 +889,13 @@ def test_probe_roll_is_bit_equal(dev, shift, steps):
     assert torch.equal(a, keep)                                  # the input is not written
 
 
-@pytest.mark.parametrize("cluster,piece", [(8, 16), (16, 16), (4, 16), (8, 8), (4, 8), (2, 8),
-                                           (1, 4)])
+@pytest.mark.parametrize("cluster,piece", [(8, 16), (16, 16), (1, 4)])
 @pytest.mark.parametrize("m,shift", [(16384, 128), (16384, 16383), (2048, 700), (512, 1)])
 def test_roll_layouts_bit_equal(dev, cluster, piece, m, shift):
     """Every layout the kernel is built for (the ablation's), bit-equal to the
     plain version at 16 steps, shifts within a block's rows and across them."""
     a = probe_operand(13, (m, 64), torch.bfloat16, dev)
-    try:
-        plan = probe_kernels.roll_plan(m, 64, shift, cluster, piece)
-    except ValueError:
-        assert 3 * (m // cluster) * piece > probe_kernels.SMEM_PER_BLOCK
-        return
+    plan = probe_kernels.roll_plan(m, 64, shift, cluster, piece)
     got = probe_kernels.roll(probe_kernels._library(), a, shift, 16, plan)
     ref = probe_kernels.probe_roll_reference(a, shift, 16)
     torch.cuda.synchronize()

@@ -637,7 +637,7 @@ def test_roll_plan_of_the_sweep_shape(shift, remote):
     assert plan["threads"] == 1024 and plan["barrier"] == "cluster" and not plan["grid_barrier"]
     assert plan["remote_rows"] == remote and plan["launches"] == 1
     from srcgan_tpu_torch.probes import roll_ablate
-    assert roll_ablate.LAYOUTS[0][1:] == (pk.ROLL_CLUSTER, pk.ROLL_PIECE)
+    assert tuple(layout[1:] for layout in roll_ablate.LAYOUTS) == pk.ROLL_LAYOUTS
     for _, cluster, piece in roll_ablate.LAYOUTS:       # every layout it times fits
         assert pk.roll_plan(roll_ablate.M, roll_ablate.C, 128, cluster, piece)["smem_bytes"] \
             <= pk.SMEM_PER_BLOCK
@@ -650,9 +650,9 @@ def test_roll_plan_of_the_sweep_shape(shift, remote):
     (16388, 64, 8, 16, "8 must divide M"),                   # M not a multiple of the cluster
     (131072, 64, 8, 16, "fit its 232448 bytes"),             # a block's buffers too large
     (16384, 60, 8, 16, "does not cut into 16-byte pieces"),  # rows not whole pieces
-    (16384, 64, 8, 4, "4-byte pieces in one block"),         # a layout not built
-    (16384, 64, 32, 16, "clusters of"),
-    (16384, 64, 1, 16, "fit its 232448 bytes")])
+    (16384, 64, 8, 4, "built for the layouts"),              # a layout not built
+    (16384, 64, 4, 16, "built for the layouts"),
+    (65536, 64, 1, 4, "fit its 232448 bytes")])
 def test_roll_plan_refuses_what_the_kernel_does_not_take(m, c, cluster, piece, match):
     with pytest.raises(ValueError, match=match):
         pk.roll_plan(m, c, 1, cluster, piece)
