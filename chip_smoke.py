@@ -68,9 +68,9 @@ Phases, in order; the first failure raises and the script exits non-zero:
                PROBES_CONCAT=0), and 48 dots
                taking more than twice 16 at K=576, N=192; probe_stage1 in
                both forms at strides 128 and 16, three calls bit-equal, and in
-               turns with PR 5's design, which it must beat; probe_concat_dot
+               turns with the first design, which it must beat; probe_concat_dot
                in both forms and probe_roll at shifts 1 and 128 (and 0, M - 1),
-               three calls bit-equal, each in turns with PR 5's design, which
+               three calls bit-equal, each in turns with the first design, which
                it must beat, the roll with its two bounds (4 MB once through
                HBM; 16 passes through the shared memory of the SMs its layout
                holds) and each roll past the 16th no faster than a pass;
@@ -111,7 +111,7 @@ WARMUP, REPS = 3, 25         # calls per timing: warm-up, then the median of REP
 KERNELS = ("tail_x4", "gray_degrade", "ssim", "rdb5", "probes")
 # builds timed beside a kernel and never on a path: the tail's first design;
 # probe_matmul with its products left out (loads and stores only, both types);
-# PR 5's design of the six probes redesigned since (probe_mxu's and
+# the first design of the six probes redesigned since (probe_mxu's and
 # probe_dots' chain, probe_matmul's int8 form, probe_stage1 and
 # probe_concat_dot on its mma.sync dots_kernel; probe_roll's cooperative
 # kernel with a grid-wide barrier)
@@ -1296,7 +1296,7 @@ def phase_probes(dev, card: str) -> list:
                       f"{'TOP/s' if dtype == int8 else 'TFLOP/s'}")
                 check(t48 > 2 * t16, f"{name}'s time does not grow with its dots")
         # 6d probe_concat_dot: both forms against their plain versions, three
-        # calls bit-equal, PR 5's design agreeing; then both in turns with it
+        # calls bit-equal, the first design agreeing; then both in turns with it
         a, w = pair(PROBE_M, 64, 192, bf16)
         w = torch.cat([w, pair(1, 64, 192, bf16)[1]])
         outs = {}
@@ -1309,13 +1309,13 @@ def phase_probes(dev, card: str) -> list:
             old = pk.concat(first, a, w, 8, form)
             torch.cuda.synchronize()
             check(rel_l2(old.double(), got[0].double()) <= 1e-3,
-                  f"probe_concat_dot {form}: PR 5's design disagrees")
+                  f"probe_concat_dot {form}: the first design disagrees")
             outs[form] = got[0]
         print(f"[probes] probe_concat_dot: concat and twodots bit-equal "
               f"{torch.equal(outs['concat'], outs['twodots'])} (one instruction stream)")
         calls = {f"{form}, {label}": (lambda f=form, lib=lib: pk.concat(lib, a, w, 8, f))
                  for form in pk.CONCAT_FORMS for label, lib in (("kernel", pk._library()),
-                                                                 ("PR 5 design", first))}
+                                                                 ("first design", first))}
         rounds, order = {key: [] for key in calls}, list(calls)
         for _ in range(2):
             for key in order:
@@ -1324,15 +1324,15 @@ def phase_probes(dev, card: str) -> list:
         print(f"[probes] probe_concat_dot in turns on {card}, us a call of 8 steps: "
               + "; ".join(f"{key} {' / '.join(f'{t:.2f}' for t in v)}" for key, v in rounds.items()))
         for form in pk.CONCAT_FORMS:
-            check(max(rounds[f"{form}, kernel"]) < min(rounds[f"{form}, PR 5 design"]),
-                  f"probe_concat_dot {form} is slower than PR 5's design")
+            check(max(rounds[f"{form}, kernel"]) < min(rounds[f"{form}, first design"]),
+                  f"probe_concat_dot {form} is slower than the first design")
         for form in pk.CONCAT_FORMS:
             times("probe_concat_dot", f"{form} N=192", lambda f=form: pk.probe_concat_dot(a, w, 8, f),
                   lambda f=form: pk.probe_concat_dot_reference(a, w, 8, f), tensor_bytes(a, w, got[0]),
                   8 * 2 * PROBE_M * 128 * 192, "bf16", steps=8,
                   into=timed if form == "concat" else timed_twodots)
         # 6e probe_roll: bit-equal at shifts 1 and 128 (and 0, M - 1), with
-        # values where the added constant shows, three calls bit-equal, PR 5's
+        # values where the added constant shows, three calls bit-equal, the first
         # design bit-equal; both shifts in turns with it; each roll past the
         # 16th adds no less than a pass through shared memory can take
         a[0, :3] = torch.tensor([0.0, 1e-8, -1e-8], device=dev).bfloat16()
@@ -1345,7 +1345,7 @@ def phase_probes(dev, card: str) -> list:
             check(all(torch.equal(g, got[0]) for g in got[1:]),
                   f"probe_roll shift {shift}: three calls are not bit-equal")
             check(torch.equal(pk.roll(first, a, shift, 16).view(torch.int16), ref),
-                  f"probe_roll shift {shift}: PR 5's design disagrees")
+                  f"probe_roll shift {shift}: the first design disagrees")
         plan = pk.roll_plan(PROBE_M, 64, 128)
         passes = 16 * 2 * tensor_bytes(a) / (min(plan["blocks"], sms) * 128 * mhz * 1e6) * 1e3
         print(f"[probes] probe_roll plan at shift 128: {plan}; 16 passes of 4 MB through the "
@@ -1353,7 +1353,7 @@ def phase_probes(dev, card: str) -> list:
               f"{passes * 1e3:.3f} us")
         calls = {f"shift {shift}, {label}": (lambda s=shift, lib=lib: pk.roll(lib, a, s, 16))
                  for shift in (1, 128) for label, lib in (("kernel", pk._library()),
-                                                          ("PR 5 design", first))}
+                                                          ("first design", first))}
         rounds, order = {key: [] for key in calls}, list(calls)
         for _ in range(2):
             for key in order:
@@ -1362,8 +1362,8 @@ def phase_probes(dev, card: str) -> list:
         print(f"[probes] probe_roll in turns on {card}, us a call of 16 rolls: "
               + "; ".join(f"{key} {' / '.join(f'{t:.2f}' for t in v)}" for key, v in rounds.items()))
         for shift in (1, 128):
-            check(max(rounds[f"shift {shift}, kernel"]) < min(rounds[f"shift {shift}, PR 5 design"]),
-                  f"probe_roll shift {shift} is slower than PR 5's design")
+            check(max(rounds[f"shift {shift}, kernel"]) < min(rounds[f"shift {shift}, first design"]),
+                  f"probe_roll shift {shift} is slower than the first design")
             t16, t48 = (common.graph_ms([lambda b=b: pk.probe_roll(a, shift, b)] * 4) for b in (16, 48))
             per = (t48 - t16) / 32
             print(f"[probes] probe_roll shift {shift} on {card}: 16 rolls {t16 * 1e3:.2f} us, 48 rolls "
@@ -1395,7 +1395,7 @@ def phase_probes(dev, card: str) -> list:
                       f"probe_stage1 {form} stride {stride}: PR 5's design disagrees")
         calls = {f"{form}, {label}": (lambda f=form, lib=lib: pk.stage1(lib, x, w, 4, 128, f))
                  for form in pk.STAGE1_FORMS for label, lib in (("kernel", pk._library()),
-                                                                 ("PR 5 design", first))}
+                                                                 ("first design", first))}
         rounds, order = {key: [] for key in calls}, list(calls)
         for _ in range(2):
             for key in order:
@@ -1404,7 +1404,7 @@ def phase_probes(dev, card: str) -> list:
         print(f"[probes] probe_stage1 stride 128 in turns on {card}, us a call of 4 stages: "
               + "; ".join(f"{key} {' / '.join(f'{t:.2f}' for t in v)}" for key, v in rounds.items()))
         for form in pk.STAGE1_FORMS:
-            check(max(rounds[f"{form}, kernel"]) < min(rounds[f"{form}, PR 5 design"]),
+            check(max(rounds[f"{form}, kernel"]) < min(rounds[f"{form}, first design"]),
                   f"probe_stage1 {form} is slower than PR 5's design")
         for form in pk.STAGE1_FORMS:
             times("probe_stage1", form, lambda f=form: pk.probe_stage1(x, w, 4, 128, f),

@@ -79,9 +79,9 @@
 // layouts are timed by python -m srcgan_tpu_torch.probes roll.
 //
 // One kernel template (dots_kernel) serves, as the yardstick of the
-// ablations, PR 5's design of the chain (PROBES_CHAIN=0), of make_matmul's
+// ablations, the first design of the chain (PROBES_CHAIN=0), of make_matmul's
 // int8 form (PROBES_MM8=0), of probe_stage1 (PROBES_STAGE1=0) and of
-// probe_concat_dot (PROBES_CONCAT=0); PROBES_ROLL=0 keeps PR 5's probe_roll,
+// probe_concat_dot (PROBES_CONCAT=0); PROBES_ROLL=0 keeps the first probe_roll,
 // a cooperative launch with a grid-wide barrier between steps.  A block of eight warps owns 64 rows of x and keeps them in shared memory across all B dots
 // (the TPU held all of x in VMEM; 64 rows x 1,152 B are 74 KB of a block's
 // 227 KB).  transpose_kernel first writes w column by column, k contiguous,
@@ -192,7 +192,7 @@
 // halo tile's values as the im2col tile is rebuilt from them.  No block
 // barrier falls between stages.
 //
-// PR 5's probe_roll (PROBES_ROLL=0): B steps of out[i] = bf16(in[(i - shift)
+// the first probe_roll (PROBES_ROLL=0): B steps of out[i] = bf16(in[(i - shift)
 // mod M] + c) between two buffers that stay in L2, with a grid-wide barrier
 // between steps (a cooperative launch, so every block is resident).  What
 // bounds it is the barrier, not the 2 MB moved.
@@ -869,8 +869,8 @@ int launch_matmul(const void* x, const void* w, void* out, int M, int K, cudaStr
 
 // probe_concat_dot's forms of the chain kernel (chain_pair).  Switches of
 // its ablation (python -m srcgan_tpu_torch.probes concat); the defaults are
-// the design that ships.  PROBES_CONCAT=0 sends probe_concat_dot to PR 5's
-// dots_kernel (modes concat and twodots) with its transpose launch.
+// the design that ships.  PROBES_CONCAT=0 sends probe_concat_dot to the first
+// design's dots_kernel (modes concat and twodots) with its transpose launch.
 // PROBES_CONCAT_SETS: "twodots" runs both dots into the running sums (1,
 // ships: the instruction stream of "concat"), or sums each K=64 dot into an
 // accumulator set of its own and adds the two to the running sums after
@@ -2268,7 +2268,7 @@ int launch_stage1(const void* x, const void* w, void* img, void* out, int M, int
 }
 
 // ---- probe_roll (see the header): the rolls in shared memory, a cluster of
-// blocks holding each column of pieces.  PROBES_ROLL=0 keeps PR 5's design
+// blocks holding each column of pieces.  PROBES_ROLL=0 keeps the first design
 // (roll_kernel below: a cooperative launch, the steps between two buffers in
 // device memory, a grid-wide barrier between them), the yardstick of probes
 // roll and of chip_smoke.py.
@@ -2788,7 +2788,7 @@ int probes_roll_scratch_bytes(int M, int C) {
 // M / cluster pieces a block (probe_kernels.roll_plan): 16-byte pieces in
 // clusters of 8 or 16, 4-byte pieces in one block; 2 C % piece == 0.
 // One launch on `stream`; returns cudaGetLastError(), cudaErrorInvalidValue
-// for a layout or a shape it does not take.  PROBES_ROLL=0: PR 5's design,
+// for a layout or a shape it does not take.  PROBES_ROLL=0: the first design,
 // a cooperative launch, the layout ignored; scratch of
 // probes_roll_scratch_bytes.
 int probes_roll_launch(const void* a, void* scratch, void* out, int M, int C, int shift, int B,

@@ -470,8 +470,8 @@ def probe_dots(x: torch.Tensor, w: torch.Tensor, steps: int = 16) -> torch.Tenso
 def concat(lib: ctypes.CDLL, a: torch.Tensor, w: torch.Tensor, steps: int = 8,
            form: str = "concat") -> torch.Tensor:
     """probe_concat_dot's kernel in the build ``lib`` (the default build: the
-    chain kernel's forms, w128 resident, one launch; PROBES_CONCAT=0: PR 5's
-    dots_kernel with its transpose of w into a scratch tensor); no launch
+    chain kernel's forms, w128 resident, one launch; PROBES_CONCAT=0: the first
+    design's dots_kernel with its transpose of w into a scratch tensor); no launch
     counted.  a (M, 64) and w (128, 192) bf16, M % 64 == 0."""
     m = a.shape[0]
     _check_contiguous("probe_concat_dot", a, w)
@@ -548,7 +548,7 @@ def roll_plan(m: int, c: int, shift: int = 1, cluster: int = ROLL_CLUSTER,
 def roll(lib: ctypes.CDLL, a: torch.Tensor, shift: int, steps: int = 16,
          plan: dict | None = None) -> torch.Tensor:
     """probe_roll's kernel in the build ``lib`` (the default build: the layout
-    of ``plan``, roll_plan's by default; PROBES_ROLL=0: PR 5's cooperative
+    of ``plan``, roll_plan's by default; PROBES_ROLL=0: the first design's cooperative
     kernel, the plan's layout ignored); no launch counted."""
     m, c = a.shape
     if not a.is_contiguous() or steps < 1:

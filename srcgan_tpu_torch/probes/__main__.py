@@ -17,9 +17,9 @@ option it beat, PR 5's design, the build without products and
 ``... probes stage1 [--rounds N]``: probe_stage1's kernel in both forms
 against PR 5's design, its variants and builds with work left out, and one
 block's timeline (``stage1_ablate``).  ``... probes roll [--rounds N]``:
-probe_roll's kernel in each of its layouts against PR 5's design at shifts 1
+probe_roll's kernel in each of its layouts against the first design at shifts 1
 and 128, with its two bounds (``roll_ablate``).  ``... probes concat [--rounds
-N]``: probe_concat_dot's forms of the chain kernel, their variants, PR 5's
+N]``: probe_concat_dot's forms of the chain kernel, their variants, the first
 design and builds with work left out (``concat_ablate``).  Each runs only
 when named, and only on the card."""
 from __future__ import annotations

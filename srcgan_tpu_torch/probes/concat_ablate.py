@@ -20,7 +20,7 @@ both dots into the running sums, the instruction stream of "concat"
 (``PROBES_CONCAT_SETS=2``: one block an SM, for its 3 x 64 sums) | one
 block an SM, each walking over tiles with w128 resident, so that a tile's
 stores overlap the next one's loads and products (``PROBES_CONCAT_WALK=1``)
-| PR 5's design, the ``mma.sync`` dots_kernel with its transpose launch
+| the first design, the ``mma.sync`` dots_kernel with its transpose launch
 (``PROBES_CONCAT=0``).  Then builds with work left out
 (``PROBES_CHAIN_LEAVE_OUT``; their results are wrong, only their times mean
 something): the wgmmas; the dots (the operands' loads, w's copy and the
@@ -46,7 +46,7 @@ VARIANTS = (
     ("ships (the default build)", ()),
     ("twodots in two accumulator sets", ("PROBES_CONCAT_SETS=2",)),
     ("one block an SM, walking tiles", ("PROBES_CONCAT_WALK=1",)),
-    ("PR 5 design (PROBES_CONCAT=0)", ("PROBES_CONCAT=0",)),
+    ("first design (PROBES_CONCAT=0)", ("PROBES_CONCAT=0",)),
 )
 LEAVE_OUT = (("wgmmas left out", ("PROBES_CHAIN_LEAVE_OUT=1",)),
              ("dots left out", ("PROBES_CHAIN_LEAVE_OUT=2",)))

@@ -9,11 +9,11 @@ shared memory of a cluster of blocks for all the steps, each block owning a
 range of rows, the rows it reads from another block read from that block's
 buffer after a cluster barrier, and no barrier falls across the grid
 (``probe_kernels.roll_plan``).  The layout is an argument of the launch, so
-one build holds them all.  This builds the default build and PR 5's design
+one build holds them all.  This builds the default build and the first design
 (``PROBES_ROLL=0``: a cooperative launch, a grid-wide barrier between steps)
 together, holds every layout bit-equal to the plain version at shifts 0, 1,
 128 and M - 1 (three calls bit-equal), prints how many clusters of each the
-card holds at once, and then times every layout and PR 5's design in turns
+card holds at once, and then times every layout and the first design in turns
 (forwards, backwards, ...) at shifts 1 and 128: a CUDA graph of 4 whole
 calls, µs a call of 16 rolls, beside two bounds (the 4 MB the function moves
 once through HBM; 16 passes of 4 MB through the shared memory of the SMs the
@@ -92,7 +92,7 @@ def main(argv=None) -> list:
         old = pk.roll(first, a, shift, STEPS)
         torch.cuda.synchronize()
         if not torch.equal(old.view(torch.int16), ref):
-            raise RuntimeError(f"PR 5's probe_roll disagrees at shift {shift}")
+            raise RuntimeError(f"the first probe_roll disagrees at shift {shift}")
     for label, cluster, piece in LAYOUTS:
         plan = plans[label]
         print(f"# {label}: {plan['blocks']} blocks of {plan['rows_per_block']} rows, "
@@ -106,7 +106,7 @@ def main(argv=None) -> list:
         for label, *_ in LAYOUTS:
             calls[f"{label}, shift {shift}"] = (
                 lambda s=shift, pl=plans[label]: pk.roll(lib, a, s, STEPS, pl))
-        calls[f"PR 5 design, shift {shift}"] = lambda s=shift: pk.roll(first, a, s, STEPS)
+        calls[f"first design, shift {shift}"] = lambda s=shift: pk.roll(first, a, s, STEPS)
     times = {key: [] for key in calls}
     order = list(calls)
     for _ in range(args.rounds):
@@ -118,7 +118,7 @@ def main(argv=None) -> list:
           f" {'us a roll past 16':>18}")
     rows = []
     for shift in SHIFTS:
-        for label, cluster, piece in LAYOUTS + (("PR 5 design", 0, 0),):
+        for label, cluster, piece in LAYOUTS + (("first design", 0, 0),):
             key = f"{label}, shift {shift}"
             t = times[key]
             med = statistics.median(t)

@@ -992,7 +992,7 @@ def test_probe_stage1_three_calls_bit_equal(dev, form, m, stride):
 
 def test_redesigned_probes_agree_with_their_first_design(dev):
     """The PROBES_MM8=0 PROBES_STAGE1=0 PROBES_ROLL=0 PROBES_CONCAT=0 build
-    (PR 5's designs, the yardstick of the ablations and of chip_smoke.py)
+    (the first designs, the yardstick of the ablations and of chip_smoke.py)
     computes the same functions: int8 and the roll bit-equal, the stages and
     the pairs within rel-L2 1e-3."""
     from srcgan_tpu_torch.ops.kernels import build

@@ -688,8 +688,8 @@ def test_roll_and_concat_ablations_run_only_on_the_card(monkeypatch, argv, match
 
 def test_roll_and_concat_ablations_time_the_shipped_design_first(capsys):
     """The usage names both; the concat ablation times the default build
-    first, then the options the issue asked for, PR 5's design and builds
-    with work left out; the roll ablation PR 5's design beside its layouts."""
+    first, then the options it was chosen over, the first design and builds
+    with work left out; the roll ablation the first design beside its layouts."""
     from srcgan_tpu_torch.probes import concat_ablate, roll_ablate
 
     assert probes_main.main(["--help"]) == {}
