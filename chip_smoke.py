@@ -83,6 +83,20 @@ Phases, in order; the first failure raises and the script exits non-zero:
                steps; cli.train_cas --lab for a short epoch and cli.test_cas on
                its @G2LAB checkpoints (the ssim kernels once per eval batch, the
                PNGs decode, the row agrees with --device cpu).
+ 12. gan     - the CycleGAN slice (CycleGANTrainer, net='1' x2: RDDBNetB and
+               RDDBNetD at nf 64, nb 3, gc 32, two NLayerDiscriminator(3,64,2)):
+               one fp32 gd_step on the card against the CPU at a 128^2 target
+               (losses within rtol 1e-4); five bf16 optimize_parameters
+               iterations through the host pool (4) at batch 1 of 256^2 and one
+               gd_steps_pooled_u8 call of K=4 through the device pool, all
+               losses finite and no rdb5_bf16 launch; the ms per iteration of
+               optimize_parameters and gd_step at batch 1 and 4, remat on and
+               off in turns, with peak memory, and one iteration's host/device
+               split (profiler); cli.train_cyclegan for one epoch on a
+               synthetic Sat2Aerx2 set of 256^2 with --eval-after-save, then
+               cli.test_cyclegan on its checkpoints: one ssim launch per test
+               image, the PNGs decode, the row within 0.01 dB / 1e-4 SSIM of
+               --device cpu.
 Then one JSON line of kernel results, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Weights are random, from fixed seeds.
 """
@@ -1537,6 +1551,209 @@ def phase_lab(dev, card: str, rgb_sr, rgb_c, x_small) -> dict:
     return {"tail_x4": tail_launches, "ssim": ssim_launches}
 
 
+# The GAN slice: CycleGANTrainer(net='1', x2) at full width, batch 1 of 256^2
+# targets; its fp32 card-vs-CPU check at 128^2; 4 training and 3 test pairs.
+GAN_HW, GAN_CHECK_HW, GAN_ITERS, GAN_K, GAN_REPS = 256, 128, 5, 4, 5
+GAN_TRAIN, GAN_TEST = 4, 3
+
+
+def gan_u8(rng, n: int, hw: int) -> torch.Tensor:
+    return torch.from_numpy(rng.integers(0, 256, (n, hw, hw, 3), dtype=np.uint8))
+
+
+def phase_gan_fp32(dev):
+    """One fp32 gd_step (TF32 off) on the card against the CPU from the same
+    weights, batch 1 of 128^2 (the CPU side at 256^2 would take minutes):
+    every scalar loss within rtol 1e-4.  remat off on both sides (it is
+    value-neutral; the CPU tests hold it)."""
+    from srcgan_tpu_torch import config
+    from srcgan_tpu_torch.train.cyclegan import CycleGANTrainer
+
+    tar = gan_u8(np.random.default_rng(20), 1, GAN_CHECK_HW)
+    runs = []
+    with config.precision("fp32"):
+        for where in ("cpu", dev):
+            tr = CycleGANTrainer(pool_size=0, remat=False, device=where)
+            real_a, real_b = tr.inputs_u8(tar, tar)
+            _, aux = tr.gd_step(tr.init(21), real_a, real_b, tr.lr, tr.d_lr)
+            runs.append({k: float(v) for k, v in aux.items() if v.dim() == 0})
+    cpu, card = runs
+    err, at = max((abs(card[k] - cpu[k]) / abs(cpu[k]), k) for k in cpu)
+    print(f"[gan] fp32 gd_step card vs CPU (net='1' x2 full width, batch 1, {GAN_CHECK_HW}^2 "
+          f"target, TF32 off): loss_G {card['loss_G']:.6f} vs {cpu['loss_G']:.6f}, loss_D_A "
+          f"{card['loss_D_A']:.6f} vs {cpu['loss_D_A']:.6f}; max rel over {len(cpu)} losses "
+          f"{err:.2e} at {at} (bound 1e-4) {'PASS' if err <= 1e-4 else 'FAIL'}")
+    check(err <= 1e-4, "the fp32 GAN step on the card disagrees with the CPU")
+
+
+def gan_iteration_profile(tr, state, real_a, real_b):
+    """(wall ms, device-busy ms, the largest kernels) of one
+    optimize_parameters iteration under torch.profiler: the busy time sums
+    the device kernels' own entries (an op's entry repeats its kernels')."""
+    import time
+
+    from torch import profiler
+
+    torch.cuda.synchronize()
+    with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
+                                      profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.optimize_parameters(state, real_a, real_b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key[:48], e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    return wall, sum(r[1] for r in rows), rows[:5]
+
+
+def phase_gan(dev, card: str) -> int:
+    """Phase 12, the CycleGAN slice (see the module docstring).  Returns the
+    ssim launches of test_cyclegan on the card."""
+    import time
+
+    from PIL import Image
+
+    from srcgan_tpu_torch import data
+    from srcgan_tpu_torch.cli import test_cyclegan, train_cyclegan
+    from srcgan_tpu_torch.ops.kernels import rdb5_kernel
+    from srcgan_tpu_torch.ops.kernels import ssim_kernel as sk
+    from srcgan_tpu_torch.train.cyclegan import CycleGANTrainer
+
+    t_phase = time.perf_counter()
+    phase_gan_fp32(dev)
+
+    # (b) bf16 iterations through the host pool, then K iterations through the device pool
+    rng = np.random.default_rng(22)
+    tr = CycleGANTrainer(act_dtype=torch.bfloat16, pool_size=4, device=dev)
+    state = tr.init(23)
+    u8 = gan_u8(rng, 1, GAN_HW).to(dev)
+    real_a, real_b = tr.inputs_u8(u8, u8)
+    rdb5_before = rdb5_kernel.launches_bf16
+    rows = []
+    for _ in range(GAN_ITERS):
+        state, aux = tr.optimize_parameters(state, real_a, real_b)
+        rows.append({k: float(v) for k, v in aux.items() if v.dim() == 0})
+    pools = tr.device_pool_init(state, real_a, real_b, seed=1)
+    blk = gan_u8(rng, GAN_K, GAN_HW).unsqueeze(1).to(dev)
+    state, pools, imgs, scalars = tr.gd_steps_pooled_u8(state, pools, blk, blk, tr.lr, tr.d_lr)
+    finite = (all(math.isfinite(v) for r in rows for v in r.values())
+              and all(v.shape == (GAN_K,) and bool(torch.isfinite(v).all())
+                      for v in scalars.values()))
+    fills = (int(pools["A"]["n"]), int(pools["B"]["n"]))
+    loss_g = " -> ".join("%.3f" % r["loss_G"] for r in rows)
+    loss_d = " -> ".join("%.4f" % (r["loss_D_A"] + r["loss_D_B"]) for r in rows)
+    print(f"[gan] {GAN_ITERS} bf16 optimize_parameters (host pool 4), batch 1 of {GAN_HW}^2: "
+          f"loss_G {loss_g}, loss_D {loss_d}; "
+          f"gd_steps_pooled_u8 K={GAN_K} (device pool): loss_G "
+          f"{' '.join(f'{v:.3f}' for v in scalars['loss_G'].tolist())}, pools filled {fills}; "
+          f"all finite {finite}; rdb5_bf16 launches {rdb5_kernel.launches_bf16 - rdb5_before} "
+          f"(train mode keeps the generators off it) {'PASS' if finite else 'FAIL'}")
+    check(finite, "a bf16 GAN loss is not finite")
+    check(fills == (4, 4) and state.g.step == GAN_ITERS + GAN_K, "the device pool or the steps")
+    check(rdb5_kernel.launches_bf16 == rdb5_before, "a GAN training pass reached rdb5_bf16")
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as flops:
+        tr.optimize_parameters(state, real_a, real_b)
+    tflop = flops.get_total_flops() / 1e12
+    print(f"[gan] one bf16 optimize_parameters iteration (batch 1, remat on): {tflop:.4f} "
+          f"TFLOP (torch.utils.flop_counter: convolutions and matmuls, forward, recompute and "
+          f"backward); at the card's {PEAK_FLOPS['bf16'] / 1e12:.0f} TFLOP/s bf16 "
+          f"{tflop / PEAK_FLOPS['bf16'] * 1e15:.3f} ms")
+    wall, busy, top = gan_iteration_profile(tr, state, real_a, real_b)
+    if busy > 0:
+        print(f"[gan] one bf16 optimize_parameters iteration (batch 1, remat on) on {card}: "
+              f"wall {wall:.3f} ms, device busy {busy:.3f} ms = {100 * busy / wall:.1f}% (idle "
+              f"{100 * (1 - busy / wall):.1f}%); largest kernels "
+              + "; ".join(f"{k} {v:.3f} ms" for k, v in top) + " (profiler)")
+    else:
+        print(f"[gan] one bf16 optimize_parameters iteration: wall {wall:.3f} ms; device time "
+              "not measured (the profiler saw no device events)")
+    del state, tr, pools, imgs
+
+    # (c) ms per iteration and peak memory, remat on and off in turns
+    for n in (1, 4):
+        u8 = gan_u8(rng, n, GAN_HW).to(dev)
+        for method in ("optimize_parameters", "gd_step"):
+            times, peaks = {True: [], False: []}, {True: [], False: []}
+            for remat in (True, False, False, True):
+                t = CycleGANTrainer(act_dtype=torch.bfloat16, remat=remat, device=dev,
+                                    pool_size=4 if method == "optimize_parameters" else 0)
+                st = t.init(24)
+                a, b = t.inputs_u8(u8, u8)
+                fn = ((lambda: t.optimize_parameters(st, a, b)) if method == "optimize_parameters"
+                      else (lambda: t.gd_step(st, a, b, t.lr, t.d_lr)))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                times[remat].append(median_ms(fn, reps=GAN_REPS))
+                peaks[remat].append(torch.cuda.max_memory_allocated() / 2 ** 30)
+                del st, t, a, b, fn
+            print(f"[gan] bf16 {method} (pool {4 if method == 'optimize_parameters' else 0}), "
+                  f"batch {n} of {GAN_HW}^2 on {card}: remat on "
+                  f"{' / '.join(f'{v:.3f}' for v in times[True])} ms, peak "
+                  f"{max(peaks[True]):.3f} GiB; remat off "
+                  f"{' / '.join(f'{v:.3f}' for v in times[False])} ms, peak "
+                  f"{max(peaks[False]):.3f} GiB (in turns; {n * GAN_HW ** 2 / 1e6 / statistics.median(times[True]) * 1e3:.3f} target MP/s with remat)")
+        del u8
+    torch.cuda.empty_cache()
+
+    # (d) the command-line tools: train_cyclegan for one epoch with
+    # --eval-after-save, then test_cyclegan on the card and on the CPU
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gan_") as tmp:
+        data.make_synthetic_dataset(os.path.join(tmp, "Sat2Aerx2"), n_train=GAN_TRAIN, n_val=1,
+                                    n_test=GAN_TEST, size=GAN_HW, seed=0, scale=2)
+        ck = os.path.join(tmp, "checkpoints")
+        cwd = os.getcwd()
+        os.chdir(tmp)                           # --eval-after-save writes ./result
+        try:
+            train_cyclegan.main(["--data-dir", tmp, "--bf16-acts", "--num-epochs", "1",
+                                 "--save-every", "1", "--log-every", "2", "--eval-after-save",
+                                 "--checkpoints", ck, "--run-dir", os.path.join(tmp, "run")])
+        finally:
+            os.chdir(cwd)
+        net_a = os.path.join(ck, "netG_A2B_SRtask_x2_0001.npz")
+        net_b = os.path.join(ck, "netG_B2A_SRtask_x2_0001.npz")
+        check(all(os.path.exists(p) for p in (net_a, net_b, os.path.join(
+            ck, "cyclestate_latest.npz"), os.path.join(tmp, "result", "Performs.csv"))),
+            "train_cyclegan left no checkpoints or no --eval-after-save row")
+        print()
+
+        def evaluate(result, *extra):
+            return test_cyclegan.main(["--netGA", net_a, "--netGB", net_b, "--data-dir", tmp,
+                                       "--result-dir", os.path.join(tmp, result), *extra])
+
+        sk.launches = 0
+        on_card = evaluate("result_card")
+        launches = sk.launches
+        print(f"[gan] test_cyclegan: {on_card['images']} images on {on_card['device']} in "
+              f"{on_card['eval_seconds']:.3f} s, ssim launches {launches}")
+        check(on_card["images"] == GAN_TEST and on_card["device"].startswith("cuda"),
+              "test_cyclegan did not run on the card")
+        check(launches == GAN_TEST, "a test image did not launch the ssim kernel exactly once")
+        row = read_performs(os.path.join(tmp, "result_card"))
+        check(all(math.isfinite(float(row[k])) for k in ("MSE", "PSNR", "AE", "SSIM")),
+              f"Performs.csv row {row}")
+        for side, hw in (("fakeB", GAN_HW), ("fakeA", GAN_HW // 2)):
+            out = os.path.join(tmp, "result_card", f"cyc_{side}_netG_A2B_SRtask_x2_0001")
+            names = sorted(os.listdir(out))
+            check(len(names) == GAN_TEST, f"{out}: {len(names)} PNGs")
+            for name in names:
+                with Image.open(os.path.join(out, name)) as im:
+                    check(im.size == (hw, hw) and im.mode == "RGB", f"{name}: {im.size} {im.mode}")
+        on_cpu = evaluate("result_cpu", "--device", "cpu")
+        d_psnr = abs(on_card["PSNR"] - on_cpu["PSNR"])
+        d_ssim = abs(on_card["SSIM"] - on_cpu["SSIM"])
+        ok = d_psnr <= 0.01 and d_ssim <= 1e-4
+        print(f"[gan] Performs.csv row {row}; PNGs decode; card vs CPU: PSNR "
+              f"{on_card['PSNR']:.5f} vs {on_cpu['PSNR']:.5f} (|d| {d_psnr:.2e}, bound 0.01 dB), "
+              f"SSIM {on_card['SSIM']:.6f} vs {on_cpu['SSIM']:.6f} (|d| {d_ssim:.2e}, bound 1e-4) "
+              f"{'PASS' if ok else 'FAIL'}")
+        check(ok, "the card's test_cyclegan row disagrees with the CPU's")
+    print(f"[gan] phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script runs "
@@ -1576,6 +1793,7 @@ def main() -> int:
     lab = phase_lab(dev, where, sr, c, x_small)
     tail["launches_lab"], ssim["launches_lab"] = lab["tail_x4"], lab["ssim"]
     del sr, c
+    ssim["launches_gan"] = phase_gan(dev, where)
 
     print(json.dumps({"kernels": [tail, gray, ssim, rdb5_bf16, rdb5_int8, *probes]}))
     print(smi)

@@ -5,7 +5,11 @@ The port's modules carry the reference torch names, which are the names
 either source loads with ``strict=True``.  ``state_dict_from_jax`` is that
 export done with numpy alone (no jax): path components are renamed by the
 same map, convs go HWIO -> OIHW, transposed convs (kh,kw,in,out) ->
-(in,out,kh,kw), and norm ``scale`` becomes ``weight``.  ``jax_tree_from_module``
+(in,out,kh,kw), and norm ``scale`` becomes ``weight``.  A module whose
+JAX tree starts below it names that attribute ``jax_root`` (the PatchGAN's
+``model``: reference name ``model.3.weight``, JAX path ``3/scale``); one
+whose attribute keeps its name in the JAX tree where the map would rename
+it says so in ``jax_names`` (EDSR's ``upscale_layers``).  ``jax_tree_from_module``
 is its inverse: a port module (or any state_dict-shaped dict of its tensors,
 such as Adam's moments) -> the JAX parameter tree and model state, as numpy,
 which the JAX package's ``load_params`` reads.  ``quant_scales_from_jax``
@@ -42,8 +46,19 @@ _JAX_NAME_MAP = {"RRDB_trunk": "trunk", "upscale_layers": "upscale",
 _JAX_STATE_NAME_MAP = {v: k for k, v in _STATE_NAME_MAP.items()}
 
 
-def _torch_name(path, names) -> str:
-    return ".".join(names.get(part, part) for part in path)
+def _torch_name(model: nn.Module, path, names) -> str:
+    """The port name of a JAX tree path: components renamed by ``names``,
+    and the ``jax_root`` of a module on the way (the attribute its JAX tree
+    starts at, e.g. the PatchGAN's ``model``) put back in."""
+    out, mod = [], model
+    for part in path[:-1]:
+        root = getattr(mod, "jax_root", None)
+        if root:
+            out.append(root)
+            mod = getattr(mod, root)
+        out.append(names.get(part, part))
+        mod = mod.get_submodule(out[-1])
+    return ".".join(out + [names.get(path[-1], path[-1])])
 
 
 def _walk(tree, path=()):
@@ -59,7 +74,7 @@ def state_dict_from_jax(model: nn.Module, params, state=None) -> Dict[str, torch
     and, for BatchNorm models, of its model state."""
     out: Dict[str, torch.Tensor] = {}
     for path, v in _walk(params):
-        name = _torch_name(path, _TORCH_NAME_MAP)
+        name = _torch_name(model, path, _TORCH_NAME_MAP)
         owner = model.get_submodule(name.rsplit(".", 1)[0])
         a = np.asarray(v)
         if name.endswith(".weight") and isinstance(owner, nn.ConvTranspose2d):
@@ -68,7 +83,7 @@ def state_dict_from_jax(model: nn.Module, params, state=None) -> Dict[str, torch
             a = a.transpose(3, 2, 0, 1)
         out[name] = torch.tensor(np.ascontiguousarray(a))
     for path, v in _walk(state or {}):
-        name = _torch_name(path, {**_TORCH_NAME_MAP, **_STATE_NAME_MAP})
+        name = _torch_name(model, path, {**_TORCH_NAME_MAP, **_STATE_NAME_MAP})
         out[name] = torch.tensor(np.ascontiguousarray(v))
     # the model's registration order (JAX tree utilities sort the keys)
     order = [k for k in model.state_dict() if k in out]
@@ -101,13 +116,21 @@ def _jax_path(model: nn.Module, name: str) -> Tuple[Tuple[str, ...], bool]:
     owner = model.get_submodule(".".join(mods))
     path = []
     i = 0
+    mod = model
     while i < len(mods):
         part = mods[i]
+        if getattr(mod, "jax_root", None) == part:     # not in the JAX tree
+            mod = getattr(mod, part)
+            i += 1
+            continue
+        names = {**_JAX_NAME_MAP, **getattr(mod, "jax_names", {})}
+        mod = getattr(mod, part)
         if part == "downsample" and i + 1 < len(mods):
             path.append({"0": "down_conv", "1": "down_bn"}[mods[i + 1]])
+            mod = getattr(mod, mods[i + 1])
             i += 2
             continue
-        path.append(_JAX_NAME_MAP.get(part, part))
+        path.append(names.get(part, part))
         i += 1
     if leaf in _JAX_STATE_NAME_MAP:
         return tuple(path) + (_JAX_STATE_NAME_MAP[leaf],), True

@@ -28,6 +28,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from srcgan_tpu_torch import quant
 from srcgan_tpu_torch.ops.conv import to_nchw, to_nhwc
@@ -174,18 +175,45 @@ class ResidualDenseBlock5(nn.Module):
 
 
 class RRDB(nn.Module):
-    """Residual-in-residual dense block: 3 x RDB5, out * 0.2 + x."""
+    """Residual-in-residual dense block: 3 x RDB5, out * 0.2 + x.
 
-    def __init__(self, nf: int, gc: int = 32):
+    ``remat`` is instance-scoped: when True and a gradient is being
+    recorded, the block's forward runs under
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, so its
+    inner activations are recomputed in the backward instead of stored.  The
+    GAN trainer sets it on its own generators (``set_trunk_remat``); other
+    models in the process keep theirs.  The non-reentrant form runs its
+    first forward with the caller's grad mode, so a training forward never
+    reaches the RDB5 kernel's gate (which refuses gradients) on one pass and
+    cuDNN on the recompute."""
+
+    def __init__(self, nf: int, gc: int = 32, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.RDB1 = ResidualDenseBlock5(nf, gc)
         self.RDB2 = ResidualDenseBlock5(nf, gc)
         self.RDB3 = ResidualDenseBlock5(nf, gc)
 
-    def forward(self, x, lemda: float = 0.2):
+    def _run(self, x, lemda: float):
         return self.RDB3(self.RDB2(self.RDB1(x))) * lemda + x
 
+    def forward(self, x, lemda: float = 0.2):
+        # remat is value-neutral: int8 calibration records the plain forward
+        if self.remat and torch.is_grad_enabled() and not quant.is_calibrating():
+            return checkpoint(self._run, x, lemda, use_reentrant=False)
+        return self._run(x, lemda)
 
-def rrdb_trunk(nf: int, nb: int, gc: int = 32) -> nn.Sequential:
+
+def rrdb_trunk(nf: int, nb: int, gc: int = 32, remat: bool = False) -> nn.Sequential:
     """nb RRDBs in sequence."""
-    return nn.Sequential(*[RRDB(nf, gc) for _ in range(nb)])
+    return nn.Sequential(*[RRDB(nf, gc, remat=remat) for _ in range(nb)])
+
+
+def set_trunk_remat(module: nn.Module, flag: bool) -> int:
+    """Set ``remat`` on every RRDB inside ``module``; returns how many."""
+    n = 0
+    for m in module.modules():
+        if isinstance(m, RRDB):
+            m.remat = flag
+            n += 1
+    return n

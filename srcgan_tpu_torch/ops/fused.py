@@ -1,6 +1,8 @@
-"""The phase-folded RDDBNet upsample tail, as in ``srcgan_tpu.ops.fused``.
+"""Exact fusions of op pairs, as in ``srcgan_tpu.ops.fused``: the
+phase-folded RDDBNet upsample tail, and the nearest-upsample + conv of the
+legacy generators' up stages.
 
-log2(r) x [ConvTranspose2d k2s2 (no bias) + LeakyReLU] + conv3x3, computed at
+The tail, log2(r) x [ConvTranspose2d k2s2 (no bias) + LeakyReLU] + conv3x3, is computed at
 input resolution ("phase space"): each k2s2 deconv is a 1x1 conv whose output
 keeps the r*r output phases packed in channel blocks, and the last 3x3 conv is
 re-indexed onto the phase grid (``fold_last_weight``), so one small pixel
@@ -15,7 +17,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from srcgan_tpu_torch.ops.conv import conv2d, pixel_shuffle
+from srcgan_tpu_torch.ops.conv import conv2d, pixel_shuffle, to_nchw, to_nhwc
+
+
+def nearest_up2_conv3x3(x, w, b=None):
+    """conv3x3(nearest_upsample_x2(x)) over NHWC x with an HWIO weight: the
+    up stage of the legacy RDDB generators (``upconv(F.interpolate(fea, 2,
+    'nearest'))``).  The JAX package folds the upsample into four phase
+    convolutions; here it is the plain form, F.interpolate then the
+    convolution, which computes the same sums."""
+    up = to_nhwc(F.interpolate(to_nchw(x), scale_factor=2, mode="nearest"))
+    return conv2d(up, w, b, 1, 1)
 
 
 def tail_phases(n_up: int):

@@ -3,7 +3,8 @@ versions, the model gate that routes the x4 bf16 tail through them, the
 trainer's fused-input path through the gray+degrade kernel, and the metrics
 and the eval tool through the ssim kernel, and the RDB5 kernel (both forms),
 the fused RDB5 schedule and the int8 predictor through it, the six probe
-kernels, and the LAB predictor.
+kernels, the LAB predictor, and the CycleGAN step and eval tool (one ssim
+launch per test image).
 
 Every test here needs a card (marker ``cuda``) and skips without one.  The
 file imports no jax, so it also runs where jax is not installed; there the
@@ -1086,3 +1087,69 @@ def test_lab_predictor_on_card_matches_cpu(dev):
     before = tail_kernel.launches
     y = CascadePredictor(sr, c, 4, lab=True, bf16=True, device=dev).predict(x)
     assert tail_kernel.launches == before + 1 and y.shape == (2, 64, 64, 3)
+
+
+# -- the CycleGAN slice ---------------------------------------------------------
+
+@pytest.fixture
+def small_gan(monkeypatch):
+    """The GAN trainer's generators at nf=16, nb=1, gc=8 for a test."""
+    def small(cls):
+        def make(in_nc, out_nc, nf=64, nb=3, gc=32, mode="x2", **kw):
+            return cls(in_nc, out_nc, 16, nb=1, gc=8, mode=mode, **kw)
+        return make
+
+    monkeypatch.setitem(models.REGISTRY, "RDDBNetB", small(models.RDDBNetB))
+    monkeypatch.setitem(models.REGISTRY, "RDDBNetD", small(models.RDDBNetD))
+
+
+def test_gan_step_on_card_matches_cpu(dev, small_gan):
+    """One fp32 gd_step (TF32 off) from the same weights: losses within rtol
+    1e-4 of the CPU's; the bf16 step on the card stays off the RDB5 kernel
+    (training forwards keep the generators in train mode)."""
+    import numpy as np
+
+    from srcgan_tpu_torch import config
+    from srcgan_tpu_torch.train.cyclegan import CycleGANTrainer
+
+    real_b = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (2, 32, 32, 3))
+                              .astype(np.float32))
+    real_a = real_b[:, ::2, ::2].contiguous()
+    losses = []
+    with config.precision("fp32"):
+        for where in ("cpu", dev):
+            tr = CycleGANTrainer(pool_size=0, device=where)
+            _, aux = tr.gd_step(tr.init(0), real_a.to(where), real_b.to(where), 1e-4, 1e-5)
+            losses.append({k: float(v) for k, v in aux.items() if v.dim() == 0})
+    for k in losses[0]:
+        assert abs(losses[1][k] - losses[0][k]) <= 1e-4 * abs(losses[0][k]), k
+    tr = CycleGANTrainer(act_dtype=torch.bfloat16, device=dev)
+    before = rdb5_kernel.launches_bf16
+    _, aux = tr.optimize_parameters(tr.init(1), real_a.to(dev), real_b.to(dev))
+    assert rdb5_kernel.launches_bf16 == before
+    assert all(bool(torch.isfinite(v)) for v in aux.values() if v.dim() == 0)
+
+
+def test_test_cyclegan_launches_ssim_once_per_image(dev, tmp_path, small_gan):
+    """train_cyclegan and test_cyclegan default to the card; every test image
+    launches the ssim kernel once; the row agrees with --device cpu."""
+    from srcgan_tpu_torch import data
+    from srcgan_tpu_torch.cli import test_cyclegan, train_cyclegan
+
+    data.make_synthetic_dataset(str(tmp_path / "Sat2Aerx2"), n_train=2, n_val=1, n_test=3,
+                                size=32, scale=2)
+    ck = tmp_path / "ck"
+    state = train_cyclegan.main(["--data-dir", str(tmp_path), "--num-epochs", "1",
+                                 "--save-every", "1", "--checkpoints", str(ck),
+                                 "--run-dir", str(tmp_path / "run")])
+    assert next(state.g.model.parameters()).is_cuda
+    args = ["--netGA", str(ck / "netG_A2B_SRtask_x2_0001.npz"), "--netGB",
+            str(ck / "netG_B2A_SRtask_x2_0001.npz"), "--data-dir", str(tmp_path)]
+    before = ssim_kernel.launches
+    on_card = test_cyclegan.main(args + ["--result-dir", str(tmp_path / "card")])
+    assert ssim_kernel.launches == before + 3 and on_card["device"].startswith("cuda")
+    on_cpu = test_cyclegan.main(args + ["--result-dir", str(tmp_path / "cpu"),
+                                        "--device", "cpu"])
+    assert ssim_kernel.launches == before + 3
+    assert abs(on_card["PSNR"] - on_cpu["PSNR"]) <= 0.01
+    assert abs(on_card["SSIM"] - on_cpu["SSIM"]) <= 1e-4

@@ -194,7 +194,7 @@ def test_jax_tree_from_module_inverts_state_dict_from_jax():
 
 def test_create_unknown_model_lists_known():
     with pytest.raises(KeyError, match="RDDBNet"):
-        models.create("EDSR", 1, 1, 2)
+        models.create("RCAN", 1, 1, 2)
 
 
 def test_fresh_weights_seeded_and_kaiming():
