@@ -85,14 +85,18 @@ Phases, in order; the first failure raises and the script exits non-zero:
                PNGs decode, the row agrees with --device cpu).
  12. gan     - the CycleGAN slice (CycleGANTrainer, net='1' x2: RDDBNetB and
                RDDBNetD at nf 64, nb 3, gc 32, two NLayerDiscriminator(3,64,2)):
-               one fp32 gd_step on the card against the CPU at a 128^2 target
-               (losses within rtol 1e-4); five bf16 optimize_parameters
+               two fp32 gd_steps, remat on, on the card against the CPU at a
+               128^2 target, the second from the card's state on both sides
+               (each step's losses within rtol 1e-4, D's running statistics,
+               each network's update and parameter norm held);
+               five bf16 optimize_parameters
                iterations through the host pool (4) at batch 1 of 256^2 and one
                gd_steps_pooled_u8 call of K=4 through the device pool, all
                losses finite and no rdb5_bf16 launch; the ms per iteration of
                optimize_parameters and gd_step at batch 1 and 4, remat on and
-               off in turns, with peak memory, and one iteration's host/device
-               split (profiler); cli.train_cyclegan for one epoch on a
+               off in turns, with peak memory and a host yardstick before each
+               turn, and one iteration's host/device split (profiler, device
+               time required); cli.train_cyclegan for one epoch on a
                synthetic Sat2Aerx2 set of 256^2 with --eval-after-save, then
                cli.test_cyclegan on its checkpoints: one ssim launch per test
                image, the PNGs decode, the row within 0.01 dB / 1e-4 SSIM of
@@ -1561,29 +1565,81 @@ def gan_u8(rng, n: int, hw: int) -> torch.Tensor:
     return torch.from_numpy(rng.integers(0, 256, (n, hw, hw, 3), dtype=np.uint8))
 
 
+def gan_snapshot(state) -> dict:
+    """Each network's parameters and D's running statistics, flat float64 on
+    the CPU."""
+    flat = {r: torch.cat([p.detach().cpu().double().flatten()
+                          for p in getattr(state, r).model.parameters()]) for r in ("g", "d")}
+    flat["bn"] = torch.cat([b.detach().cpu().double().flatten()
+                            for n, b in state.d.model.named_buffers() if "running" in n])
+    return flat
+
+
+def gan_match(dst, src):
+    """``dst`` (a CycleState) holding ``src``'s parameters, BatchNorm state and
+    Adam moments: the point at which both sides take the next step.  The
+    optimizer state is copied first: ``load_state_dict`` keeps Adam's host
+    step counter by reference, and both sides would then count it."""
+    for r in ("g", "d"):
+        getattr(dst, r).model.load_state_dict(getattr(src, r).model.state_dict())
+        getattr(dst, r).opt.load_state_dict(copy.deepcopy(getattr(src, r).opt.state_dict()))
+    return dst._replace(g=dst.g._replace(step=src.g.step), d=dst.d._replace(step=src.d.step))
+
+
 def phase_gan_fp32(dev):
-    """One fp32 gd_step (TF32 off) on the card against the CPU from the same
-    weights, batch 1 of 128^2 (the CPU side at 256^2 would take minutes):
-    every scalar loss within rtol 1e-4.  remat off on both sides (it is
-    value-neutral; the CPU tests hold it)."""
+    """Two fp32 gd_steps (TF32 off, remat on as the configuration has it) on
+    the card against the CPU, batch 1 of 128^2 (the CPU side at 256^2 would
+    take minutes).  Step 1 from the same initial weights; step 2 from the
+    card's state after step 1 (parameters, D's BatchNorm state and both Adam
+    moments copied to the CPU side), so that it holds the forward of updated
+    networks, Adam with moments and the checkpoint recompute at a matched
+    point (Adam's first update moves a near-zero gradient's element by +-lr
+    whatever its rounding, so two trajectories part at once).  Each step:
+    every scalar loss within rtol 1e-4; D's running statistics after it
+    within rel-L2 1e-4; each network's update within rel-L2 5e-2 (the train
+    phase's envelope) and its parameter norm within rtol 1e-5."""
     from srcgan_tpu_torch import config
+    from srcgan_tpu_torch.models.blocks import RRDB
     from srcgan_tpu_torch.train.cyclegan import CycleGANTrainer
 
-    tar = gan_u8(np.random.default_rng(20), 1, GAN_CHECK_HW)
-    runs = []
+    rng = np.random.default_rng(20)
+    tars = [gan_u8(rng, 1, GAN_CHECK_HW) for _ in range(2)]
+    sides = ("cpu", dev)
+    ok, lines = True, []
     with config.precision("fp32"):
-        for where in ("cpu", dev):
-            tr = CycleGANTrainer(pool_size=0, remat=False, device=where)
-            real_a, real_b = tr.inputs_u8(tar, tar)
-            _, aux = tr.gd_step(tr.init(21), real_a, real_b, tr.lr, tr.d_lr)
-            runs.append({k: float(v) for k, v in aux.items() if v.dim() == 0})
-    cpu, card = runs
-    err, at = max((abs(card[k] - cpu[k]) / abs(cpu[k]), k) for k in cpu)
-    print(f"[gan] fp32 gd_step card vs CPU (net='1' x2 full width, batch 1, {GAN_CHECK_HW}^2 "
-          f"target, TF32 off): loss_G {card['loss_G']:.6f} vs {cpu['loss_G']:.6f}, loss_D_A "
-          f"{card['loss_D_A']:.6f} vs {cpu['loss_D_A']:.6f}; max rel over {len(cpu)} losses "
-          f"{err:.2e} at {at} (bound 1e-4) {'PASS' if err <= 1e-4 else 'FAIL'}")
-    check(err <= 1e-4, "the fp32 GAN step on the card disagrees with the CPU")
+        trs = {w: CycleGANTrainer(pool_size=0, device=w) for w in sides}
+        states = {w: trs[w].init(21) for w in sides}
+        remat = sum(m.remat for m in states[dev].g.model.modules() if isinstance(m, RRDB))
+        check(trs[dev].remat and remat == 6, f"remat off or on {remat} of 6 RRDBs")
+        for step, tar in enumerate(tars, 1):
+            if step > 1:
+                states["cpu"] = gan_match(states["cpu"], states[dev])
+            before = {w: gan_snapshot(states[w]) for w in sides}
+            loss = {}
+            for w in sides:
+                real_a, real_b = trs[w].inputs_u8(tar, tar)
+                states[w], aux = trs[w].gd_step(states[w], real_a, real_b, trs[w].lr,
+                                                trs[w].d_lr)
+                loss[w] = {k: float(v) for k, v in aux.items() if v.dim() == 0}
+            after = {w: gan_snapshot(states[w]) for w in sides}
+            cpu, card = loss["cpu"], loss[dev]
+            err, at = max((abs(card[k] - cpu[k]) / abs(cpu[k]), k) for k in cpu)
+            bn = rel_l2(after[dev]["bn"], after["cpu"]["bn"])
+            upd = {r: rel_l2(after[dev][r] - before[dev][r], after["cpu"][r] - before["cpu"][r])
+                   for r in ("g", "d")}
+            norm = {r: abs(float(after[dev][r].norm() / after["cpu"][r].norm()) - 1)
+                    for r in ("g", "d")}
+            ok &= (err <= 1e-4 and bn <= 1e-4 and all(v <= 5e-2 for v in upd.values())
+                   and all(v <= 1e-5 for v in norm.values()))
+            lines.append(f"step {step}: loss_G {card['loss_G']:.6f} vs {cpu['loss_G']:.6f}, "
+                         f"max rel over {len(cpu)} losses {err:.2e} at {at}, D running "
+                         f"statistics rel-L2 {bn:.2e}, update rel-L2 G {upd['g']:.2e} D "
+                         f"{upd['d']:.2e}, norm rel G {norm['g']:.2e} D {norm['d']:.2e}")
+    print(f"[gan] two fp32 gd_steps card vs CPU (net='1' x2 full width, remat on: 6 RRDBs "
+          f"and every pass checkpointed, batch 1, {GAN_CHECK_HW}^2 target, TF32 off; step 2 "
+          f"from the card's state on both sides): " + "; ".join(lines)
+          + f" (bounds 1e-4, 1e-4, 5e-2, 1e-5) {'PASS' if ok else 'FAIL'}")
+    check(ok, "the fp32 GAN steps on the card disagree with the CPU")
 
 
 def gan_iteration_profile(tr, state, real_a, real_b):
@@ -1605,6 +1661,21 @@ def gan_iteration_profile(tr, state, real_a, real_b):
             if e.device_type == torch.autograd.DeviceType.CUDA]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     return wall, sum(r[1] for r in rows), rows[:5]
+
+
+def host_yardstick_ms(dev, n: int = 2000) -> float:
+    """The host's pace at enqueueing work: ms for ``n`` one-element adds on
+    the card, each a launch that the device finishes at once.  The GAN
+    iteration is host-bound (its profile), so its times move with this."""
+    import time
+
+    x = torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def phase_gan(dev, card: str) -> int:
@@ -1662,14 +1733,11 @@ def phase_gan(dev, card: str) -> int:
           f"backward); at the card's {PEAK_FLOPS['bf16'] / 1e12:.0f} TFLOP/s bf16 "
           f"{tflop / PEAK_FLOPS['bf16'] * 1e15:.3f} ms")
     wall, busy, top = gan_iteration_profile(tr, state, real_a, real_b)
-    if busy > 0:
-        print(f"[gan] one bf16 optimize_parameters iteration (batch 1, remat on) on {card}: "
-              f"wall {wall:.3f} ms, device busy {busy:.3f} ms = {100 * busy / wall:.1f}% (idle "
-              f"{100 * (1 - busy / wall):.1f}%); largest kernels "
-              + "; ".join(f"{k} {v:.3f} ms" for k, v in top) + " (profiler)")
-    else:
-        print(f"[gan] one bf16 optimize_parameters iteration: wall {wall:.3f} ms; device time "
-              "not measured (the profiler saw no device events)")
+    print(f"[gan] one bf16 optimize_parameters iteration (batch 1, remat on) on {card}: "
+          f"wall {wall:.3f} ms, device busy {busy:.3f} ms = {100 * busy / wall:.1f}% (idle "
+          f"{100 * (1 - busy / wall):.1f}%); largest kernels "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in top) + " (profiler)")
+    check(busy > 0, "the profiler saw no device kernel in a GAN iteration")
     del state, tr, pools, imgs
 
     # (c) ms per iteration and peak memory, remat on and off in turns
@@ -1677,7 +1745,9 @@ def phase_gan(dev, card: str) -> int:
         u8 = gan_u8(rng, n, GAN_HW).to(dev)
         for method in ("optimize_parameters", "gd_step"):
             times, peaks = {True: [], False: []}, {True: [], False: []}
+            host = []
             for remat in (True, False, False, True):
+                host.append(host_yardstick_ms(dev))
                 t = CycleGANTrainer(act_dtype=torch.bfloat16, remat=remat, device=dev,
                                     pool_size=4 if method == "optimize_parameters" else 0)
                 st = t.init(24)
@@ -1694,7 +1764,8 @@ def phase_gan(dev, card: str) -> int:
                   f"{' / '.join(f'{v:.3f}' for v in times[True])} ms, peak "
                   f"{max(peaks[True]):.3f} GiB; remat off "
                   f"{' / '.join(f'{v:.3f}' for v in times[False])} ms, peak "
-                  f"{max(peaks[False]):.3f} GiB (in turns; {n * GAN_HW ** 2 / 1e6 / statistics.median(times[True]) * 1e3:.3f} target MP/s with remat)")
+                  f"{max(peaks[False]):.3f} GiB (in turns; {n * GAN_HW ** 2 / 1e6 / statistics.median(times[True]) * 1e3:.3f} target MP/s with remat); "
+                  f"host yardstick before each turn {' / '.join(f'{v:.3f}' for v in host)} ms")
         del u8
     torch.cuda.empty_cache()
 

@@ -187,9 +187,9 @@ class RRDB(nn.Module):
     reaches the RDB5 kernel's gate (which refuses gradients) on one pass and
     cuDNN on the recompute."""
 
-    def __init__(self, nf: int, gc: int = 32, remat: bool = False):
+    def __init__(self, nf: int, gc: int = 32):
         super().__init__()
-        self.remat = remat
+        self.remat = False
         self.RDB1 = ResidualDenseBlock5(nf, gc)
         self.RDB2 = ResidualDenseBlock5(nf, gc)
         self.RDB3 = ResidualDenseBlock5(nf, gc)
@@ -204,9 +204,9 @@ class RRDB(nn.Module):
         return self._run(x, lemda)
 
 
-def rrdb_trunk(nf: int, nb: int, gc: int = 32, remat: bool = False) -> nn.Sequential:
+def rrdb_trunk(nf: int, nb: int, gc: int = 32) -> nn.Sequential:
     """nb RRDBs in sequence."""
-    return nn.Sequential(*[RRDB(nf, gc, remat=remat) for _ in range(nb)])
+    return nn.Sequential(*[RRDB(nf, gc) for _ in range(nb)])
 
 
 def set_trunk_remat(module: nn.Module, flag: bool) -> int:

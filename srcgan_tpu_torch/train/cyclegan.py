@@ -54,7 +54,6 @@ import copy
 import random as _random
 from typing import Dict, List, NamedTuple, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 from torch.func import functional_call
@@ -73,8 +72,8 @@ Aux = Dict[str, torch.Tensor]
 
 class ImagePool:
     """History buffer of generated images with the reference's 50% replace
-    policy.  Stateful, its draws on the host; numpy batches come back as
-    numpy, tensors as tensors on their device."""
+    policy.  Stateful, its draws on the host; the images stay on their
+    device."""
 
     def __init__(self, pool_size: int, seed: int = 0):
         self.pool_size = pool_size
@@ -82,12 +81,11 @@ class ImagePool:
         self.images: List = []
         self._rng = _random.Random(seed)
 
-    def query(self, images):
+    def query(self, images: torch.Tensor) -> torch.Tensor:
         if self.pool_size == 0:
             return images
-        is_tensor = isinstance(images, torch.Tensor)
         out = []
-        for image in (images if is_tensor else np.asarray(images)):
+        for image in images:
             image = image[None]
             if self.num_imgs < self.pool_size:
                 self.num_imgs += 1
@@ -95,12 +93,12 @@ class ImagePool:
                 out.append(image)
             elif self._rng.uniform(0, 1) > 0.5:
                 rid = self._rng.randint(0, self.pool_size - 1)
-                tmp = self.images[rid].clone() if is_tensor else self.images[rid].copy()
+                tmp = self.images[rid].clone()
                 self.images[rid] = image
                 out.append(tmp)
             else:
                 out.append(image)
-        return torch.cat(out, 0) if is_tensor else np.concatenate(out, 0)
+        return torch.cat(out, 0)
 
 
 class CycleState(NamedTuple):

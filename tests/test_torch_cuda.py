@@ -1104,25 +1104,61 @@ def small_gan(monkeypatch):
 
 
 def test_gan_step_on_card_matches_cpu(dev, small_gan):
-    """One fp32 gd_step (TF32 off) from the same weights: losses within rtol
-    1e-4 of the CPU's; the bf16 step on the card stays off the RDB5 kernel
-    (training forwards keep the generators in train mode)."""
+    """Two fp32 gd_steps (TF32 off, remat on): step 1 from the same weights,
+    step 2 from the card's state after step 1 (parameters, D's BatchNorm
+    state, both Adam moments copied to the CPU side: Adam's first update
+    moves a near-zero gradient's element by +-lr whatever its rounding, so
+    two trajectories part at once).  Each step: losses within rtol 1e-4 of
+    the CPU's, D's running statistics within rel-L2 1e-4, each network's
+    update within rel-L2 5e-2 and its parameter norm within rtol 1e-5.  The
+    bf16 step on the card stays off the RDB5 kernel (training forwards keep
+    the generators in train mode)."""
+    import copy
+
     import numpy as np
 
     from srcgan_tpu_torch import config
     from srcgan_tpu_torch.train.cyclegan import CycleGANTrainer
 
-    real_b = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (2, 32, 32, 3))
-                              .astype(np.float32))
-    real_a = real_b[:, ::2, ::2].contiguous()
-    losses = []
+    def snapshot(state):
+        out = {r: torch.cat([p.detach().cpu().double().flatten()
+                             for p in getattr(state, r).model.parameters()]) for r in "gd"}
+        out["bn"] = torch.cat([b.detach().cpu().double().flatten()
+                               for n, b in state.d.model.named_buffers() if "running" in n])
+        return out
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    rng = np.random.default_rng(0)
+    sides = ("cpu", dev)
     with config.precision("fp32"):
-        for where in ("cpu", dev):
-            tr = CycleGANTrainer(pool_size=0, device=where)
-            _, aux = tr.gd_step(tr.init(0), real_a.to(where), real_b.to(where), 1e-4, 1e-5)
-            losses.append({k: float(v) for k, v in aux.items() if v.dim() == 0})
-    for k in losses[0]:
-        assert abs(losses[1][k] - losses[0][k]) <= 1e-4 * abs(losses[0][k]), k
+        trs = {w: CycleGANTrainer(pool_size=0, device=w) for w in sides}
+        states = {w: trs[w].init(0) for w in sides}
+        assert trs[dev].remat
+        for step in range(2):
+            real_b = torch.from_numpy(rng.uniform(0, 1, (2, 32, 32, 3)).astype(np.float32))
+            real_a = real_b[:, ::2, ::2].contiguous()
+            if step:
+                src, dst = states[dev], states["cpu"]
+                for r in "gd":
+                    getattr(dst, r).model.load_state_dict(getattr(src, r).model.state_dict())
+                    getattr(dst, r).opt.load_state_dict(
+                        copy.deepcopy(getattr(src, r).opt.state_dict()))
+            before = {w: snapshot(states[w]) for w in sides}
+            losses = {}
+            for w in sides:
+                states[w], aux = trs[w].gd_step(states[w], real_a.to(w), real_b.to(w),
+                                                1e-4, 1e-5)
+                losses[w] = {k: float(v) for k, v in aux.items() if v.dim() == 0}
+            after = {w: snapshot(states[w]) for w in sides}
+            for k, v in losses["cpu"].items():
+                assert abs(losses[dev][k] - v) <= 1e-4 * abs(v), (step, k)
+            assert rel(after[dev]["bn"], after["cpu"]["bn"]) <= 1e-4, step
+            for r in "gd":
+                assert rel(after[dev][r] - before[dev][r],
+                           after["cpu"][r] - before["cpu"][r]) <= 5e-2, (step, r)
+                assert abs(float(after[dev][r].norm() / after["cpu"][r].norm()) - 1) <= 1e-5
     tr = CycleGANTrainer(act_dtype=torch.bfloat16, device=dev)
     before = rdb5_kernel.launches_bf16
     _, aux = tr.optimize_parameters(tr.init(1), real_a.to(dev), real_b.to(dev))
