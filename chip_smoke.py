@@ -101,7 +101,28 @@ Phases, in order; the first failure raises and the script exits non-zero:
                cli.test_cyclegan on its checkpoints: one ssim launch per test
                image, the PNGs decode, the row within 0.01 dB / 1e-4 SSIM of
                --device cpu.
-Then one JSON line of kernel results, the nvidia-smi line, and last
+ 13. mt      - the multi-task GAN (MultiTaskTrainer() at the JAX defaults: x2,
+               ngf 64, resnet_9blocks, instance norm, G_C SRDenseNetA with 2
+               blocks of 2 layers, two NLayerDiscriminator(., 64, 2), pool 4,
+               remat on): two fp32 gd_step_pooled steps on the card against
+               the CPU at a 128^2 target, each from the card's state on both
+               sides after a warm-up step (phase 12's bounds); three bf16
+               optimize_parameters iterations at batch 1 of 256^2 with every
+               kernel's launch count 0; one profiled iteration (device time
+               required) and its FLOPs; the iteration's ms and peak memory
+               with remat on and off in turns; cli.train_multitask for one
+               epoch on a synthetic Sat2Aerx2 set, its three checkpoints
+               loading back into the port's nets.
+ 14. zoo     - VDSR, MDSR (every scale index), RDN, RCAN, DDBPN and EDSRWeb at
+               the JAX constructors' defaults: fp32 (TF32 off) on the card
+               against the CPU at 1x3x48^2 within rel-L2 1e-5; bf16 ms, peak
+               memory, FLOPs and bound at batch 16 of 48^2; no kernel launch;
+               then cli.train_cas --SRModel EDSRWeb for one epoch and
+               cli.test_cas on its checkpoints: one ssim launch per eval
+               batch and nothing else, the row within 0.01 dB / 1e-4 SSIM of
+               --device cpu.
+Then one JSON line of kernel results (with each kernel's launches on the
+paths of phases 13 and 14), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Weights are random, from fixed seeds.
 """
 from __future__ import annotations
@@ -1824,6 +1845,315 @@ def phase_gan(dev, card: str) -> int:
     print(f"[gan] phase took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
+# The multi-task slice: MultiTaskTrainer() at its defaults, batch 1 of 256^2
+# targets (realA their 128^2 gray); the fp32 check at 128^2.
+MT_HW, MT_CHECK_HW, MT_ITERS, MT_REPS, MT_TRAIN = 256, 128, 3, 5, 4
+# The zoo: fp32 card vs CPU at 1x3x48x48, bf16 timing at batch 16 of 48^2.
+ZOO_HW, ZOO_BATCH, ZOO_REPS = 48, 16, 10
+ZOO_TRAIN, ZOO_TEST, ZOO_EVAL_BATCH = 8, 8, 4
+
+
+def kernel_launches() -> dict:
+    """Every kernel's launch count, by kernel."""
+    from srcgan_tpu_torch.ops.kernels import (preprocess_kernel, probe_kernels, rdb5_kernel,
+                                              ssim_kernel, tail_kernel)
+
+    return {"tail_x4": tail_kernel.launches + tail_kernel.finish_launches,
+            "gray_degrade": preprocess_kernel.launches, "ssim": ssim_kernel.launches,
+            "rdb5_bf16": rdb5_kernel.launches_bf16, "rdb5_int8": rdb5_kernel.launches_int8,
+            "probes": sum(probe_kernels.launches.values()) + probe_kernels.matmul_int8_launches}
+
+
+def reset_launches():
+    """Every launch count to 0, just before a path is driven."""
+    from srcgan_tpu_torch.ops.kernels import (preprocess_kernel, probe_kernels, rdb5_kernel,
+                                              ssim_kernel, tail_kernel)
+
+    tail_kernel.launches = tail_kernel.finish_launches = 0
+    preprocess_kernel.launches = ssim_kernel.launches = 0
+    rdb5_kernel.launches_bf16 = rdb5_kernel.launches_int8 = 0
+    probe_kernels.launches.update(dict.fromkeys(probe_kernels.launches, 0))
+    probe_kernels.matmul_int8_launches = 0
+
+
+def mt_inputs(tar_u8: torch.Tensor, dev):
+    """(realA, realB) of a uint8 RGB target batch: realA the gray of its
+    nearest half-size sample, as a Sat2Aerx2 source."""
+    from srcgan_tpu_torch.data import preprocess
+
+    tar = tar_u8.to(dev)
+    return preprocess.convert_pair(tar[:, ::2, ::2].contiguous(), tar, "G2RGB")
+
+
+def phase_multitask_fp32(dev):
+    """Two fp32 gd_step_pooled steps (TF32 off, remat on) of MultiTaskTrainer()
+    on the card against the CPU at a 128^2 target, by phase 12's matched-point
+    method: each step from the card's state on both sides, the first after
+    one warm-up step on the card, so that both hold Adam with moments.  (From
+    a fresh state Adam's first update is lr * sign(g), and this net's fp32
+    gradient at batch 1 flips signs: its rel-L2 is ~5e-3 between the card and
+    the CPU, ~1e-2 between fp32 and float64 on one CPU; the first update
+    then parts by ~0.1 on either device.)  The device pools pass the fakes
+    through while they fill, on either side.  Bounds as phase 12: losses
+    rtol 1e-4, D's running statistics rel-L2 1e-4, each network's update
+    rel-L2 5e-2 and its parameter norm rtol 1e-5."""
+    from srcgan_tpu_torch import config
+    from srcgan_tpu_torch.train.multitask import MultiTaskTrainer
+
+    rng = np.random.default_rng(30)
+    warm, *tars = [gan_u8(rng, 1, MT_CHECK_HW) for _ in range(3)]
+    sides = ("cpu", dev)
+    ok, lines = True, []
+    with config.precision("fp32"):
+        trs = {w: MultiTaskTrainer(device=w) for w in sides}
+        states = {w: trs[w].init(31) for w in sides}
+        pools = {w: trs[w].device_pool_init(states[w], *mt_inputs(warm, w), seed=1)
+                 for w in sides}
+        states[dev], pools[dev], _ = trs[dev].gd_step_pooled(
+            states[dev], pools[dev], *mt_inputs(warm, dev), trs[dev].lr, trs[dev].d_lr)
+        for step, tar in enumerate(tars, 1):
+            states["cpu"] = gan_match(states["cpu"], states[dev])
+            before = {w: gan_snapshot(states[w]) for w in sides}
+            loss = {}
+            for w in sides:
+                states[w], pools[w], aux = trs[w].gd_step_pooled(
+                    states[w], pools[w], *mt_inputs(tar, w), trs[w].lr, trs[w].d_lr)
+                loss[w] = {k: float(v) for k, v in aux.items() if v.dim() == 0}
+            after = {w: gan_snapshot(states[w]) for w in sides}
+            cpu, card = loss["cpu"], loss[dev]
+            err, at = max((abs(card[k] - cpu[k]) / abs(cpu[k]), k) for k in cpu)
+            bn = rel_l2(after[dev]["bn"], after["cpu"]["bn"])
+            upd = {r: rel_l2(after[dev][r] - before[dev][r], after["cpu"][r] - before["cpu"][r])
+                   for r in ("g", "d")}
+            norm = {r: abs(float(after[dev][r].norm() / after["cpu"][r].norm()) - 1)
+                    for r in ("g", "d")}
+            ok &= (err <= 1e-4 and bn <= 1e-4 and all(v <= 5e-2 for v in upd.values())
+                   and all(v <= 1e-5 for v in norm.values()))
+            lines.append(f"step {step}: loss_G {card['loss_G']:.6f} vs {cpu['loss_G']:.6f}, "
+                         f"loss_G_C {card['loss_G_C']:.6f} vs {cpu['loss_G_C']:.6f}, max rel "
+                         f"over {len(cpu)} losses {err:.2e} at {at}, D running statistics "
+                         f"rel-L2 {bn:.2e}, update rel-L2 G {upd['g']:.2e} D {upd['d']:.2e}, "
+                         f"norm rel G {norm['g']:.2e} D {norm['d']:.2e}")
+    print(f"[mt] two fp32 gd_step_pooled card vs CPU (MultiTaskTrainer(): x2, ngf 64, "
+          f"resnet_9blocks, instance norm, remat on, batch 1, {MT_CHECK_HW}^2 target, TF32 "
+          f"off; each step from the card's state on both sides, after a warm-up step): "
+          + "; ".join(lines)
+          + f" (bounds 1e-4, 1e-4, 5e-2, 1e-5) {'PASS' if ok else 'FAIL'}")
+    check(ok, "the fp32 multi-task steps on the card disagree with the CPU")
+
+
+def phase_multitask(dev, card: str) -> dict:
+    """Phase 13, the multi-task GAN (see the module docstring).  Returns the
+    launch counts of the bf16 iterations (every kernel 0)."""
+    import time
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from srcgan_tpu_torch import data, interop, models
+    from srcgan_tpu_torch.cli import train_multitask
+    from srcgan_tpu_torch.train.multitask import MultiTaskTrainer
+
+    t_phase = time.perf_counter()
+    phase_multitask_fp32(dev)
+
+    # (b) bf16 iterations through the host pools, every kernel's count read
+    rng = np.random.default_rng(32)
+    real_a, real_b = mt_inputs(gan_u8(rng, 1, MT_HW), dev)
+    tr = MultiTaskTrainer(act_dtype=torch.bfloat16, device=dev)
+    state = tr.init(33)
+    reset_launches()
+    rows = []
+    for _ in range(MT_ITERS):
+        state, aux = tr.optimize_parameters(state, real_a, real_b)
+        rows.append({k: float(v) for k, v in aux.items() if v.dim() == 0})
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    finite = all(math.isfinite(v) for r in rows for v in r.values())
+    print(f"[mt] {MT_ITERS} bf16 optimize_parameters (host pools 4), batch 1 of {MT_HW}^2: "
+          f"loss_G {' -> '.join('%.3f' % r['loss_G'] for r in rows)}, loss_G_C "
+          f"{' -> '.join('%.4f' % r['loss_G_C'] for r in rows)}, loss_D "
+          f"{' -> '.join('%.4f' % (r['loss_D_A'] + r['loss_D_B']) for r in rows)}; all finite "
+          f"{finite}; kernel launches {launches} {'PASS' if finite else 'FAIL'}")
+    check(finite, "a bf16 multi-task loss is not finite")
+    check(not any(launches.values()), "a multi-task training pass launched a kernel")
+    with FlopCounterMode(display=False) as flops:
+        tr.optimize_parameters(state, real_a, real_b)
+    tflop = flops.get_total_flops() / 1e12
+    wall, busy, top = gan_iteration_profile(tr, state, real_a, real_b)
+    print(f"[mt] one bf16 optimize_parameters iteration (batch 1, remat on) on {card}: "
+          f"{tflop:.4f} TFLOP (torch.utils.flop_counter: convolutions and matmuls, forward, "
+          f"recompute and backward), bound at the {PEAK_FLOPS['bf16'] / 1e12:.0f} TFLOP/s bf16 "
+          f"peak {tflop / PEAK_FLOPS['bf16'] * 1e15:.3f} ms; wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms = {100 * busy / wall:.1f}% (idle {100 * (1 - busy / wall):.1f}%); "
+          f"largest kernels " + "; ".join(f"{k} {v:.3f} ms" for k, v in top) + " (profiler)")
+    check(busy > 0, "the profiler saw no device kernel in a multi-task iteration")
+    del state, tr
+
+    # (c) ms per iteration and peak memory, remat on and off in turns
+    times, peaks, host = {True: [], False: []}, {True: [], False: []}, []
+    for remat in (True, False, False, True):
+        host.append(host_yardstick_ms(dev))
+        t = MultiTaskTrainer(act_dtype=torch.bfloat16, remat=remat, device=dev)
+        st = t.init(34)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times[remat].append(median_ms(lambda: t.optimize_parameters(st, real_a, real_b),
+                                      reps=MT_REPS))
+        peaks[remat].append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        del st, t
+    print(f"[mt] bf16 optimize_parameters, batch 1 of {MT_HW}^2 on {card}: remat on "
+          f"{' / '.join(f'{v:.3f}' for v in times[True])} ms, peak {max(peaks[True]):.3f} GiB; "
+          f"remat off {' / '.join(f'{v:.3f}' for v in times[False])} ms, peak "
+          f"{max(peaks[False]):.3f} GiB (in turns, median of {MT_REPS}); host yardstick "
+          f"before each turn {' / '.join(f'{v:.3f}' for v in host)} ms")
+    torch.cuda.empty_cache()
+
+    # (d) train_multitask for one epoch; the three checkpoints load back
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mt_") as tmp:
+        data.make_synthetic_dataset(os.path.join(tmp, "Sat2Aerx2"), n_train=MT_TRAIN, n_val=1,
+                                    n_test=1, size=MT_HW, seed=0, scale=2)
+        ck = os.path.join(tmp, "checkpoints")
+        t0 = time.perf_counter()
+        state = train_multitask.main(["--data-dir", tmp, "--bf16-acts", "--num-epochs", "1",
+                                      "--save-every", "1", "--log-every", "2",
+                                      "--checkpoints", ck, "--run-dir", os.path.join(tmp, "run")])
+        secs = time.perf_counter() - t0
+        check(state.g.step == MT_TRAIN and next(state.g.model.parameters()).is_cuda,
+              "train_multitask did not take its steps on the card")
+        nets = {"G_A": models.define_G(1, 3, 64, "resnet_9blocks", "instance"),
+                "G_B": models.define_G(3, 1, 64, "resnet_9blocks", "instance"),
+                "G_C": models.create("SRDenseNetA", 1, 1, mode="x2", num_blocks=2,
+                                     num_layers=2)}
+        for name, net in nets.items():
+            interop.load_params_any(net, os.path.join(ck, f"netG_{name}_MTtask_x2_0001.npz"))
+            want = state.g.model[name].state_dict()
+            check(all(torch.equal(v, want[k].cpu()) for k, v in net.state_dict().items()),
+                  f"the {name} checkpoint does not hold the trained generator")
+    print(f"\n[mt] train_multitask --bf16-acts, one epoch of {MT_TRAIN} pairs of {MT_HW}^2 on "
+          f"{card}: {secs:.2f} s; netG_{{G_A,G_B,G_C}}_MTtask_x2_0001.npz load back into the "
+          f"port's nets (strict) PASS")
+    print(f"[mt] phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def zoo_models():
+    """The six zoo models at the JAX constructors' defaults (the others at
+    scale 2; MDSR at [2, 3, 4]): name -> (constructor, input range)."""
+    from srcgan_tpu_torch import models
+    from srcgan_tpu_torch.models.edsr_zoo import args_namespace
+
+    g = lambda: torch.Generator().manual_seed(40)  # noqa: E731
+    return {"VDSR": (lambda: models.VDSR(generator=g()), 255.0),
+            "MDSR": (lambda: models.MDSR(args_namespace(scale=[2, 3, 4]), generator=g()), 255.0),
+            "RDN": (lambda: models.RDN(generator=g()), 255.0),
+            "RCAN": (lambda: models.RCAN(generator=g()), 255.0),
+            "DDBPN": (lambda: models.DDBPN(generator=g()), 255.0),
+            "EDSRWeb": (lambda: models.EDSRWeb(3, 3, 2, generator=g()), 1.0)}
+
+
+def phase_zoo(dev, card: str):
+    """Phase 14, the zoo (see the module docstring).  Returns the launch
+    counts of the zoo forwards (every kernel 0) and of the EDSRWeb test_cas
+    on the card (ssim once per batch)."""
+    import time
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from srcgan_tpu_torch import config, data
+    from srcgan_tpu_torch.cli import test_cas, train_cas
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(41)
+    x01 = torch.from_numpy(rng.uniform(0, 1, (1, 3, ZOO_HW, ZOO_HW)).astype(np.float32))
+    xb01 = torch.from_numpy(rng.uniform(0, 1, (ZOO_BATCH, 3, ZOO_HW, ZOO_HW))
+                            .astype(np.float32)).to(dev, torch.bfloat16)
+    reset_launches()
+    worst = 0.0
+    for name, (make, rng_max) in zoo_models().items():
+        net = make().eval()
+        scales = range(len(net.scales)) if name == "MDSR" else (None,)
+        errs = []
+        with torch.no_grad(), config.precision("fp32"):
+            card_net = copy.deepcopy(net).to(dev)
+            for idx in scales:
+                if idx is not None:
+                    net.set_scale(idx)
+                    card_net.set_scale(idx)
+                want = net(x01 * rng_max)
+                got = card_net((x01 * rng_max).to(dev)).cpu()
+                check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                      f"{name}: {tuple(got.shape)}")
+                errs.append(rel_l2(got, want))
+        worst = max(worst, *errs)
+        # bf16 at batch 16: time, peak memory, FLOPs and the bound
+        bf = config.cast_parameters(card_net, torch.bfloat16)
+        xb = xb01 * rng_max
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = median_ms(lambda: bf(xb), reps=ZOO_REPS)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            with FlopCounterMode(display=False) as flops:
+                y = bf(xb)
+        nbytes = tensor_bytes(xb, y, *bf.parameters())
+        bound = least_time(nbytes, flops.get_total_flops(), "bf16")
+        print(f"[zoo] {name}{' (scale index ' + str(scales[-1]) + ' timed)' if name == 'MDSR' else ''}: "
+              f"{sum(p.numel() for p in net.parameters()) / 1e6:.3f} M params; fp32 card vs CPU "
+              f"at 1x3x{ZOO_HW}^2 in [0,{rng_max:g}] (TF32 off) rel-L2 "
+              f"{' / '.join(f'{e:.2e}' for e in errs)}; bf16 forward, batch {ZOO_BATCH} of "
+              f"{ZOO_HW}^2 -> {tuple(y.shape[2:])} on {card}: {ms:.3f} ms, peak {peak:.3f} GiB, "
+              f"{flops.get_total_flops() / 1e9:.2f} GFLOP, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}) = {100 * bound['bound_ms'] / ms:.1f}% of the time")
+        del net, card_net, bf, y
+    torch.cuda.synchronize()
+    fwd_launches = kernel_launches()
+    ok = worst <= 1e-5
+    print(f"[zoo] six models, worst fp32 card-vs-CPU rel-L2 {worst:.2e} (bound 1e-5); kernel "
+          f"launches over the zoo forwards {fwd_launches} {'PASS' if ok else 'FAIL'}")
+    check(ok, "a zoo model's fp32 forward on the card disagrees with the CPU")
+    check(not any(fwd_launches.values()), "a zoo forward launched a kernel")
+    torch.cuda.empty_cache()
+
+    # EDSRWeb as the cascade's SR stage: train_cas for one epoch, then test_cas
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
+        data.make_synthetic_dataset(os.path.join(tmp, "Sat2Aerx1"), n_train=ZOO_TRAIN, n_val=1,
+                                    n_test=ZOO_TEST, size=EVAL_HW, seed=0, colorizable=True)
+        ck = os.path.join(tmp, "checkpoints")
+        train_cas.main(["--data-dir", tmp, "--SRModel", "EDSRWeb", "--CModel", "ResDeconv",
+                        "--up", "2", "--batch-size", str(ZOO_EVAL_BATCH), "--bf16-acts",
+                        "--num-epochs", "1", "--save-every", "1", "--log-every", "1",
+                        "--checkpoints", ck, "--run-dir", os.path.join(tmp, "run")])
+        net_a = os.path.join(ck, "EDSRWeb_A2C_x2_0001.npz")
+        net_b = os.path.join(ck, "ResDeconv_C2B_x2_0001.npz")
+        check(os.path.exists(net_a) and os.path.exists(net_b), "train_cas left no checkpoints")
+        print()
+
+        def evaluate(result, *extra):
+            return test_cas.main(["--netGA", net_a, "--netGB", net_b, "--data-dir", tmp,
+                                  "--result-dir", os.path.join(tmp, result), "--batch-size",
+                                  str(ZOO_EVAL_BATCH), "--precision", "highest", *extra])
+
+        reset_launches()
+        on_card = evaluate("result")
+        launches = kernel_launches()
+        n_batches = -(-ZOO_TEST // ZOO_EVAL_BATCH)
+        check(on_card["images"] == ZOO_TEST and on_card["device"].startswith("cuda"),
+              "the EDSRWeb eval did not run on the card")
+        check(launches["ssim"] == n_batches and sum(launches.values()) == n_batches,
+              f"kernel launches of the EDSRWeb eval {launches}, want ssim {n_batches}")
+        on_cpu = evaluate("result_cpu", "--device", "cpu")
+        d_psnr = abs(on_card["PSNR"] - on_cpu["PSNR"])
+        d_ssim = abs(on_card["SSIM"] - on_cpu["SSIM"])
+        ok = d_psnr <= 0.01 and d_ssim <= 1e-4
+        print(f"[zoo] train_cas --SRModel EDSRWeb -> test_cas, {ZOO_TEST} images of {EVAL_HW}^2 "
+              f"in {n_batches} batches on {card}: kernel launches {launches}; card vs CPU PSNR "
+              f"{on_card['PSNR']:.5f} vs {on_cpu['PSNR']:.5f} (|d| {d_psnr:.2e}, bound 0.01 dB), "
+              f"SSIM {on_card['SSIM']:.6f} vs {on_cpu['SSIM']:.6f} (|d| {d_ssim:.2e}, bound "
+              f"1e-4) {'PASS' if ok else 'FAIL'}")
+        check(ok, "the card's EDSRWeb Performs.csv row disagrees with the CPU's")
+    print(f"[zoo] phase took {time.perf_counter() - t_phase:.1f} s")
+    return fwd_launches, launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1865,6 +2195,13 @@ def main() -> int:
     tail["launches_lab"], ssim["launches_lab"] = lab["tail_x4"], lab["ssim"]
     del sr, c
     ssim["launches_gan"] = phase_gan(dev, where)
+    mt = phase_multitask(dev, where)
+    zoo, zoo_eval = phase_zoo(dev, where)
+    for entry, key in ((tail, "tail_x4"), (gray, "gray_degrade"), (ssim, "ssim"),
+                       (rdb5_bf16, "rdb5_bf16"), (rdb5_int8, "rdb5_int8"),
+                       *((p, "probes") for p in probes)):
+        entry.update(launches_multitask=mt[key], launches_zoo=zoo[key],
+                     launches_zoo_eval=zoo_eval[key])
 
     print(json.dumps({"kernels": [tail, gray, ssim, rdb5_bf16, rdb5_int8, *probes]}))
     print(smi)

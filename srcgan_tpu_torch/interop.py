@@ -7,13 +7,17 @@ export done with numpy alone (no jax): path components are renamed by the
 same map, convs go HWIO -> OIHW, transposed convs (kh,kw,in,out) ->
 (in,out,kh,kw), and norm ``scale`` becomes ``weight``.  A module whose
 JAX tree starts below it names that attribute ``jax_root`` (the PatchGAN's
-``model``: reference name ``model.3.weight``, JAX path ``3/scale``); one
+``model``: reference name ``model.3.weight``, JAX path ``3/scale``; the
+roots nest, as in a U-Net's ``model.model.1.model...``); one
 whose attribute keeps its name in the JAX tree where the map would rename
 it says so in ``jax_names`` (EDSR's ``upscale_layers``).  ``jax_tree_from_module``
 is its inverse: a port module (or any state_dict-shaped dict of its tensors,
 such as Adam's moments) -> the JAX parameter tree and model state, as numpy,
 which the JAX package's ``load_params`` reads.  ``quant_scales_from_jax``
-carries an int8 calibration table across.
+carries an int8 calibration table across.  The zoo's frozen ``MeanShift``
+buffers are in no JAX tree: ``state_dict_from_jax`` takes them from the
+module, ``jax_tree_from_module`` leaves them out; ``nn.PReLU``'s ``weight``
+is the JAX ``alpha``.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from srcgan_tpu_torch.models.edsr_zoo import MeanShift
 from srcgan_tpu_torch.train.state import load_params
 
 # JAX parameter-tree path components -> reference torch module names, where
@@ -37,6 +42,7 @@ _TORCH_NAME_MAP = {
     "w": "weight",
     "b": "bias",
     "scale": "weight",              # norm affine
+    "alpha": "weight",              # PReLU slope
 }
 # BatchNorm running statistics, kept in the JAX model state.
 _STATE_NAME_MAP = {"mean": "running_mean", "var": "running_var"}
@@ -53,9 +59,10 @@ def _torch_name(model: nn.Module, path, names) -> str:
     out, mod = [], model
     for part in path[:-1]:
         root = getattr(mod, "jax_root", None)
-        if root:
+        while root:
             out.append(root)
             mod = getattr(mod, root)
+            root = getattr(mod, "jax_root", None)
         out.append(names.get(part, part))
         mod = mod.get_submodule(out[-1])
     return ".".join(out + [names.get(path[-1], path[-1])])
@@ -85,9 +92,16 @@ def state_dict_from_jax(model: nn.Module, params, state=None) -> Dict[str, torch
     for path, v in _walk(state or {}):
         name = _torch_name(model, path, {**_TORCH_NAME_MAP, **_STATE_NAME_MAP})
         out[name] = torch.tensor(np.ascontiguousarray(v))
+    for name, t in model.state_dict().items():       # constants no JAX tree holds
+        if _is_mean_shift(model, name):
+            out[name] = t.detach().cpu().clone()
     # the model's registration order (JAX tree utilities sort the keys)
     order = [k for k in model.state_dict() if k in out]
     return {k: out[k] for k in order + [k for k in out if k not in order]}
+
+
+def _is_mean_shift(model: nn.Module, name: str) -> bool:
+    return "." in name and isinstance(model.get_submodule(name.rsplit(".", 1)[0]), MeanShift)
 
 
 def quant_scales_from_jax(scales) -> Dict[int, np.ndarray]:
@@ -136,6 +150,8 @@ def _jax_path(model: nn.Module, name: str) -> Tuple[Tuple[str, ...], bool]:
         return tuple(path) + (_JAX_STATE_NAME_MAP[leaf],), True
     if isinstance(owner, (nn.Conv2d, nn.ConvTranspose2d)):
         return tuple(path) + ({"weight": "w", "bias": "b"}[leaf],), False
+    if isinstance(owner, nn.PReLU):
+        return tuple(path) + ("alpha",), False
     return tuple(path) + ({"weight": "scale", "bias": "bias"}[leaf],), False
 
 
@@ -146,12 +162,12 @@ def jax_tree_from_module(model: nn.Module, tensors: Optional[Dict[str, torch.Ten
     ``tensors`` defaults to the module's own state_dict; any dict with the
     same names and parameter shapes (an optimizer's moments, gradients)
     converts the same way.  The arrays are copies.  ``num_batches_tracked``
-    has no JAX counterpart."""
+    and the MeanShift constants have no JAX counterpart."""
     sd = model.state_dict() if tensors is None else tensors
     params: Dict = {}
     state: Dict = {}
     for name, t in sd.items():
-        if name.endswith("num_batches_tracked"):
+        if name.endswith("num_batches_tracked") or _is_mean_shift(model, name):
             continue
         path, is_state = _jax_path(model, name)
         owner = model.get_submodule(name.rsplit(".", 1)[0])

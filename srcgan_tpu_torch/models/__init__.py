@@ -1,10 +1,10 @@
-"""Model registry of the port: the cascade's SR generators and colorizers,
-the six names the reference exports, and the adversarial trainer's nets.
+"""Model registry of the port, the JAX package's 22 names: the cascade's SR
+generators and colorizers (the six names the reference exports), the
+CycleGAN-era nets and the PatchGAN, the EDSR-derived zoo and the pix2pix
+generators.
 
 ``create(name, ...)`` builds a model by name, as ``srcgan_tpu.models.create``
-does, with the same positional arguments; the pix2pix generators (the
-multi-task half of ROADMAP A10) and the EDSR-derived zoo (A11) are still to
-be ported.
+does, with the same positional arguments; ``register(name, cls)`` adds one.
 """
 from __future__ import annotations
 
@@ -12,9 +12,12 @@ from typing import Dict
 
 from srcgan_tpu_torch.models.discriminator import NLayerDiscriminator
 from srcgan_tpu_torch.models.edsr import EDSR
+from srcgan_tpu_torch.models.edsr_zoo import (DDBPN, MDSR, RCAN, RDN, VDSR, EDSRWeb,
+                                              args_namespace)
 from srcgan_tpu_torch.models.espcn import ESPCN, SRCNN
 from srcgan_tpu_torch.models.legacy import (Decoder, Encoder, RDDBNetA, RDDBNetB,
                                             RDDBNetD, SRDenseNetA, SRDenseNetB)
+from srcgan_tpu_torch.models.pix2pix import ResnetGenerator, UnetGenerator, define_G
 from srcgan_tpu_torch.models.rddb import RDDBNet
 from srcgan_tpu_torch.models.resdeconv import ResDeconv
 from srcgan_tpu_torch.models.srdn import SRDN
@@ -37,7 +40,20 @@ REGISTRY: Dict[str, type] = {
     "Encoder": Encoder,
     "SRDenseNetA": SRDenseNetA,
     "SRDenseNetB": SRDenseNetB,
+    "EDSRWeb": EDSRWeb,
+    "VDSR": VDSR,
+    "MDSR": MDSR,
+    "RDN": RDN,
+    "RCAN": RCAN,
+    "DDBPN": DDBPN,
+    "ResnetGenerator": ResnetGenerator,
+    "UnetGenerator": UnetGenerator,
 }
+
+
+def register(name: str, cls: type) -> None:
+    """Add (or replace) a model under ``name``."""
+    REGISTRY[name] = cls
 
 
 def create(name: str, *args, **kwargs):
@@ -49,4 +65,5 @@ def create(name: str, *args, **kwargs):
     return cls(*args, **kwargs)
 
 
-__all__ = list(REGISTRY) + ["EXPORTED", "REGISTRY", "create"]
+__all__ = list(REGISTRY) + ["EXPORTED", "REGISTRY", "args_namespace", "create",
+                            "define_G", "register"]

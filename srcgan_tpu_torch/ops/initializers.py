@@ -6,8 +6,8 @@ seed (different generators); the distributions are the same: kaiming normal
 (fan_out, relu) for conv and deconv weights, torch's default uniform for
 biases, torch's default uniform for the weights of the models the JAX
 package builds with ``weight_init="torch"`` (SRCNN, the PatchGAN, the
-legacy Encoder and Decoder), and kaiming normal (fan_in) with zero biases
-for SRDenseNet.  Fans are counted as the JAX package counts them on its HWIO weights,
+legacy Encoder and Decoder, the EDSR-derived zoo), kaiming normal (fan_in)
+with zero biases for SRDenseNet, and N(0, 0.02) for the pix2pix generators.  Fans are counted as the JAX package counts them on its HWIO weights,
 which for a transposed conv is kh*kw*out_channels.
 """
 from __future__ import annotations
@@ -89,4 +89,25 @@ def init_kaiming_fan_in_(module: nn.Module, generator: torch.Generator | None = 
             continue
         kaiming_normal_(m.weight, cin * kh * kw, generator)
         if m.bias is not None:
+            m.bias.zero_()
+
+
+@torch.no_grad()
+def init_normal_(module: nn.Module, generator: torch.Generator | None = None):
+    """The pix2pix generators' init (the JAX ``weight_init="normal"``): N(0,
+    0.02) conv and transposed-conv weights, zero conv biases, and torch's
+    default uniform for transposed-conv biases (fan_in out_channels*kh*kw),
+    as the JAX package leaves those.  Norm affines keep ones and zeros."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    for m in module.modules():
+        if not isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            continue
+        m.weight.copy_(torch.randn(m.weight.shape, generator=generator) * 0.02)
+        if m.bias is None:
+            continue
+        if isinstance(m, nn.ConvTranspose2d):
+            _, cout, kh, kw = m.weight.shape
+            torch_bias_default_(m.bias, cout * kh * kw, generator)
+        else:
             m.bias.zero_()

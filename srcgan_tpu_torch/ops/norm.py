@@ -3,8 +3,9 @@
 The functions take JAX's layout; the modules below are the NCHW
 ``nn.Module`` forms the models use (torch parameter names, so reference
 state_dicts load), and call the functions on an NHWC view.  Whatever the
-activation dtype, statistics and the affine map run in fp32 and the result is
-cast back, as the JAX package does.
+activation dtype, statistics and the affine map run in fp32 (instance norm:
+in float64 for a float64 input) and the result is cast back, as the JAX
+package does.
 """
 from __future__ import annotations
 
@@ -22,10 +23,17 @@ def group_norm(x, scale, bias, num_groups: int = 32, eps: float = 1e-5):
 
 
 def instance_norm(x, scale=None, bias=None, eps: float = 1e-5):
-    """InstanceNorm2d (torch defaults: no running stats) over x (N,H,W,C)."""
-    y = F.instance_norm(to_nchw(x).float(),
-                        weight=None if scale is None else scale.float(),
-                        bias=None if bias is None else bias.float(), eps=eps)
+    """InstanceNorm2d (torch defaults: no running stats) over x (N,H,W,C), as
+    a GroupNorm with one group per channel: the same statistics.  Unlike
+    ``F.instance_norm`` it takes a 1x1 map (zeros, then the affine, as the
+    JAX function gives), and on the card its backward is right for a
+    channels_last gradient, where ``F.instance_norm``'s was not (a
+    resnet_9blocks generator's input gradient came out uncorrelated with
+    the CPU's)."""
+    dt = torch.promote_types(x.dtype, torch.float32)     # float64 stays
+    y = F.group_norm(to_nchw(x).to(dt), x.shape[-1],
+                     None if scale is None else scale.to(dt),
+                     None if bias is None else bias.to(dt), eps)
     return to_nhwc(y).to(x.dtype)
 
 

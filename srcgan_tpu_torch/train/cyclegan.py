@@ -127,7 +127,145 @@ def _adam_update(ts: TrainState, grads: Dict[str, torch.Tensor], lr) -> TrainSta
     return ts._replace(step=ts.step + 1)
 
 
-class CycleGANTrainer:
+class _GANTrainer:
+    """What the two adversarial trainers share: the schedule, the generator
+    passes (remat, the act_dtype working copy), the frozen and the trained
+    discriminators, the D step and the device pool's query.  A subclass
+    sets ``remat``, ``act_dtype``, ``device``, ``gan_mode``, ``lr``,
+    ``d_lr``, ``lr_policy``, ``num_epochs`` and ``_work`` (None)."""
+
+    def lr_at_epoch(self, epoch: int) -> Tuple[float, float]:
+        f = optim.reference_lr(self.lr_policy, 1.0, self.num_epochs, epoch)
+        return self.lr * f, self.d_lr * f
+
+    def _tensor(self, x):
+        return torch.as_tensor(x, device=self.device)
+
+    def _gen_pass(self, net: nn.Module):
+        """NHWC v -> NHWC net(v), checkpointed with remat."""
+        def run(v):
+            return to_nhwc(net(to_nchw(v)))
+
+        if self.remat:
+            return lambda v: checkpoint(run, v, use_reentrant=False)
+        return run
+
+    def _working_generators(self, gnet: nn.ModuleDict) -> nn.ModuleDict:
+        """The generators a G step runs: ``gnet`` itself, or with act_dtype
+        a copy whose parameters hold the masters' values at that dtype
+        (made once per ``gnet``, refreshed every step).  The gradient of a
+        cast is the cast of the gradient, so the copy's gradients, cast to
+        fp32, are the masters'.  A module (not ``functional_call``) runs the
+        passes because a checkpointed RRDB recomputes with the parameters its
+        module holds at backward time."""
+        if self.act_dtype is None:
+            return gnet
+        if self._work is None or self._work[0] is not gnet:
+            work = config.cast_parameters(copy.deepcopy(gnet), self.act_dtype)
+            self._work = (gnet, work)
+        work = self._work[1].train()
+        with torch.no_grad():
+            for w, m in zip(work.parameters(), gnet.parameters()):
+                w.copy_(m)
+        return work
+
+    @staticmethod
+    def _disc(dnet: nn.ModuleDict, role: str, params, buffers, x):
+        """NHWC prediction map of discriminator ``role`` (train mode) on x,
+        with ``params`` and ``buffers`` (BatchNorm writes its running
+        statistics into these)."""
+        tensors = {**_sub(params, role), **_sub(buffers, role)}
+        return to_nhwc(functional_call(dnet[role], tensors, (to_nchw(x),)))
+
+    def _frozen_gan_losses(self, dnet: nn.ModuleDict, fake_B, fake_A):
+        """The G step's GAN terms (D_A on fake_B, D_B on fake_A, both
+        labelled real) through the frozen discriminators: fp32, detached
+        parameters, copies of the buffers that are dropped."""
+        f32 = torch.float32
+        d_params = {k: p.detach().to(f32) for k, p in dnet.named_parameters()}
+        d_bufs = {k: b.clone() for k, b in dnet.named_buffers()}
+        pred_fake_B = self._disc(dnet, "D_A", d_params, d_bufs, fake_B.to(f32))
+        pred_fake_A = self._disc(dnet, "D_B", d_params, d_bufs, fake_A.to(f32))
+        return (losses.gan_loss(pred_fake_B, True, self.gan_mode),
+                losses.gan_loss(pred_fake_A, True, self.gan_mode))
+
+    def d_grads(self, state: CycleState, realA, realB, fake_A_pooled, fake_B_pooled):
+        """(gradients by parameter name of state.d.model, (loss_D_A, loss_D_B,
+        the updated BatchNorm state by buffer name)), with no update.  D_A
+        judges realB against fake_B, D_B ``realA`` (the multi-task trainer's
+        real_C) against fake_A; the fakes are cast to the reals' dtype."""
+        realA, realB = self._tensor(realA), self._tensor(realB)
+        dnet = state.d.model.train()
+        names, params = zip(*dnet.named_parameters())
+        named = dict(zip(names, params))
+        bufs = {k: b.clone() for k, b in dnet.named_buffers()}
+
+        def d_losses(role, real, fake):
+            fake = self._tensor(fake).detach().to(real.dtype)
+            # the first forward moves the statistics (st1), the second on from there (st2)
+            l_real = losses.gan_loss(self._disc(dnet, role, named, bufs, real), True,
+                                     self.gan_mode)
+            l_fake = losses.gan_loss(self._disc(dnet, role, named, bufs, fake), False,
+                                     self.gan_mode)
+            return (l_real + l_fake) * 0.5
+
+        loss_d_a = d_losses("D_A", realB, fake_B_pooled)
+        loss_d_b = d_losses("D_B", realA, fake_A_pooled)
+        grads = torch.autograd.grad(loss_d_a + loss_d_b, params)
+        return dict(zip(names, grads)), (loss_d_a.detach(), loss_d_b.detach(), bufs)
+
+    def d_step(self, state: CycleState, realA, realB, fake_A_pooled, fake_B_pooled, lr
+               ) -> Tuple[CycleState, Aux]:
+        """Discriminator update on pooled fakes; the BatchNorm state moves on."""
+        grads, (l_da, l_db, bufs) = self.d_grads(state, realA, realB, fake_A_pooled,
+                                                 fake_B_pooled)
+        d = _adam_update(state.d, grads, lr)
+        with torch.no_grad():
+            for name, b in d.model.named_buffers():
+                b.copy_(bufs[name])
+        return state._replace(d=d), {"loss_D_A": l_da, "loss_D_B": l_db}
+
+    def _new_pools(self, shape_a, shape_b, dtype, seed: int):
+        """Empty device pools for fakes of ``shape_a`` and ``shape_b`` (one
+        image each, batch first): per pool an image buffer (pool_size, H, W,
+        C) and a fill count, and the torch.Generator on the device that draws
+        the replace policy."""
+        size = self.fake_A_pool.pool_size
+
+        def buf(shape):
+            return {"buf": torch.zeros((size,) + tuple(shape[1:]), dtype=dtype,
+                                       device=self.device),
+                    "n": torch.zeros((), dtype=torch.int64, device=self.device)}
+
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        return {"A": buf(shape_a), "B": buf(shape_b), "gen": gen}
+
+    @staticmethod
+    def _device_pool_query(pool, images, gen: torch.Generator):
+        """The reference's pool semantics on the device, with no host sync:
+        the first pool_size images insert and pass through; after that each
+        image replaces a uniformly drawn entry with p = 0.5 (and the evicted
+        image is returned) or passes through.  Sequential over the batch.
+        Returns (the new pool, the pooled batch)."""
+        buf, n = pool["buf"], pool["n"]
+        size = buf.shape[0]
+        outs = []
+        for img in images:
+            u = torch.rand((), generator=gen, device=buf.device)
+            rid = torch.randint(0, size, (1,), generator=gen, device=buf.device)
+            not_full = n < size
+            buf_ins = buf.index_copy(0, n.clamp(max=size - 1).view(1), img[None])
+            old = buf.index_select(0, rid)[0]
+            take = u > 0.5
+            buf_rep = torch.where(take, buf.index_copy(0, rid, img[None]), buf)
+            out_rep = torch.where(take, old, img)
+            buf = torch.where(not_full, buf_ins, buf_rep)
+            outs.append(torch.where(not_full, img, out_rep))
+            n = torch.where(not_full, n + 1, n)
+        return {"buf": buf, "n": n}, torch.stack(outs)
+
+
+class CycleGANTrainer(_GANTrainer):
     """Owns the configuration; ``init`` makes the four networks and their
     optimizers, the step methods train them."""
 
@@ -205,13 +343,6 @@ class CycleGANTrainer:
         return CycleState(TrainState(g, optim.adam(g.parameters(), self.lr, b1=b1), 0),
                           TrainState(d, optim.adam(d.parameters(), self.d_lr, b1=b1), 0))
 
-    def lr_at_epoch(self, epoch: int) -> Tuple[float, float]:
-        f = optim.reference_lr(self.lr_policy, 1.0, self.num_epochs, epoch)
-        return self.lr * f, self.d_lr * f
-
-    def _tensor(self, x):
-        return torch.as_tensor(x, device=self.device)
-
     def inputs_u8(self, src_u8, tar_u8):
         """(realA, realB) of a uint8 (src, tar) RGB batch: realB the /255
         target; realA the gray source, or with net='1' the nearest 1/scale
@@ -236,42 +367,6 @@ class CycleGANTrainer:
         return real_b_gray, real_a_rgb
 
     # -- G step --------------------------------------------------------------
-
-    def _gen_pass(self, net: nn.Module):
-        """NHWC v -> NHWC net(v), checkpointed with remat."""
-        def run(v):
-            return to_nhwc(net(to_nchw(v)))
-
-        if self.remat:
-            return lambda v: checkpoint(run, v, use_reentrant=False)
-        return run
-
-    def _working_generators(self, gnet: nn.ModuleDict) -> nn.ModuleDict:
-        """The generators a G step runs: ``gnet`` itself, or with act_dtype
-        a copy whose parameters hold the masters' values at that dtype
-        (made once per ``gnet``, refreshed every step).  The gradient of a
-        cast is the cast of the gradient, so the copy's gradients, cast to
-        fp32, are the masters'.  A module (not ``functional_call``) runs the
-        passes because a checkpointed RRDB recomputes with the parameters its
-        module holds at backward time."""
-        if self.act_dtype is None:
-            return gnet
-        if self._work is None or self._work[0] is not gnet:
-            work = config.cast_parameters(copy.deepcopy(gnet), self.act_dtype)
-            self._work = (gnet, work)
-        work = self._work[1].train()
-        with torch.no_grad():
-            for w, m in zip(work.parameters(), gnet.parameters()):
-                w.copy_(m)
-        return work
-
-    @staticmethod
-    def _disc(dnet: nn.ModuleDict, role: str, params, buffers, x):
-        """NHWC prediction map of discriminator ``role`` (train mode) on x,
-        with ``params`` and ``buffers`` (BatchNorm writes its running
-        statistics into these)."""
-        tensors = {**_sub(params, role), **_sub(buffers, role)}
-        return to_nhwc(functional_call(dnet[role], tensors, (to_nchw(x),)))
 
     def g_grads(self, state: CycleState, realA, realB) -> Tuple[Dict[str, torch.Tensor], Aux]:
         """(gradients by parameter name of state.g.model, aux): the G loss
@@ -298,15 +393,7 @@ class CycleGANTrainer:
             iden_A = g_a(real_b_gray)
             iden_B = g_b(real_a_rgb)
 
-        # frozen discriminators in fp32: detached parameters, buffer copies
-        # that are dropped
-        f32 = torch.float32
-        d_params = {k: p.detach().to(f32) for k, p in dnet.named_parameters()}
-        d_bufs = {k: b.clone() for k, b in dnet.named_buffers()}
-        pred_fake_B = self._disc(dnet, "D_A", d_params, d_bufs, fake_B.to(f32))
-        pred_fake_A = self._disc(dnet, "D_B", d_params, d_bufs, fake_A.to(f32))
-        loss_g_a = losses.gan_loss(pred_fake_B, True, self.gan_mode)
-        loss_g_b = losses.gan_loss(pred_fake_A, True, self.gan_mode)
+        loss_g_a, loss_g_b = self._frozen_gan_losses(dnet, fake_B, fake_A)
         loss_cycle_a = losses.l1(recl_A, realA) * self.lambda_a * 0.5
         loss_cycle_b = losses.l1(recl_B, realB) * self.lambda_b * 0.5
         if self.lambda_identity > 0:
@@ -332,42 +419,6 @@ class CycleGANTrainer:
         grads, aux = self.g_grads(state, realA, realB)
         return state._replace(g=_adam_update(state.g, grads, lr)), aux
 
-    # -- D step --------------------------------------------------------------
-
-    def d_grads(self, state: CycleState, realA, realB, fake_A_pooled, fake_B_pooled):
-        """(gradients by parameter name of state.d.model, (loss_D_A, loss_D_B,
-        the updated BatchNorm state by buffer name)), with no update."""
-        realA, realB = self._tensor(realA), self._tensor(realB)
-        dnet = state.d.model.train()
-        names, params = zip(*dnet.named_parameters())
-        named = dict(zip(names, params))
-        bufs = {k: b.clone() for k, b in dnet.named_buffers()}
-
-        def d_losses(role, real, fake):
-            fake = self._tensor(fake).detach().to(real.dtype)
-            # the first forward moves the statistics (st1), the second on from there (st2)
-            l_real = losses.gan_loss(self._disc(dnet, role, named, bufs, real), True,
-                                     self.gan_mode)
-            l_fake = losses.gan_loss(self._disc(dnet, role, named, bufs, fake), False,
-                                     self.gan_mode)
-            return (l_real + l_fake) * 0.5
-
-        loss_d_a = d_losses("D_A", realB, fake_B_pooled)
-        loss_d_b = d_losses("D_B", realA, fake_A_pooled)
-        grads = torch.autograd.grad(loss_d_a + loss_d_b, params)
-        return dict(zip(names, grads)), (loss_d_a.detach(), loss_d_b.detach(), bufs)
-
-    def d_step(self, state: CycleState, realA, realB, fake_A_pooled, fake_B_pooled, lr
-               ) -> Tuple[CycleState, Aux]:
-        """Discriminator update on pooled fakes; the BatchNorm state moves on."""
-        grads, (l_da, l_db, bufs) = self.d_grads(state, realA, realB, fake_A_pooled,
-                                                 fake_B_pooled)
-        d = _adam_update(state.d, grads, lr)
-        with torch.no_grad():
-            for name, b in d.model.named_buffers():
-                b.copy_(bufs[name])
-        return state._replace(d=d), {"loss_D_A": l_da, "loss_D_B": l_db}
-
     # -- one iteration, pool passing through ---------------------------------
 
     def _gd(self, state, realA, realB, g_lr, d_lr, ema=None, decay=None, pools=None):
@@ -392,46 +443,11 @@ class CycleGANTrainer:
     # -- device-side ImagePool -----------------------------------------------
 
     def device_pool_init(self, state: CycleState, realA, realB, seed: int = 0):
-        """The device pools of ``gd_step_pooled``: per pool an image buffer
-        (pool_size, H, W, C) and a fill count, and the torch.Generator on
-        the device that draws the replace policy.  The fakes have realA's
-        and realB's shapes (the discriminators compare them so), at the
-        activation dtype; nothing is computed here."""
+        """The device pools of ``gd_step_pooled`` (``_new_pools``).  The
+        fakes have realA's and realB's shapes (the discriminators compare
+        them so), at the activation dtype; nothing is computed here."""
         realA, realB = self._tensor(realA), self._tensor(realB)
-        dtype = self.act_dtype or realB.dtype
-        size = self.fake_A_pool.pool_size
-
-        def buf(like):
-            return {"buf": torch.zeros((size,) + tuple(like.shape[1:]), dtype=dtype,
-                                       device=self.device),
-                    "n": torch.zeros((), dtype=torch.int64, device=self.device)}
-
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        return {"A": buf(realA), "B": buf(realB), "gen": gen}
-
-    @staticmethod
-    def _device_pool_query(pool, images, gen: torch.Generator):
-        """The reference's pool semantics on the device, with no host sync:
-        the first pool_size images insert and pass through; after that each
-        image replaces a uniformly drawn entry with p = 0.5 (and the evicted
-        image is returned) or passes through.  Sequential over the batch.
-        Returns (the new pool, the pooled batch)."""
-        buf, n = pool["buf"], pool["n"]
-        size = buf.shape[0]
-        outs = []
-        for img in images:
-            u = torch.rand((), generator=gen, device=buf.device)
-            rid = torch.randint(0, size, (1,), generator=gen, device=buf.device)
-            not_full = n < size
-            buf_ins = buf.index_copy(0, n.clamp(max=size - 1).view(1), img[None])
-            old = buf.index_select(0, rid)[0]
-            take = u > 0.5
-            buf_rep = torch.where(take, buf.index_copy(0, rid, img[None]), buf)
-            out_rep = torch.where(take, old, img)
-            buf = torch.where(not_full, buf_ins, buf_rep)
-            outs.append(torch.where(not_full, img, out_rep))
-            n = torch.where(not_full, n + 1, n)
-        return {"buf": buf, "n": n}, torch.stack(outs)
+        return self._new_pools(realA.shape, realB.shape, self.act_dtype or realB.dtype, seed)
 
     def gd_step_pooled(self, state: CycleState, pools, realA, realB, g_lr, d_lr):
         """G update, both device-pool queries, D update on the pooled fakes.

@@ -3,8 +3,9 @@ versions, the model gate that routes the x4 bf16 tail through them, the
 trainer's fused-input path through the gray+degrade kernel, and the metrics
 and the eval tool through the ssim kernel, and the RDB5 kernel (both forms),
 the fused RDB5 schedule and the int8 predictor through it, the six probe
-kernels, the LAB predictor, and the CycleGAN step and eval tool (one ssim
-launch per test image).
+kernels, the LAB predictor, the CycleGAN step and eval tool (one ssim
+launch per test image), the multi-task GAN step (no kernel), a full-width
+instance-norm generator's gradients, and two zoo models' forwards.
 
 Every test here needs a card (marker ``cuda``) and skips without one.  The
 file imports no jax, so it also runs where jax is not installed; there the
@@ -1189,3 +1190,124 @@ def test_test_cyclegan_launches_ssim_once_per_image(dev, tmp_path, small_gan):
     assert ssim_kernel.launches == before + 3
     assert abs(on_card["PSNR"] - on_cpu["PSNR"]) <= 0.01
     assert abs(on_card["SSIM"] - on_cpu["SSIM"]) <= 1e-4
+
+
+# -- the multi-task GAN and the zoo ---------------------------------------------
+
+def test_multitask_step_on_card_matches_cpu(dev):
+    """Two fp32 gd_step_pooled steps (TF32 off, remat on) of a small
+    MultiTaskTrainer (ngf 8, resnet_6blocks, batch 2 of 32^2 targets; the
+    device pools pass the fakes through while they fill), step 2 from the
+    card's state on both sides: losses within rtol 1e-4, D's running
+    statistics within rel-L2 1e-4, each network's update within rel-L2 5e-2
+    and its parameter norm within rtol 1e-5.  The bf16 iteration on the card
+    launches no kernel."""
+    import copy
+
+    import numpy as np
+
+    from srcgan_tpu_torch import config
+    from srcgan_tpu_torch.train.multitask import MultiTaskTrainer
+
+    def snapshot(state):
+        out = {r: torch.cat([p.detach().cpu().double().flatten()
+                             for p in getattr(state, r).model.parameters()]) for r in "gd"}
+        out["bn"] = torch.cat([b.detach().cpu().double().flatten()
+                               for n, b in state.d.model.named_buffers() if "running" in n])
+        return out
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    rng = np.random.default_rng(0)
+    sides = ("cpu", dev)
+    small = dict(ngf=8, netG="resnet_6blocks")
+    with config.precision("fp32"):
+        trs = {w: MultiTaskTrainer(device=w, **small) for w in sides}
+        states = {w: trs[w].init(0) for w in sides}
+        pools = None
+        for step in range(2):
+            real_b = torch.from_numpy(rng.uniform(0, 1, (2, 32, 32, 3)).astype(np.float32))
+            real_a = torch.from_numpy(rng.uniform(0, 1, (2, 16, 16, 1)).astype(np.float32))
+            if pools is None:
+                pools = {w: trs[w].device_pool_init(states[w], real_a, real_b) for w in sides}
+            if step:
+                src, dst = states[dev], states["cpu"]
+                for r in "gd":
+                    getattr(dst, r).model.load_state_dict(getattr(src, r).model.state_dict())
+                    getattr(dst, r).opt.load_state_dict(
+                        copy.deepcopy(getattr(src, r).opt.state_dict()))
+            before = {w: snapshot(states[w]) for w in sides}
+            losses = {}
+            for w in sides:
+                states[w], pools[w], aux = trs[w].gd_step_pooled(
+                    states[w], pools[w], real_a.to(w), real_b.to(w), 1e-4, 1e-5)
+                losses[w] = {k: float(v) for k, v in aux.items() if v.dim() == 0}
+            after = {w: snapshot(states[w]) for w in sides}
+            for k, v in losses["cpu"].items():
+                assert abs(losses[dev][k] - v) <= 1e-4 * abs(v), (step, k)
+            assert rel(after[dev]["bn"], after["cpu"]["bn"]) <= 1e-4, step
+            for r in "gd":
+                assert rel(after[dev][r] - before[dev][r],
+                           after["cpu"][r] - before["cpu"][r]) <= 5e-2, (step, r)
+                assert abs(float(after[dev][r].norm() / after["cpu"][r].norm()) - 1) <= 1e-5
+    tr = MultiTaskTrainer(act_dtype=torch.bfloat16, device=dev, **small)
+    counts = (rdb5_kernel.launches_bf16, ssim_kernel.launches, tail_kernel.launches,
+              preprocess_kernel.launches)
+    _, aux = tr.optimize_parameters(tr.init(1), real_a.to(dev), real_b.to(dev))
+    assert (rdb5_kernel.launches_bf16, ssim_kernel.launches, tail_kernel.launches,
+            preprocess_kernel.launches) == counts
+    assert all(bool(torch.isfinite(v)) for v in aux.values() if v.dim() == 0)
+
+
+@pytest.mark.parametrize("name", ["DDBPN", "RCAN"])
+def test_zoo_forward_on_card_matches_cpu(dev, name):
+    """A zoo model's fp32 forward (TF32 off) on the card against the CPU at
+    1x3x24x24 in [0, 255]: rel-L2 <= 1e-5.  DDBPN at its fixed widths
+    (transposed projections, PReLU), RCAN at 2 groups of 2 (channel
+    attention)."""
+    import copy
+
+    from srcgan_tpu_torch import config
+    from srcgan_tpu_torch.models.edsr_zoo import args_namespace
+
+    kw = {"DDBPN": {}, "RCAN": dict(n_resgroups=2, n_resblocks=2)}[name]
+    net = models.create(name, args_namespace(**kw),
+                        generator=torch.Generator().manual_seed(0)).eval()
+    x = torch.rand(1, 3, 24, 24, generator=torch.Generator().manual_seed(1)) * 255
+    with torch.no_grad(), config.precision("fp32"):
+        want = net(x)
+        got = copy.deepcopy(net).to(dev)(x.to(dev)).cpu()
+    assert got.shape == want.shape == (1, 3, 48, 48)
+    assert float((got - want).norm() / want.norm()) <= 1e-5
+
+
+def test_instance_norm_generator_gradients_on_card_match_cpu(dev):
+    """A full-width resnet_9blocks generator (ngf 64, instance norm,
+    channels_last) at 128^2, fp32 TF32 off: output, input gradient and
+    weight gradients on the card against the CPU.  fp32 leaves this net's
+    gradient ~5e-3 apart across devices (bound 2e-2); ``F.instance_norm``'s
+    backward on a channels_last gradient gave rel-L2 1.4 (uncorrelated)."""
+    import copy
+
+    from srcgan_tpu_torch import config
+
+    g = torch.Generator().manual_seed(0)
+    base = models.define_G(1, 3, 64, "resnet_9blocks", "instance", generator=g)
+    x = torch.rand(1, 1, 128, 128, generator=g)
+    r = torch.randn(1, 3, 128, 128, generator=g)
+    out = {}
+    with config.precision("fp32"):
+        for w in ("cpu", dev):
+            net = copy.deepcopy(base).to(w)
+            xi = x.to(w).contiguous(memory_format=torch.channels_last).detach().clone()
+            y = net(xi.requires_grad_(True))
+            (y * r.to(w)).sum().backward()
+            out[w] = [y.detach().cpu(), xi.grad.cpu(),
+                      torch.cat([p.grad.flatten().cpu() for p in net.parameters()])]
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    errs = [rel(a, b) for a, b in zip(out[dev], out["cpu"])]
+    assert errs[0] <= 1e-4 and errs[1] <= 2e-2 and errs[2] <= 2e-2, errs
