@@ -118,9 +118,10 @@ Phases, in order; the first failure raises and the script exits non-zero:
                against the CPU at 1x3x48^2 within rel-L2 1e-5; bf16 ms, peak
                memory, FLOPs and bound at batch 16 of 48^2; no kernel launch;
                then cli.train_cas --SRModel EDSRWeb for one epoch and
-               cli.test_cas on its checkpoints: one ssim launch per eval
-               batch and nothing else, the row within 0.01 dB / 1e-4 SSIM of
-               --device cpu.
+               cli.test_cas on its checkpoints, their last convs scaled into
+               range: one ssim launch per eval batch and nothing else, the
+               row within 0.01 dB / 1e-4 SSIM of --device cpu, whose SSIM
+               must be above 1e-2.
 Then one JSON line of kernel results (with each kernel's launches on the
 paths of phases 13 and 14), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Weights are random, from fixed seeds.
@@ -2061,6 +2062,7 @@ def phase_zoo(dev, card: str):
 
     from srcgan_tpu_torch import config, data
     from srcgan_tpu_torch.cli import test_cas, train_cas
+    from srcgan_tpu_torch.train.state import load_params, save_params
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(41)
@@ -2127,6 +2129,15 @@ def phase_zoo(dev, card: str):
         net_b = os.path.join(ck, "ResDeconv_C2B_x2_0001.npz")
         check(os.path.exists(net_a) and os.path.exists(net_b), "train_cas left no checkpoints")
         print()
+        # One epoch leaves both stages near their init, where EDSRWeb's output
+        # has a std of ~3,000 and ResDeconv's ~6.6, and SSIM is ~0.  Their last
+        # convs are scaled (as the serving tests scale ResDeconv's) so that the
+        # scored output lies in range and the SSIM bound below can fail.
+        tree_a, tree_b = load_params(net_a), load_params(net_b)
+        tree_a["tail"]["1"] = {k: v * 1e-4 for k, v in tree_a["tail"]["1"].items()}
+        tree_b["pred"]["w"] = tree_b["pred"]["w"] * 0.03
+        save_params(net_a, tree_a)
+        save_params(net_b, tree_b)
 
         def evaluate(result, *extra):
             return test_cas.main(["--netGA", net_a, "--netGB", net_b, "--data-dir", tmp,
@@ -2144,12 +2155,12 @@ def phase_zoo(dev, card: str):
         on_cpu = evaluate("result_cpu", "--device", "cpu")
         d_psnr = abs(on_card["PSNR"] - on_cpu["PSNR"])
         d_ssim = abs(on_card["SSIM"] - on_cpu["SSIM"])
-        ok = d_psnr <= 0.01 and d_ssim <= 1e-4
+        ok = d_psnr <= 0.01 and d_ssim <= 1e-4 and on_cpu["SSIM"] > 1e-2
         print(f"[zoo] train_cas --SRModel EDSRWeb -> test_cas, {ZOO_TEST} images of {EVAL_HW}^2 "
               f"in {n_batches} batches on {card}: kernel launches {launches}; card vs CPU PSNR "
               f"{on_card['PSNR']:.5f} vs {on_cpu['PSNR']:.5f} (|d| {d_psnr:.2e}, bound 0.01 dB), "
               f"SSIM {on_card['SSIM']:.6f} vs {on_cpu['SSIM']:.6f} (|d| {d_ssim:.2e}, bound "
-              f"1e-4) {'PASS' if ok else 'FAIL'}")
+              f"1e-4; the CPU's SSIM above 1e-2) {'PASS' if ok else 'FAIL'}")
         check(ok, "the card's EDSRWeb Performs.csv row disagrees with the CPU's")
     print(f"[zoo] phase took {time.perf_counter() - t_phase:.1f} s")
     return fwd_launches, launches

@@ -93,7 +93,6 @@ def _run(args):
     trainset = data.FileListDataset(root, "train", "G2RGB", args.data_dir)
     print(f"Starting Training Loop... ({len(trainset)} samples, multi-task, device={device})")
     logger = Logger(len(trainset), args.num_epochs, image_dir=args.run_dir)
-    sf = 2 if args.mode == "x2" else 4
     pools = None            # the device pools, sized from the first batch
 
     with config.precision("bf16" if args.bf16_acts else "fp32"):
@@ -111,10 +110,8 @@ def _run(args):
                     state, pools, aux = trainer.gd_step_pooled(state, pools, real_a, real_b,
                                                                g_lr, d_lr)
                 else:
-                    # realB1 as the reference prepares it; the trainer ignores it
-                    real_b1 = preprocess.degrade_nearest(preprocess.luma(real_b), sf)
-                    state, aux = trainer.optimize_parameters(state, real_a, real_b, real_b1,
-                                                             g_lr, d_lr)
+                    state, aux = trainer.optimize_parameters(state, real_a, real_b,
+                                                             g_lr=g_lr, d_lr=d_lr)
                 if it % args.log_every == 0:
                     logger.log(nepoch=epoch, niter=it,
                                losses={k: float(aux[k]) for k in

@@ -10,14 +10,16 @@ JAX tree starts below it names that attribute ``jax_root`` (the PatchGAN's
 ``model``: reference name ``model.3.weight``, JAX path ``3/scale``; the
 roots nest, as in a U-Net's ``model.model.1.model...``); one
 whose attribute keeps its name in the JAX tree where the map would rename
-it says so in ``jax_names`` (EDSR's ``upscale_layers``).  ``jax_tree_from_module``
+it says so in ``jax_names`` (EDSR's ``upscale_layers``); one whose tensors
+are constants no JAX tree holds sets ``jax_constant`` (the zoo's
+``MeanShift``).  ``jax_tree_from_module``
 is its inverse: a port module (or any state_dict-shaped dict of its tensors,
 such as Adam's moments) -> the JAX parameter tree and model state, as numpy,
 which the JAX package's ``load_params`` reads.  ``quant_scales_from_jax``
-carries an int8 calibration table across.  The zoo's frozen ``MeanShift``
-buffers are in no JAX tree: ``state_dict_from_jax`` takes them from the
-module, ``jax_tree_from_module`` leaves them out; ``nn.PReLU``'s ``weight``
-is the JAX ``alpha``.
+carries an int8 calibration table across.  The ``jax_constant`` tensors
+are in no JAX tree: ``state_dict_from_jax`` takes them from the module,
+``jax_tree_from_module`` leaves them out; ``nn.PReLU``'s ``weight`` is the
+JAX ``alpha``.
 """
 from __future__ import annotations
 
@@ -27,7 +29,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from srcgan_tpu_torch.models.edsr_zoo import MeanShift
 from srcgan_tpu_torch.train.state import load_params
 
 # JAX parameter-tree path components -> reference torch module names, where
@@ -93,15 +94,15 @@ def state_dict_from_jax(model: nn.Module, params, state=None) -> Dict[str, torch
         name = _torch_name(model, path, {**_TORCH_NAME_MAP, **_STATE_NAME_MAP})
         out[name] = torch.tensor(np.ascontiguousarray(v))
     for name, t in model.state_dict().items():       # constants no JAX tree holds
-        if _is_mean_shift(model, name):
+        if _is_constant(model, name):
             out[name] = t.detach().cpu().clone()
     # the model's registration order (JAX tree utilities sort the keys)
     order = [k for k in model.state_dict() if k in out]
     return {k: out[k] for k in order + [k for k in out if k not in order]}
 
 
-def _is_mean_shift(model: nn.Module, name: str) -> bool:
-    return "." in name and isinstance(model.get_submodule(name.rsplit(".", 1)[0]), MeanShift)
+def _is_constant(model: nn.Module, name: str) -> bool:
+    return getattr(model.get_submodule(name.rpartition(".")[0]), "jax_constant", False)
 
 
 def quant_scales_from_jax(scales) -> Dict[int, np.ndarray]:
@@ -162,12 +163,12 @@ def jax_tree_from_module(model: nn.Module, tensors: Optional[Dict[str, torch.Ten
     ``tensors`` defaults to the module's own state_dict; any dict with the
     same names and parameter shapes (an optimizer's moments, gradients)
     converts the same way.  The arrays are copies.  ``num_batches_tracked``
-    and the MeanShift constants have no JAX counterpart."""
+    and the ``jax_constant`` tensors have no JAX counterpart."""
     sd = model.state_dict() if tensors is None else tensors
     params: Dict = {}
     state: Dict = {}
     for name, t in sd.items():
-        if name.endswith("num_batches_tracked") or _is_mean_shift(model, name):
+        if name.endswith("num_batches_tracked") or _is_constant(model, name):
             continue
         path, is_state = _jax_path(model, name)
         owner = model.get_submodule(name.rsplit(".", 1)[0])

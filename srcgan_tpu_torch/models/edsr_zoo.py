@@ -56,6 +56,8 @@ class MeanShift(nn.Module):
     """Frozen 1x1 channel-wise shift: y = x / std + sign * range * mean / std,
     held as the reference's conv weight (diagonal) and bias, buffers."""
 
+    jax_constant = True         # no JAX tree holds these (see ``interop``)
+
     def __init__(self, rgb_range, rgb_mean=RGB_MEAN, rgb_std=(1.0, 1.0, 1.0), sign=-1):
         super().__init__()
         std = torch.tensor(rgb_std, dtype=torch.float32)

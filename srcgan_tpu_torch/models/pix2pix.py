@@ -190,11 +190,10 @@ class UnetGenerator(nn.Module):
 
 
 def define_G(input_nc: int, output_nc: int, ngf: int, netG: str, norm: str = "batch",
-             use_dropout: bool = False, init_type: str = "normal", init_gain: float = 0.02,
-             *, device=None, generator: torch.Generator | None = None) -> nn.Module:
+             use_dropout: bool = False, *, device=None,
+             generator: torch.Generator | None = None) -> nn.Module:
     """Generator factory by name: resnet_9blocks | resnet_6blocks | unet_128 |
-    unet_256.  ``init_type`` and ``init_gain`` are accepted as the JAX
-    factory accepts them; the init is N(0, 0.02) whatever they say."""
+    unet_256.  The weights are drawn from N(0, 0.02)."""
     kw = dict(device=device, generator=generator)
     if netG == "resnet_9blocks":
         return ResnetGenerator(input_nc, output_nc, ngf, norm, use_dropout, 9, **kw)

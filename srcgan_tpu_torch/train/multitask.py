@@ -16,7 +16,7 @@ The reference's quirks are kept, as the JAX trainer keeps them:
   through the cycle path (one Adam over G_A, G_B and G_C);
 - ``cycle_A`` is anchored at real_C, not realA, and D_B judges real_C
   against the pooled fake_A;
-- the identity terms are off (``lambda_identity`` is accepted, unused);
+- the identity terms are off (the trainer has no ``lambda_identity``);
 - ``realB1`` of ``optimize_parameters`` is accepted and ignored.
 
 The form is ``train.cyclegan``'s, whose machinery this trainer shares
@@ -53,8 +53,8 @@ class MultiTaskTrainer(_GANTrainer):
     _IMAGE_KEYS = ("real_C", "fake_A", "fake_B", "recl_A", "recl_B")
 
     def __init__(self, mode: str = "x2", lr: float = 1e-4, d_lr: float = 1e-5,
-                 beta1: float = 0.5, pool_size: int = 4, lambda_identity: float = 0.0,
-                 lambda_a: float = 10.0, lambda_b: float = 10.0, ngf: int = 64,
+                 beta1: float = 0.5, pool_size: int = 4, lambda_a: float = 10.0,
+                 lambda_b: float = 10.0, ngf: int = 64,
                  netG: str = "resnet_9blocks", norm: str = "instance",
                  gan_mode: str = "lsgan", lr_policy: str = "cosine", num_epochs: int = 25,
                  remat: bool = True, act_dtype=None, pack_passes: bool = False, *,
@@ -65,7 +65,6 @@ class MultiTaskTrainer(_GANTrainer):
         self.mode = mode
         self.lr, self.d_lr = lr, d_lr
         self.beta1 = beta1
-        self.lambda_identity = lambda_identity
         self.lambda_a, self.lambda_b = lambda_a, lambda_b
         self.ngf, self.netG, self.norm = ngf, netG, norm
         self.gan_mode = gan_mode
