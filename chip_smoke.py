@@ -122,8 +122,28 @@ Phases, in order; the first failure raises and the script exits non-zero:
                range: one ssim launch per eval batch and nothing else, the
                row within 0.01 dB / 1e-4 SSIM of --device cpu, whose SSIM
                must be above 1e-2.
+ 15. extras  - the serving extras: (a) a 700x1000 gray scene through a bf16
+               TiledPredictor (RDDBNet x4 at full width + an SRCNN(1,3,1)
+               colorizer, tile 256, overlap 64: 6 batches of 8, each with 9
+               rdb5_bf16 launches and one tail_x4 main and finish launch),
+               within a mean of 2 LSB of the whole-scene fp32 program (TF32
+               off), the fp32 tiles within 1 LSB max, output MP/s; (b) the
+               serve cascade self-ensembled, bf16, batch 8 of 128^2 as ONE
+               forward of 64 rows (9 + 1 + 1 launches), in fp32 within 1 LSB
+               of the mean of 8 predictor calls on the transformed inputs,
+               ms against plain predict; (c) cli.serve's make_server (bf16,
+               --max-batch 8 --pad-batch 4 --tile 256) under 32 clients of
+               128^2 PNGs: every response its group's row, every group within
+               1 LSB of predict on the same batch, mean batch above 1,
+               rdb5_bf16 launches 9 x the groups; /reload to a cli.blend
+               output of two checkpoint pairs; close() answering a queued
+               backlog; requests/s and p50/p99 at concurrency 1, 8, 32; (d)
+               a bf16 torch.export artifact at 128^2 with a symbolic batch,
+               loaded on the card, batches 8 and 3 within 1 LSB of the
+               predictor under the kernel-off scopes and no kernel launch,
+               ms against the predictor with its kernels.
 Then one JSON line of kernel results (with each kernel's launches on the
-paths of phases 13 and 14), the nvidia-smi line, and last
+paths of phases 13, 14 and 15), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Weights are random, from fixed seeds.
 """
 from __future__ import annotations
@@ -2166,6 +2186,415 @@ def phase_zoo(dev, card: str):
     return fwd_launches, launches
 
 
+# Phase 15, the serving extras: a 700x1000 scene through tiles of 256 at
+# overlap 64 (6 x 8 windows = 6 batches of 8).  The overlap covers the
+# cascade's receptive field at LR: RDDBNet nb 3 reaches 47 pixels (conv_first
+# 1 + 9 dense blocks x 5 convs + trunk_conv 1), its folded conv_last one more,
+# and SRCNN's 9x9 and 5x5 convs 6 HR pixels = 2 LR: 50 <= 64.
+SCENE_HW, TILE, TILE_OVERLAP = (700, 1000), 256, 64
+DAEMON_CLIENTS, DAEMON_REQUESTS = (1, 8, 32), 32   # concurrency levels; requests per level
+EXTRAS_REPS = 5
+
+
+def host_median_ms(fn, reps: int = EXTRAS_REPS) -> float:
+    """Median host time of ``fn``, which returns with its result on the host
+    (it waits for the card itself), after one warm-up call."""
+    import time
+
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def tile_colorizer(gen):
+    """SRCNN(1, 3, 1), its last conv scaled by 0.5 around a bias of 0.5, so that
+    the random cascade's output spreads over [0, 1] (std ~20 LSB): local, so
+    the tiled scene can be held to the whole-scene program."""
+    from srcgan_tpu_torch import models
+
+    col = models.SRCNN(1, 3, 1, generator=gen)
+    with torch.no_grad():
+        col.conv3.weight.mul_(0.5)
+        col.conv3.bias.fill_(0.5)
+    return col
+
+
+def extras_tiled(dev, card: str, sr) -> dict:
+    """(a) the tiled scene: bf16 launch counts, bf16 and fp32 against the
+    whole-scene fp32 program, output MP/s."""
+    from srcgan_tpu_torch.ops.kernels import tail_kernel
+    from srcgan_tpu_torch.serving import CascadePredictor, TiledPredictor
+
+    col = tile_colorizer(torch.Generator().manual_seed(3))
+    scene = np.random.default_rng(15).integers(0, 256, SCENE_HW, dtype=np.uint8)
+    tiled = TiledPredictor(copy.deepcopy(sr), copy.deepcopy(col), 4, bf16=True, tile=TILE,
+                           overlap=TILE_OVERLAP, max_batch=BATCH, device=dev)
+    rows = len(tiled._axis_windows(SCENE_HW[0], TILE, TILE_OVERLAP))
+    cols = len(tiled._axis_windows(SCENE_HW[1], TILE, TILE_OVERLAP))
+    n_batches = -(-rows * cols // BATCH)
+    reset_launches()
+    out = tiled.predict_scene(scene)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    mains, finishes = tail_kernel.launches, tail_kernel.finish_launches
+    print(f"[extras] tiled scene {SCENE_HW[0]}x{SCENE_HW[1]}, tile {TILE}, overlap "
+          f"{TILE_OVERLAP}: {rows}x{cols} windows in {n_batches} batches of {BATCH}; bf16 "
+          f"rdb5_bf16 launches {launches['rdb5_bf16']} (want {9 * n_batches}), tail_x4 main "
+          f"{mains} finish {finishes} (want {n_batches} each)")
+    check(out.shape == (4 * SCENE_HW[0], 4 * SCENE_HW[1], 3) and out.dtype == np.uint8,
+          f"tiled scene output {out.shape} {out.dtype}")
+    check(launches["rdb5_bf16"] == 9 * n_batches and mains == finishes == n_batches,
+          "a tile batch did not run its nine blocks through rdb5_bf16 and its tail through "
+          "tail_x4 once")
+    check(len(np.unique(out)) > 16, "constant tiled output")
+
+    whole = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(col), 4, device=dev)
+    want = whole.predict(scene[None, ..., None])[0].astype(int)
+    tiled32 = TiledPredictor(copy.deepcopy(sr), copy.deepcopy(col), 4, tile=TILE,
+                             overlap=TILE_OVERLAP, max_batch=BATCH, device=dev)
+    got32 = tiled32.predict_scene(scene).astype(int)
+    d16 = np.abs(out.astype(int) - want)
+    d32 = np.abs(got32 - want)
+    ok = d16.mean() <= 2 and d32.max() <= 1
+    print(f"[extras] against the whole-scene fp32 program (TF32 off): bf16 tiles mean|diff| "
+          f"{d16.mean():.4f} LSB (bound 2), max {d16.max()}; fp32 tiles max|diff| {d32.max()} "
+          f"(bound 1), bit-equal {100 * (d32 == 0).mean():.4f}% of the values "
+          f"{'PASS' if ok else 'FAIL'}")
+    check(ok, "the stitched scene strays from the whole-scene program")
+    ms = host_median_ms(lambda: tiled.predict_scene(scene))
+    wx = [w for w, _, _, _ in tiled._axis_windows(SCENE_HW[1], TILE, TILE_OVERLAP)]
+    first = np.stack([scene[:TILE, w:w + TILE, None] for w in wx[:BATCH]])
+    batch_ms = host_median_ms(lambda: tiled.predict(first))
+    mp = out.shape[0] * out.shape[1] / 1e6
+    print(f"[extras] tiled scene bf16 on {card}: {ms:.3f} ms per scene (median of "
+          f"{EXTRAS_REPS}, host clock) = {mp / ms * 1e3:.2f} output MP/s; one predict of "
+          f"{BATCH} tiles alone {batch_ms:.3f} ms (x {n_batches} in sequence = "
+          f"{n_batches * batch_ms:.3f} ms)")
+    return launches
+
+
+def extras_ensemble(dev, card: str, sr, c) -> dict:
+    """(b) the self-ensemble: one forward of 8N rows, fp32 against the mean of
+    eight predictor calls, ms against plain predict."""
+    from srcgan_tpu_torch.ops import ensemble
+    from srcgan_tpu_torch.ops.kernels import tail_kernel
+    from srcgan_tpu_torch.serving import CascadePredictor
+
+    gray = np.random.default_rng(16).integers(0, 256, (BATCH, LR, LR, 1), dtype=np.uint8)
+    ens = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, bf16=True,
+                           self_ensemble=True, device=dev)
+    plain = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, bf16=True, device=dev)
+    plain.predict(gray)
+    reset_launches()
+    y = ens.predict(gray)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    mains, finishes = tail_kernel.launches, tail_kernel.finish_launches
+    print(f"[extras] self-ensemble bf16, batch {BATCH} of {LR}^2 (one forward of "
+          f"{8 * BATCH} rows): rdb5_bf16 launches {launches['rdb5_bf16']} (want 9), tail_x4 "
+          f"main {mains} finish {finishes} (want 1 each)")
+    check(y.shape == (BATCH, 4 * LR, 4 * LR, 3) and len(np.unique(y)) > 16,
+          f"ensembled output {y.shape}")
+    check(launches["rdb5_bf16"] == 9 and mains == finishes == 1,
+          "the ensembled batch did not run as one forward through the kernels")
+
+    ens32 = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, self_ensemble=True,
+                             device=dev)
+    plain32 = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, device=dev)
+    x = torch.from_numpy(gray)
+    acc = torch.zeros((BATCH, 4 * LR, 4 * LR, 3), dtype=torch.float64)
+    for op in ensemble.ALL_OPS:
+        xo = ensemble.dihedral_nhwc(x, op).numpy()
+        yo = torch.from_numpy(plain32.predict(np.ascontiguousarray(xo)))
+        acc += ensemble.dihedral_nhwc(yo, ensemble.DIHEDRAL_INVERSE[op]).double()
+    want = torch.round(acc / len(ensemble.ALL_OPS)).numpy().astype(int)
+    got = ens32.predict(gray).astype(int)
+    d = np.abs(got - want)
+    print(f"[extras] fp32 self-ensemble against the mean of 8 predictor calls on the "
+          f"transformed inputs, each inverted: max|diff| {d.max()} LSB (bound 1), mean "
+          f"{d.mean():.4f} {'PASS' if d.max() <= 1 else 'FAIL'}")
+    check(d.max() <= 1, "the self-ensemble strays from the mean of its eight calls")
+    xd = x.to(dev)
+    times = in_turns_ms({"plain": lambda: plain._run(xd), "ensemble": lambda: ens._run(xd)},
+                        rounds=2, reps=10)
+    print(f"[extras] self-ensemble bf16 on {card}: {' / '.join(f'{t:.3f}' for t in times['ensemble'])} "
+          f"ms per batch against plain predict {' / '.join(f'{t:.3f}' for t in times['plain'])} "
+          f"ms (in turns)")
+    return launches
+
+
+def _post(port: int, path: str, body: bytes, timeout: float = 60.0):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", path, body=body)
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def _png(img) -> bytes:
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _unpng(data: bytes) -> np.ndarray:
+    import io
+
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(data)))
+
+
+def extras_daemon(dev, card: str, sr, c) -> dict:
+    """(c) the daemon: 32 clients, the launch count per group, /reload to a
+    cli.blend output, a drained backlog, requests/s and latency."""
+    import threading
+    import time
+
+    from srcgan_tpu_torch import interop
+    from srcgan_tpu_torch.cli import blend, serve
+    from srcgan_tpu_torch.serving import CascadePredictor
+    from srcgan_tpu_torch.train.state import save_params
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        def save_pair(sr_net, c_net, epoch):
+            paths = (os.path.join(tmp, f"RDDBNet_A2C_x4_{epoch:04d}.npz"),
+                     os.path.join(tmp, f"ResDeconv_C2B_x4_{epoch:04d}.npz"))
+            save_params(paths[0], interop.jax_tree_from_module(sr_net)[0])
+            save_params(paths[1], interop.jax_tree_from_module(c_net)[0])
+            return paths
+
+        first = save_pair(sr, c, 1)
+        args = serve.build_parser().parse_args(
+            ["--netGA", first[0], "--netGB", first[1], "--port", "0", "--bf16",
+             "--max-batch", "8", "--pad-batch", "4", "--tile", str(TILE),
+             "--warmup", f"{LR}x{LR}"])
+        srv = serve.make_server(args)
+        server = threading.Thread(target=srv.serve_forever, daemon=True)
+        server.start()
+        try:
+            port = srv.server_address[1]
+            pred = srv.batcher.predictor
+            groups = []
+            predict = pred.predict
+
+            def recording(batch):
+                out = predict(batch)
+                groups.append((batch, out))
+                return out
+
+            pred.predict = recording
+            rng = np.random.default_rng(17)
+            imgs = [rng.integers(0, 256, (LR, LR), dtype=np.uint8) for _ in range(32)]
+            bodies = [_png(im) for im in imgs]
+            stats0 = dict(srv.batcher.stats)
+            reset_launches()
+            results = [None] * len(imgs)
+
+            def client(i):
+                results[i] = _post(port, "/predict", bodies[i])
+
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(len(imgs))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+                check(not t.is_alive(), "a client did not get its answer within 120 s")
+            torch.cuda.synchronize()
+            launches = kernel_launches()
+            pred.predict = predict
+            batches = srv.batcher.stats["batches"] - stats0["batches"]
+            samples = srv.batcher.stats["batched_samples"] - stats0["batched_samples"]
+            check(all(r is not None and r[0] == 200 for r in results),
+                  f"daemon answers {[r and r[0] for r in results]}")
+            outs = [_unpng(r[1]) for r in results]
+            # every response is its group's row; every group's output is what the
+            # predictor gives for the same batch (the daemon's shapes: 4 or 8 rows)
+            row_of = {}
+            for batch, out in groups:
+                for j in range(len(batch)):
+                    row_of[batch[j].tobytes()] = out[j]
+            worst = max(int(np.abs(o.astype(int) - row_of[im[..., None].tobytes()].astype(int)).max())
+                        for o, im in zip(outs, imgs))
+            regroup = max(int(np.abs(predict(b).astype(int) - o.astype(int)).max())
+                          for b, o in groups)
+            alone = max(int(np.abs(predict(im[None, ..., None])[0].astype(int)
+                                   - o.astype(int)).max()) for o, im in zip(outs, imgs))
+            mean_batch = samples / batches
+            ok = (worst == 0 and regroup <= 1 and mean_batch > 1
+                  and launches["rdb5_bf16"] == 9 * batches)
+            print(f"[extras] daemon, 32 clients of {LR}^2 PNG: {batches} groups, mean batch "
+                  f"{mean_batch:.2f} (bound > 1), rdb5_bf16 launches {launches['rdb5_bf16']} "
+                  f"(want 9 x {batches}), tail_x4 {launches['tail_x4']}; responses against "
+                  f"their group's rows max|diff| {worst} (want 0), groups against predict on "
+                  f"the same batch {regroup} (bound 1), each image alone (batch of 4) "
+                  f"{alone} {'PASS' if ok else 'FAIL'}")
+            check(ok, "the daemon's answers, batching or launch counts are wrong")
+
+            # /reload to a cli.blend output of two checkpoint pairs
+            sr2, c2 = cascade(torch.Generator().manual_seed(2))
+            second = save_pair(sr2, c2, 2)
+            blended = (os.path.join(tmp, "blend", "RDDBNet_A2C_x4_0003.npz"),
+                       os.path.join(tmp, "blend", "ResDeconv_C2B_x4_0003.npz"))
+            os.makedirs(os.path.dirname(blended[0]))
+            for k in range(2):
+                blend.main([first[k], second[k], "--alpha", "0.5", "--out", blended[k]])
+            status, body = _post(port, "/reload", json.dumps(
+                {"netGA": blended[0], "netGB": blended[1]}).encode())
+            check(status == 200, f"/reload answered {status} {body!r}")
+            status, body = _post(port, "/predict", bodies[0])
+            after = _unpng(body).astype(int)
+            fresh = CascadePredictor.from_checkpoints(*blended, bf16=True, pad_batch_to=4,
+                                                      device=dev)
+            want = fresh.predict(imgs[0][None, ..., None])[0].astype(int)
+            before = outs[0].astype(int)
+            d = np.abs(after - want).max()
+            moved = np.abs(after - before).mean()
+            ok = status == 200 and d <= 1 and moved > 1
+            print(f"[extras] /reload to the cli.blend (alpha 0.5) of two checkpoint pairs: "
+                  f"against a fresh predictor on the blended files max|diff| {d} (bound 1); "
+                  f"the output moved by {moved:.2f} LSB on average {'PASS' if ok else 'FAIL'}")
+            check(ok, "the reloaded daemon does not serve the blended weights")
+
+            # requests/s and latency at three concurrencies
+            for conc in DAEMON_CLIENTS:
+                lat, lock = [], threading.Lock()
+                per = max(1, DAEMON_REQUESTS // conc)
+
+                def worker(i):
+                    for k in range(per):
+                        t0 = time.perf_counter()
+                        st, _ = _post(port, "/predict", bodies[(i * per + k) % len(bodies)])
+                        dt = time.perf_counter() - t0
+                        with lock:
+                            lat.append((st, dt))
+
+                g0 = dict(srv.batcher.stats)
+                t0 = time.perf_counter()
+                ws = [threading.Thread(target=worker, args=(i,)) for i in range(conc)]
+                for t in ws:
+                    t.start()
+                for t in ws:
+                    t.join(timeout=300)
+                    check(not t.is_alive(), "a load client hung")
+                wall = time.perf_counter() - t0
+                check(len(lat) == per * conc and all(st == 200 for st, _ in lat),
+                      "a load request failed")
+                xs = np.sort([dt for _, dt in lat]) * 1e3
+                nb = srv.batcher.stats["batches"] - g0["batches"]
+                print(f"[extras] daemon at concurrency {conc} on {card}: {len(lat)} requests in "
+                      f"{wall:.3f} s = {len(lat) / wall:.2f} requests/s; latency p50 "
+                      f"{xs[len(xs) // 2]:.2f} ms, p99 {xs[min(len(xs) - 1, int(0.99 * len(xs)))]:.2f} "
+                      f"ms; mean batch {(srv.batcher.stats['batched_samples'] - g0['batched_samples']) / nb:.2f}")
+
+            # draining shutdown: a queued backlog is answered, none lost
+            srv.shutdown()
+            backlog = [rng.integers(0, 256, (2 * LR, 2 * LR, 1), dtype=np.uint8)
+                       for _ in range(24)]
+            got, errors = {}, []
+
+            def submit(i):
+                try:
+                    got[i] = srv.batcher.submit(backlog[i])
+                except Exception as e:  # noqa: BLE001 - counted below
+                    errors.append(e)
+
+            subs = [threading.Thread(target=submit, args=(i,)) for i in range(len(backlog))]
+            requests0 = srv.batcher.stats["requests"]
+            for t in subs:
+                t.start()
+            deadline = time.monotonic() + 30
+            while (srv.batcher.stats["requests"] - requests0 < len(backlog)
+                   and time.monotonic() < deadline):
+                time.sleep(0.001)
+            with srv.batcher._lock:
+                queued = sum(map(len, srv.batcher._queues.values()))
+            serve.close(srv)
+            for t in subs:
+                t.join(timeout=60)
+            ok = (not errors and len(got) == len(backlog) and queued > 0
+                  and all(v.shape == (8 * LR, 8 * LR, 3) for v in got.values()))
+            print(f"[extras] close() with {queued} of {len(backlog)} requests still queued: "
+                  f"{len(got)} answered, {len(errors)} lost {'PASS' if ok else 'FAIL'}")
+            check(ok, "the draining shutdown lost a request")
+        finally:
+            srv.shutdown()
+            if srv.batcher._thread.is_alive():
+                serve.close(srv)
+            server.join(timeout=30)
+    return launches
+
+
+def extras_export(dev, card: str, sr, c) -> dict:
+    """(d) the torch.export artifact: bf16 at 128^2 with a symbolic batch,
+    loaded on the card, against the predictor with its kernels scoped off."""
+    import time
+
+    from srcgan_tpu_torch.deploy import export_cascade, load_exported
+    from srcgan_tpu_torch.models.blocks import rdb5_schedule
+    from srcgan_tpu_torch.models.rddb import no_tail_kernel
+    from srcgan_tpu_torch.serving import CascadePredictor
+
+    pred = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, bf16=True, device=dev)
+    t0 = time.perf_counter()
+    blob = export_cascade(pred, h=LR, w=LR)
+    t_export = time.perf_counter() - t0
+    run = load_exported(blob, device=dev)
+    rng = np.random.default_rng(18)
+    xs = {n: rng.integers(0, 256, (n, LR, LR, 1), dtype=np.uint8) for n in (BATCH, 3)}
+    reset_launches()
+    outs = {n: run(x) for n, x in xs.items()}
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    worst = 0
+    with no_tail_kernel(), rdb5_schedule("naive"):
+        for n, x in xs.items():
+            check(outs[n].shape == (n, 4 * LR, 4 * LR, 3), f"artifact output {outs[n].shape}")
+            worst = max(worst, int(np.abs(outs[n].astype(int)
+                                          - pred.predict(x).astype(int)).max()))
+    ok = worst <= 1 and not any(launches.values())
+    print(f"[extras] torch.export artifact, bf16, {LR}^2, symbolic batch: {len(blob) / 1e6:.2f} "
+          f"MB, traced in {t_export:.1f} s; batches {BATCH} and 3 against the predictor with "
+          f"its kernels scoped off max|diff| {worst} (bound 1); kernel launches while it ran "
+          f"{launches} (want all 0) {'PASS' if ok else 'FAIL'}")
+    check(ok, "the exported artifact strays from the predictor, or launched a kernel")
+    x = xs[BATCH]
+    art_ms = host_median_ms(lambda: run(x))
+    pred_ms = host_median_ms(lambda: pred.predict(x))
+    art_ms2 = host_median_ms(lambda: run(x))
+    print(f"[extras] artifact at batch {BATCH} on {card}: {art_ms:.3f} / {art_ms2:.3f} ms "
+          f"against the predictor with its kernels {pred_ms:.3f} ms (host clock, median of "
+          f"{EXTRAS_REPS}, in turns)")
+    return launches
+
+
+def phase_serve_extras(dev, card: str) -> dict:
+    """Phase 15, the serving extras (see the module docstring).  Returns each
+    path's launch counts: tiled, ensemble, daemon, export."""
+    import time
+
+    t_phase = time.perf_counter()
+    sr, c = cascade(torch.Generator().manual_seed(1))
+    counts = {"tiled": extras_tiled(dev, card, sr),
+              "ensemble": extras_ensemble(dev, card, sr, c),
+              "daemon": extras_daemon(dev, card, sr, c),
+              "export": extras_export(dev, card, sr, c)}
+    print(f"[extras] phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script runs "
@@ -2208,11 +2637,13 @@ def main() -> int:
     ssim["launches_gan"] = phase_gan(dev, where)
     mt = phase_multitask(dev, where)
     zoo, zoo_eval = phase_zoo(dev, where)
+    extras = phase_serve_extras(dev, where)
     for entry, key in ((tail, "tail_x4"), (gray, "gray_degrade"), (ssim, "ssim"),
                        (rdb5_bf16, "rdb5_bf16"), (rdb5_int8, "rdb5_int8"),
                        *((p, "probes") for p in probes)):
         entry.update(launches_multitask=mt[key], launches_zoo=zoo[key],
-                     launches_zoo_eval=zoo_eval[key])
+                     launches_zoo_eval=zoo_eval[key],
+                     **{f"launches_{path}": n[key] for path, n in extras.items()})
 
     print(json.dumps({"kernels": [tail, gray, ssim, rdb5_bf16, rdb5_int8, *probes]}))
     print(smi)

@@ -15,7 +15,10 @@ The protocol:
     datalist's names, and the means are appended to result/Performs.csv;
   - on @G2LAB checkpoints the SR net predicts L and the colorizer ab: the
     metrics compare L (+) ab with the normalized-LAB target, and the PNGs are
-    L (+) ab converted to RGB.
+    L (+) ab converted to RGB;
+  - with --self-ensemble both domains' (SR, colorized) pairs are the x8
+    dihedral self-ensemble (``ops.ensemble``): every D4 copy of a batch in one
+    forward, inverted and averaged.
 
 Runs on the card unless ``--device cpu`` is given.
 """
@@ -44,8 +47,10 @@ def build_parser():
                    help="data-parallel eval over N devices: not ported yet "
                         "(ROADMAP A14); exits")
     p.add_argument("--self-ensemble", action="store_true",
-                   help="geometric self-ensemble (x8 dihedral TTA): not ported "
-                        "yet (ROADMAP A12); exits")
+                   help="geometric self-ensemble (x8 dihedral TTA, the 'EDSR+' "
+                        "protocol): run every D4 transform of each input as one "
+                        "batched forward, invert and average the outputs, at ~8x "
+                        "the inference FLOPs")
     p.add_argument("--precision", type=str, default="highest",
                    choices=["highest", "high", "default", "int8"],
                    help="highest = fp32 with TF32 off (metric-grade); high = the "
@@ -64,8 +69,6 @@ def _refuse_unported(args) -> None:
     if args.mesh_size:
         sys.exit("--mesh-size: the data-parallel eval comes with the parallel "
                  "stack (ROADMAP A14)")
-    if args.self_ensemble:
-        sys.exit("--self-ensemble comes with the serving extras (ROADMAP A12)")
 
 
 def load_cascade(netGA: str, netGB: str, device, dtype):
@@ -90,15 +93,18 @@ def load_cascade(netGA: str, netGB: str, device, dtype):
     return info_a, nets[0], nets[1]
 
 
-def make_cascade(sr_net, c_net, up: int, const: bool, mode: str, lab: bool = False):
+def make_cascade(sr_net, c_net, up: int, const: bool, mode: str, lab: bool = False,
+                 self_ensemble: bool = False):
     """cascade(realA, realB) -> (fake_AC, fake_AB, fake_BC, fake_BB), fp32
     NHWC: the degradation replay and the cascade on both domains, under
     ``torch.no_grad()`` in ``config.precision(mode)``.  With ``lab`` realB is
-    normalized LAB and its L channel is the SR target."""
+    normalized LAB and its L channel is the SR target; with
+    ``self_ensemble`` each domain's pair is the dihedral self-ensemble."""
     import torch
 
     from srcgan_tpu_torch import config
     from srcgan_tpu_torch.data import preprocess
+    from srcgan_tpu_torch.ops import ensemble
     from srcgan_tpu_torch.ops.conv import to_nchw, to_nhwc
 
     dtype = config.DTYPES[mode]
@@ -107,6 +113,9 @@ def make_cascade(sr_net, c_net, up: int, const: bool, mode: str, lab: bool = Fal
         c = sr_net(to_nchw(x).to(dtype))
         b = c_net(c)
         return to_nhwc(c).float(), to_nhwc(b).float()
+
+    def both(x):
+        return ensemble.self_ensemble_apply(run_casc, x) if self_ensemble else run_casc(x)
 
     def cascade(real_a, real_b):
         with torch.no_grad(), config.precision(mode):
@@ -117,8 +126,8 @@ def make_cascade(sr_net, c_net, up: int, const: bool, mode: str, lab: bool = Fal
             else:
                 real_ba = preprocess.degrade_nearest(real_bc, up)
                 real_aa = preprocess.degrade_nearest(real_a, up)
-            fake_ac, fake_ab = run_casc(real_aa)
-            fake_bc, fake_bb = run_casc(real_ba)
+            fake_ac, fake_ab = both(real_aa)
+            fake_bc, fake_bb = both(real_ba)
             return fake_ac, fake_ab, fake_bc, fake_bb
 
     return cascade
@@ -175,7 +184,7 @@ def main(argv=None):
     mode = "bf16" if args.precision == "default" else "fp32"
     info_a, sr_net, c_net = load_cascade(args.netGA, args.netGB, device, config.DTYPES[mode])
     sf, lab = info_a["up"], info_a["ver"] == "G2LAB"
-    cascade = make_cascade(sr_net, c_net, sf, args.const, mode, lab)
+    cascade = make_cascade(sr_net, c_net, sf, args.const, mode, lab, args.self_ensemble)
 
     testset = data.FileListDataset(args.root, "test", info_a["ver"], args.data_dir)
 

@@ -10,6 +10,8 @@ themselves are bf16 and the kernels accumulate in fp32.
 from __future__ import annotations
 
 import contextlib
+import functools
+import threading
 
 import torch
 
@@ -42,18 +44,56 @@ def cast_parameters(module: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Mod
     return module
 
 
+# The backend flags are process-wide: the open fp32 / tf32 scopes of every
+# thread, oldest first, and the flags from before the first of them.  The
+# newest open scope sets the flags, so a thread that leaves its scope while
+# another thread's is open (the serve daemon's two predictors) does not turn
+# TF32 back on under it.
+_SCOPES_LOCK = threading.Lock()
+_SCOPES: list = []
+_BASE_FLAGS = None
+
+
+def _set_tf32(on: bool) -> None:
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = on
+
+
 @contextlib.contextmanager
 def precision(mode: str):
     """Scope a numerics mode ("fp32" | "tf32" | "bf16") over the enclosed work."""
+    global _BASE_FLAGS
     if mode not in DTYPES:
         raise ValueError(f"unknown precision {mode!r}; one of {sorted(DTYPES)}")
     if mode == "bf16":
         yield
         return
-    old = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = mode == "tf32"
-    torch.backends.cuda.matmul.allow_tf32 = mode == "tf32"
+    scope = (object(), mode)
+    with _SCOPES_LOCK:
+        if not _SCOPES:
+            _BASE_FLAGS = (torch.backends.cudnn.allow_tf32,
+                           torch.backends.cuda.matmul.allow_tf32)
+        _SCOPES.append(scope)
+        _set_tf32(mode == "tf32")
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+        with _SCOPES_LOCK:
+            _SCOPES.remove(scope)
+            if _SCOPES:
+                _set_tf32(_SCOPES[-1][1] == "tf32")
+            else:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = _BASE_FLAGS
+
+
+def constant_cache(fn):
+    """``functools.lru_cache`` for a function that makes constant tensors
+    (once per dtype and device), bypassed while ``torch.export`` traces: the
+    tensors a trace makes are placeholders that must not outlive it."""
+    cached = functools.lru_cache(maxsize=16)(fn)
+
+    @functools.wraps(fn)
+    def get(*args):
+        return fn(*args) if torch.compiler.is_exporting() else cached(*args)
+
+    return get

@@ -94,7 +94,10 @@ class ResidualDenseBlock5(nn.Module):
         return [(c.weight, c.bias) for c in (getattr(self, f"conv{i + 1}") for i in range(5))]
 
     def weights_key(self):
-        """Changes when a weight's version, storage, dtype or device does."""
+        """Changes when a weight's version, storage, dtype or device does;
+        None while ``torch.export`` traces (its tensors have no storage)."""
+        if torch.compiler.is_exporting():
+            return None
         return tuple((t._version, t.data_ptr(), t.dtype, t.device)
                      for pair in self.convs() for t in pair if t is not None)
 
@@ -168,9 +171,13 @@ class ResidualDenseBlock5(nn.Module):
 
     def _forward_kernel(self, x, lemda: float = 0.2):
         key = self.weights_key()
-        if self._prepared[0] != key:
-            self._prepared = (key, rdb5_kernel.prep_bf16(self.convs()))
-        y = rdb5_kernel.rdb5_bf16_fused(to_nhwc(x).contiguous(), self._prepared[1], lemda)
+        if key is None:                  # a torch.export trace: build, keep nothing
+            weights = rdb5_kernel.prep_bf16(self.convs())
+        else:
+            if self._prepared[0] != key:
+                self._prepared = (key, rdb5_kernel.prep_bf16(self.convs()))
+            weights = self._prepared[1]
+        y = rdb5_kernel.rdb5_bf16_fused(to_nhwc(x).contiguous(), weights, lemda)
         return to_nchw(y)
 
 

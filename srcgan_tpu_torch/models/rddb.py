@@ -1,7 +1,9 @@
 """RDDBNet, the ESRGAN-style SR generator, as in ``srcgan_tpu.models.rddb``."""
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 from torch import nn
@@ -16,6 +18,22 @@ from srcgan_tpu_torch.ops.kernels import tail_kernel
 # folded last conv would be (3,3,64*nf,64*ou), 16x the useful FLOPs.
 MAX_FOLD_LAST_R = 4
 
+_TL = threading.local()
+
+
+@contextlib.contextmanager
+def no_tail_kernel():
+    """Send the x4 tail of forwards in this thread and scope through the
+    phase-folded plain path, never the tail kernel.  ``deploy.export_cascade``
+    traces under it (with ``rdb5_schedule("naive")``) so that an artifact holds
+    no call into this package's kernels; no serve, train or eval path enters it."""
+    prev = getattr(_TL, "off", False)
+    _TL.off = True
+    try:
+        yield
+    finally:
+        _TL.off = prev
+
 
 class RDDBNet(nn.Module):
     """conv_first -> nb x RRDB -> trunk_conv (+ global residual) ->
@@ -27,7 +45,8 @@ class RDDBNet(nn.Module):
     tail kernel instead, as the JAX model takes its Pallas kernel on a TPU.
     The eval path is forward-only: its folded weights are built once per
     weight set without autograd and cached (rebuilt when a weight's version,
-    storage, dtype or device changes).
+    storage, dtype or device changes); a ``torch.export`` trace builds them
+    in its graph and caches nothing.  ``no_tail_kernel`` scopes the kernel off.
     """
 
     def __init__(self, in_ch: int, ou_ch: int, upscale_factor: int,
@@ -58,6 +77,7 @@ class RDDBNet(nn.Module):
         deconvs = list(self.upscale_layers)[::2]
         lb = self.conv_last.bias
         if (not self.training and len(deconvs) == 2 and t.is_cuda
+                and not getattr(_TL, "off", False)
                 and tail_kernel.supported(t.shape, 4, t.dtype)):
             tw = self._eval_weights("kernel", lambda: tail_kernel.prepare(
                 deconvs[0].weight, deconvs[1].weight, self.conv_last.weight))
@@ -75,6 +95,9 @@ class RDDBNet(nn.Module):
                                            fold_last=fold_last, wf=wf)
 
     def _eval_weights(self, kind, build):
+        if torch.compiler.is_exporting():    # a trace's tensors have no storage to key on
+            with torch.no_grad():
+                return build()
         params = [d.weight for d in list(self.upscale_layers)[::2]]
         params.append(self.conv_last.weight)
         key = (kind, *((p._version, p.data_ptr(), p.dtype, p.device) for p in params))

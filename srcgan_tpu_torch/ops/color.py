@@ -15,11 +15,13 @@ import functools
 
 import torch
 
+from srcgan_tpu_torch import config
+
 # skimage.color.rgb2gray coefficients, the same as the JAX package's.
 LUMA = (0.2125, 0.7154, 0.0721)
 
 
-@functools.lru_cache(maxsize=16)
+@config.constant_cache
 def _luma_weights(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     # made once per dtype and device: building it from a list on a card is a
     # copy from pageable host memory, which makes the host wait for the card

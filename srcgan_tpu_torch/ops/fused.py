@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from srcgan_tpu_torch import config
 from srcgan_tpu_torch.ops.conv import conv2d, pixel_shuffle, to_nchw, to_nhwc
 
 
@@ -65,7 +66,7 @@ def _fold_indices(phases: tuple, r: int):
     return tuple(np.asarray(col, np.int64) for col in zip(*idx))
 
 
-@functools.lru_cache(maxsize=16)
+@config.constant_cache
 def _fold_index_tensors(phases: tuple, r: int, device: torch.device):
     """_fold_indices as tensors on ``device``, copied there once: a copy from
     pageable host memory makes the host wait for the device, and the training

@@ -15,6 +15,13 @@ is L, the colorizer's two channels are ab, and L (+) ab goes through
 its last row up to a multiple of the bucket.  ``int8=True`` serves the
 post-training quantized cascade (``srcgan_tpu_torch.quant``): fp32 between
 the convolutions, ``calibrate()`` before the first ``predict``.
+``self_ensemble=True`` averages the x8 dihedral self-ensemble
+(``ops.ensemble``): the copies run as one batch of 8N rows (4N for a
+non-square input) and their inverted fp32 RGB outputs are averaged.
+
+``TiledPredictor`` serves scenes of any size through one tile shape: the
+scene is cut into overlapping windows, run in batches, and the cores of the
+output tiles are stitched.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import torch
 
 from srcgan_tpu_torch import config, models, quant
 from srcgan_tpu_torch.interop import load_params_any
+from srcgan_tpu_torch.ops import ensemble
 from srcgan_tpu_torch.ops.color import lab_norm_to_rgb, rgb_to_gray
 from srcgan_tpu_torch.train.state import parse_checkpoint_name
 
@@ -35,13 +43,20 @@ class CascadePredictor:
     """SR -> colorize cascade.  Takes ownership of the two models: they are
     moved to ``device`` (default: the card; raises without one unless the
     caller passes ``device="cpu"``), their parameters cast to the compute
-    dtype (buffers, BatchNorm's running statistics, stay fp32), put in channels_last memory and in eval mode."""
+    dtype (buffers, BatchNorm's running statistics, stay fp32), put in channels_last memory and in eval mode.
+
+    On the card every batch is enqueued on ``stream``, a side stream of the
+    predictor's own unless the caller passes one.  Predictors over the same
+    modules must share one stream: the models' cached operands (the folded
+    tail weights, the RDB5 kernel's packed weights) are built by the first
+    forward, on its stream, and read by every later one."""
 
     def __init__(self, sr_model, c_model, up: int, *, lab: bool = False,
                  bf16: bool = False, pad_batch_to: int = 0, int8: bool = False,
-                 self_ensemble: bool = False, device=None):
-        if self_ensemble:
-            raise NotImplementedError("self-ensemble comes with the serving extras (ROADMAP A12)")
+                 self_ensemble: bool = False, device=None, stream=None):
+        # geometric self-ensemble: the D4 copies run as ONE 8N-row batch and
+        # the inverted outputs average in fp32 (~8x the FLOPs of a request)
+        self.self_ensemble = self_ensemble
         # int8: per-channel weight scales + calibrated activation scales;
         # needs calibrate() before predict
         self.int8 = int8
@@ -54,8 +69,11 @@ class CascadePredictor:
         self.dtype = config.DTYPES["bf16" if bf16 else "fp32"]
         self.sr_model = self._adopt(sr_model)
         self.c_model = self._adopt(c_model)
-        self._stream = (torch.cuda.Stream(self.device)
-                        if self.device.type == "cuda" else None)
+        if self.device.type != "cuda":
+            stream = None
+        elif stream is None:
+            stream = torch.cuda.Stream(self.device)
+        self.stream = stream
 
     def _adopt(self, model):
         model.to(device=self.device, memory_format=torch.channels_last)
@@ -115,16 +133,24 @@ class CascadePredictor:
             x = gray_u8.float() / 255.0
             if x.shape[-1] == 3:
                 x = rgb_to_gray(x)
-            x = x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)
-            fake_c = self.sr_model(x)
-            out = self.c_model(fake_c).float()
-            if self.lab:
-                # L (+) ab, NHWC, back to RGB in fp32 (clipped to [0, 1] there)
-                lab_img = torch.cat([fake_c.float(), out], dim=1).permute(0, 2, 3, 1)
-                rgb = lab_norm_to_rgb(lab_img)
+            if self.self_ensemble:
+                rgb = ensemble.self_ensemble_apply(self._rgb_of, x).clamp(0.0, 1.0)
             else:
-                rgb = out.clamp(0.0, 1.0).permute(0, 2, 3, 1)
+                rgb = self._rgb_of(x)
             return torch.round(rgb * 255.0).to(torch.uint8)
+
+    def _rgb_of(self, x: torch.Tensor) -> torch.Tensor:
+        """(N,h,w,1) fp32 gray -> (N,h*up,w*up,3) fp32 RGB in [0, 1]."""
+        # channels_last, the layout the models run in, also for the batch the
+        # ensemble concatenated: the kernels then read it without a copy
+        x = x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)
+        fake_c = self.sr_model(x)
+        out = self.c_model(fake_c).float()
+        if self.lab:
+            # L (+) ab, NHWC, back to RGB in fp32 (clipped to [0, 1] there)
+            lab_img = torch.cat([fake_c.float(), out], dim=1).permute(0, 2, 3, 1)
+            return lab_norm_to_rgb(lab_img)
+        return out.clamp(0.0, 1.0).permute(0, 2, 3, 1)
 
     @property
     def int8_scales(self):
@@ -147,27 +173,30 @@ class CascadePredictor:
             gray_u8_batches)
 
     def _stream_scope(self):
-        return (torch.cuda.stream(self._stream) if self._stream is not None
+        return (torch.cuda.stream(self.stream) if self.stream is not None
                 else contextlib.nullcontext())
 
-    def _predict_async(self, gray_u8: np.ndarray):
+    def _predict_async(self, gray_u8: np.ndarray, pad: int | None = None):
         """Enqueue one batch and the copy of its result to the host, without
         waiting for either.  Returns (host tensor, event): the host tensor
-        holds the result once the event (None on the CPU) has completed."""
+        holds the result once the event (None on the CPU) has completed.
+        ``pad`` overrides the batch-padding bucket (0 disables) for a caller
+        that enqueues a shape the bucket would only waste work on."""
         n = gray_u8.shape[0]
         if self.int8 and not self.int8_scales:
             raise RuntimeError("int8 predictor needs calibrate() first")
-        if self.pad and n % self.pad:
-            reps = self.pad - n % self.pad
+        pad = self.pad if pad is None else pad
+        if pad and n % pad:
+            reps = pad - n % pad
             gray_u8 = np.concatenate(
                 [gray_u8, np.repeat(gray_u8[-1:], reps, axis=0)], axis=0)
-        cuda = self._stream is not None
+        cuda = self.stream is not None
         if cuda:
             # weights moved, cast or reloaded on the caller's stream must be
             # in place before this stream reads them
-            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
         with self._stream_scope():
-            x = torch.from_numpy(np.ascontiguousarray(gray_u8))
+            x = torch.from_numpy(np.require(gray_u8, requirements=("C", "W")))
             if cuda:
                 x = x.pin_memory()
             with (quant.quant_mode("int8", self.int8_scales, self._int8_prepared)
@@ -178,7 +207,7 @@ class CascadePredictor:
             done = None
             if cuda:
                 done = torch.cuda.Event()
-                done.record(self._stream)
+                done.record(self.stream)
         return host, done
 
     @staticmethod
@@ -203,3 +232,85 @@ class CascadePredictor:
                 yield self._collect(*q.popleft())
         while q:
             yield self._collect(*q.popleft())
+
+
+class TiledPredictor(CascadePredictor):
+    """Whole-scene inference for images of any size through one tile shape.
+
+    The scene is cut into overlapping ``tile`` x ``tile`` windows, run
+    through the cascade in ``max_batch`` chunks (at most two in flight, so
+    the host crops and stitches while the card runs), and each output tile's
+    ``overlap`` halo is discarded before the cores are stitched.
+
+    Exactness: the cascade's ops are local (convs, deconvs, pixel shuffle,
+    per-pixel colour math), so with ``overlap`` >= the network's receptive
+    field radius the stitched scene equals the whole image run in one call.
+    Edge windows are laid flush with the scene border, never zero-padded:
+    the convolutions' own zero padding then applies at the true border as
+    in the whole-image call, where explicit zero pixels would become nonzero
+    activations after the first bias.  Overhead grows as
+    (tile / (tile - 2*overlap))^2.  Models with a global spatial reduction
+    (RCAN's channel attention, GroupNorm's statistics in ResDeconv) are
+    never tile-exact.
+
+    The output scale is inferred from the first output tile, so
+    resolution-preserving cascades stitch too.  A scene smaller than one
+    tile in either dimension runs as one call of its own shape, unpadded.
+    With ``self_ensemble=True`` each tile is ensembled on its own: a valid
+    estimator, not equal to ensembling the whole scene.
+    """
+
+    def __init__(self, sr_model, c_model, up: int, *, tile: int = 256,
+                 overlap: int = 32, max_batch: int = 8, **kw):
+        if tile <= 2 * overlap:
+            raise ValueError(f"tile ({tile}) must exceed 2*overlap ({2 * overlap}) "
+                             "to leave a core")
+        super().__init__(sr_model, c_model, up, **kw)
+        self.tile, self.overlap, self.max_batch = tile, overlap, max_batch
+        self.pad = max_batch      # one batch shape for ragged chunks
+
+    @staticmethod
+    def _axis_windows(n: int, t: int, ov: int):
+        """Per-axis window plan: (win_start, keep_off_in_win, keep_start,
+        keep_len) covering [0, n) with tile windows clamped inside it."""
+        core = t - 2 * ov
+        plan = []
+        for i in range(-(-n // core)):
+            c0, c1 = i * core, min((i + 1) * core, n)
+            w = min(max(c0 - ov, 0), n - t)
+            plan.append((w, c0 - w, c0, c1 - c0))
+        return plan
+
+    def predict_scene(self, scene_u8: np.ndarray) -> np.ndarray:
+        """(H, W) / (H, W, 1|3) uint8 -> (H*scale, W*scale, 3) uint8."""
+        if scene_u8.ndim == 2:
+            scene_u8 = scene_u8[..., None]
+        H, W, _ = scene_u8.shape
+        t = self.tile
+        if H < t or W < t:
+            # one call at the scene's own shape, a batch of 1: padding it to
+            # max_batch would run copies of the whole scene for nothing
+            return self._collect(*self._predict_async(scene_u8[None], pad=0))[0]
+        rows = self._axis_windows(H, t, self.overlap)
+        cols = self._axis_windows(W, t, self.overlap)
+        tiles = np.stack([scene_u8[wy:wy + t, wx:wx + t]
+                          for wy, _, _, _ in rows for wx, _, _, _ in cols])
+
+        outs, pending = [], deque()
+        for k in range(0, len(tiles), self.max_batch):
+            pending.append(self._predict_async(tiles[k:k + self.max_batch]))
+            if len(pending) > 2:          # at most two batches in flight
+                outs.append(self._collect(*pending.popleft()))
+        while pending:
+            outs.append(self._collect(*pending.popleft()))
+        out_tiles = np.concatenate(outs, axis=0)
+
+        s = out_tiles.shape[1] // t       # the output scale, inferred
+        canvas = np.empty((H * s, W * s, 3), dtype=np.uint8)
+        for idx in range(len(rows) * len(cols)):
+            i, j = divmod(idx, len(cols))
+            _, ky, cy, ly = rows[i]
+            _, kx, cx, lx = cols[j]
+            canvas[cy * s:(cy + ly) * s, cx * s:(cx + lx) * s] = \
+                out_tiles[idx, ky * s:(ky + ly) * s, kx * s:(kx + lx) * s]
+        return canvas

@@ -223,12 +223,33 @@ def test_int8_eval_matches_jax(jax_ckpts, synth, tmp_path, capsys):
     assert 0 < abs(ours["PSNR"] - fp32["PSNR"]) < 1.0
 
 
-@pytest.mark.parametrize("flags,item", [(["--mesh-size", "2"], "A14"),
-                                        (["--self-ensemble"], "A12")])
+@pytest.mark.parametrize("flags,item", [(["--mesh-size", "2"], "A14")])
 def test_unported_eval_flags_exit_naming_the_roadmap(flags, item, jax_ckpts, tmp_path):
     with pytest.raises(SystemExit) as e:
         test_cas.main(eval_args(jax_ckpts, str(tmp_path), tmp_path / "r", "--device", "cpu", *flags))
     assert f"ROADMAP {item}" in str(e.value) and not (tmp_path / "r").exists()
+
+
+def test_self_ensemble_eval_matches_jax(jax_ckpts, synth, tmp_path):
+    """--self-ensemble: both domains' (SR, colorized) pairs are the x8
+    dihedral self-ensemble.  The Performs.csv rows agree within the plain
+    eval's bounds (test_performs_rows_agree) and differ from the plain row."""
+    ours = test_cas.main(eval_args(jax_ckpts, synth, tmp_path / "port", "--batch-size", "2",
+                                   "--self-ensemble", "--device", "cpu"))
+    theirs = jax_test_cas.main(eval_args(jax_ckpts, synth, tmp_path / "jax", "--batch-size", "2",
+                                         "--self-ensemble")).iloc[-1]
+    assert abs(ours["PSNR"] - float(theirs["PSNR"])) <= 0.01
+    assert abs(ours["SSIM"] - float(theirs["SSIM"])) <= 1e-4
+    np.testing.assert_allclose(ours["MSE"], float(theirs["MSE"]), rtol=1e-4)
+    np.testing.assert_allclose(ours["AE"], float(theirs["AE"]), rtol=1e-4)
+    port_rows = read_csv(tmp_path / "port" / "Performs.csv")
+    jax_rows = read_csv(tmp_path / "jax" / "Performs.csv")
+    assert len(port_rows) == len(jax_rows) == 1 and list(port_rows[0]) == COLUMNS
+    for k in COLUMNS[2:]:
+        assert abs(float(port_rows[0][k]) - float(jax_rows[0][k])) <= 0.0011, k
+    plain = test_cas.main(eval_args(jax_ckpts, synth, tmp_path / "plain", "--batch-size", "2",
+                                    "--device", "cpu"))
+    assert ours["PSNR"] != plain["PSNR"]
 
 
 @pytest.mark.parametrize("cli", [test_cas, vis_cas])

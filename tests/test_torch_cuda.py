@@ -5,7 +5,8 @@ and the eval tool through the ssim kernel, and the RDB5 kernel (both forms),
 the fused RDB5 schedule and the int8 predictor through it, the six probe
 kernels, the LAB predictor, the CycleGAN step and eval tool (one ssim
 launch per test image), the multi-task GAN step (no kernel), a full-width
-instance-norm generator's gradients, and two zoo models' forwards.
+instance-norm generator's gradients, two zoo models' forwards, and the serve
+daemon's two predictors on shared modules from two threads at once.
 
 Every test here needs a card (marker ``cuda``) and skips without one.  The
 file imports no jax, so it also runs where jax is not installed; there the
@@ -1311,3 +1312,69 @@ def test_instance_norm_generator_gradients_on_card_match_cpu(dev):
 
     errs = [rel(a, b) for a, b in zip(out[dev], out["cpu"])]
     assert errs[0] <= 1e-4 and errs[1] <= 2e-2 and errs[2] <= 2e-2, errs
+
+
+def test_daemon_predictors_serve_shared_modules_from_two_threads(dev, tmp_path):
+    """``cli.serve.make_server``'s two predictors (the batcher's and the scene
+    TiledPredictor) hold the same fresh modules and one CUDA stream; the
+    modules' cached operands (the tail's folded weights, the RDB5 kernel's
+    packed weights) are built by whichever thread runs first.  Served from
+    two threads at once, bf16, every output equals a sequential run on a
+    second daemon over the same files."""
+    import threading
+
+    import numpy as np
+
+    from srcgan_tpu_torch.cli import serve
+    from srcgan_tpu_torch.interop import jax_tree_from_module
+    from srcgan_tpu_torch.train.state import save_params
+
+    g = torch.Generator().manual_seed(0)
+    ga, gb = str(tmp_path / "RDDBNet_A2C_x4_0001.npz"), str(tmp_path / "SRCNN_C2B_x4_0001.npz")
+    save_params(ga, jax_tree_from_module(models.RDDBNet(1, 1, 4, generator=g))[0])
+    save_params(gb, jax_tree_from_module(models.SRCNN(1, 3, 1, generator=g))[0])
+    args = serve.build_parser().parse_args(
+        ["--netGA", ga, "--netGB", gb, "--port", "0", "--bf16", "--max-batch", "8",
+         "--pad-batch", "4", "--tile", "256"])
+    rng = np.random.default_rng(1)
+    imgs = [rng.integers(0, 256, (128, 128, 1), dtype=np.uint8) for _ in range(6)]
+    scene = rng.integers(0, 256, (300, 400), dtype=np.uint8)
+
+    def serve_both(srv, together: bool):
+        out = {"requests": [], "scenes": []}
+        start = threading.Barrier(2 if together else 1)
+
+        def requests():
+            start.wait(60)
+            out["requests"] = [srv.batcher.submit(im) for im in imgs]
+
+        def scenes():
+            start.wait(60)
+            out["scenes"] = [srv.tiled.predict_scene(scene) for _ in range(3)]
+
+        if together:
+            threads = [threading.Thread(target=f) for f in (requests, scenes)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+                assert not t.is_alive()
+        else:
+            requests()
+            scenes()
+        return out
+
+    outs = {}
+    for together in (True, False):
+        srv = serve.make_server(args)
+        try:
+            assert srv.tiled.stream is srv.batcher.predictor.stream is not None
+            assert srv.tiled.sr_model is srv.batcher.predictor.sr_model
+            outs[together] = serve_both(srv, together)
+        finally:
+            serve.close(srv)
+    assert len(outs[True]["requests"]) == 6 and len(outs[True]["scenes"]) == 3
+    for a, b in zip(outs[True]["requests"], outs[False]["requests"]):
+        assert a.shape == (512, 512, 3) and np.array_equal(a, b)
+    for a in outs[True]["scenes"]:
+        assert a.shape == (1200, 1600, 3) and np.array_equal(a, outs[False]["scenes"][0])

@@ -200,13 +200,6 @@ def test_int8_refusals(small, full_ckpts):
         q.reload_checkpoints(netGA, netGB)
 
 
-@pytest.mark.parametrize("flag,item", [("self_ensemble", "A12")])
-def test_unported_modes_raise(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        CascadePredictor(models.RDDBNet(1, 1, 4, nf=16, nb=1), models.ResDeconv(1, 3),
-                         4, device="cpu", **{flag: True})
-
-
 @pytest.mark.parametrize("args", [("RDDBNet", "A2C", 4, 50, None, "npz"),
                                   ("ResDeconv", "C2B", 2, 7, "G2LAB", "pth")])
 def test_checkpoint_names_match_jax(args):
