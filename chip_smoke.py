@@ -23,8 +23,9 @@ Phases, in order; the first failure raises and the script exits non-zero:
                one, and its wrapper in five rounds in turns with its plain
                version, with the spread; the RDB5 kernel in both
                forms (bf16, int8) at the serving shape (8,128,128,64), a
-               ragged one (1,15,128,64) and a 512-wide one, timed in turns
-               with the cuDNN block;
+               ragged one (1,15,128,64), a 512-wide one and phase 15's
+               tiles (8,256,256,64), timed in turns with the cuDNN block;
+               the tail also on phase 15's 256^2 trunk;
   4. fp32    - the full-width serving cascade on the card against the same
                cascade on the CPU, in fp32 with TF32 off;
   5. serve   - the bf16 CascadePredictor at full width answers requests, every
@@ -134,20 +135,30 @@ Phases, in order; the first failure raises and the script exits non-zero:
                ms against plain predict; (c) cli.serve's make_server (bf16,
                --max-batch 8 --pad-batch 4 --tile 256) under 32 clients of
                128^2 PNGs: every response its group's row, every group within
-               1 LSB of predict on the same batch, mean batch above 1,
-               rdb5_bf16 launches 9 x the groups; /reload to a cli.blend
-               output of two checkpoint pairs; close() answering a queued
-               backlog; requests/s and p50/p99 at concurrency 1, 8, 32; (d)
+               1 LSB of predict on the same batch, each image alone within a
+               bound, mean batch above 1, rdb5_bf16 launches 9 x the groups;
+               bf16 predict of a batch against its images alone, with the
+               kernels and on cuDNN alone; /reload to a cli.blend output of
+               two checkpoint pairs; requests/s, p50/p90/p99 and each
+               request's seconds in PNG decode, queue, forward and PNG
+               encode at concurrency 1, 8, 32, 64, from a client process, at
+               least 100 requests and a few seconds a level; close()
+               answering a queued backlog; the same daemon in fp32 (TF32
+               off): every response within 1 LSB of predict on its image
+               alone; (d)
                a bf16 torch.export artifact at 128^2 with a symbolic batch,
                loaded on the card, batches 8 and 3 within 1 LSB of the
                predictor under the kernel-off scopes and no kernel launch,
-               ms against the predictor with its kernels.
+               ms against the predictor with its kernels; (e) cli.test_cas
+               --self-ensemble (RDDBNet x2 + ResDeconv, 8 pairs of 256^2,
+               batch 4, fp32): one ssim launch per batch, a finite row.
 Then one JSON line of kernel results (with each kernel's launches on the
 paths of phases 13, 14 and 15), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Weights are random, from fixed seeds.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import csv
 import json
@@ -253,9 +264,10 @@ def nvidia_smi() -> str:
     return out.strip().splitlines()[0]
 
 
-def tail_inputs(gen, ou, dev):
-    """Trunk output and tail weights at the bench shape, kaiming-scaled."""
-    t0 = torch.randn(BATCH, LR, LR, NF, generator=gen).to(dev, torch.bfloat16)
+def tail_inputs(gen, ou, dev, hw=LR):
+    """Trunk output and tail weights at the bench shape (or an hw x hw trunk),
+    kaiming-scaled."""
+    t0 = torch.randn(BATCH, hw, hw, NF, generator=gen).to(dev, torch.bfloat16)
     d1, d2 = (torch.randn(NF, NF, 2, 2, generator=gen) * (2 / (4 * NF)) ** 0.5
               for _ in range(2))
     lw = torch.randn(ou, NF, 3, 3, generator=gen) * (2 / (9 * ou)) ** 0.5
@@ -265,17 +277,18 @@ def tail_inputs(gen, ou, dev):
 
 def phase_kernels(dev, card: str) -> dict:
     """The tail: its wrapper (the main kernel, then the finish) against the
-    plain version at ou = 1 and 3; at ou=1 the wrapper in rounds, each kernel
-    alone and on the device, and the main kernel in turns with its first
-    design (graph timing, 4 rounds)."""
+    plain version at ou = 1 and 3, and at ou = 1 on the 256^2 trunk of a
+    scene's tiles (phase 15); at ou=1 and the bench shape the wrapper in
+    rounds, each kernel alone and on the device, and the main kernel in turns
+    with its first design (graph timing, 4 rounds)."""
     from srcgan_tpu_torch.ops import fused
     from srcgan_tpu_torch.ops.kernels import tail_kernel
     from srcgan_tpu_torch.probes import common, tail_ablate
 
     gen = torch.Generator().manual_seed(0)
     result = None
-    for ou in (1, 3):
-        t0, d1, d2, lw, lb = tail_inputs(gen, ou, dev)
+    for ou, hw in ((1, LR), (3, LR), (1, TILE)):
+        t0, d1, d2, lw, lb = tail_inputs(gen, ou, dev, hw)
         tw = tail_kernel.prepare(d1, d2, lw)
         before = tail_kernel.launches, tail_kernel.finish_launches
         got = tail_kernel.tail_x4_fused(t0, tw, lb)
@@ -283,22 +296,23 @@ def phase_kernels(dev, card: str) -> dict:
         torch.cuda.synchronize()
         check((tail_kernel.launches, tail_kernel.finish_launches) == (before[0] + 1, before[1] + 1),
               "tail_x4_fused did not launch its main kernel and its finish once each")
-        check(got.shape == ref.shape == (BATCH, 4 * LR, 4 * LR, ou),
+        check(got.shape == ref.shape == (BATCH, 4 * hw, 4 * hw, ou),
               f"tail_x4 shape {tuple(got.shape)}")
         err = (got.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
         bound = 0.02 * max(scale, 1.0)
-        print(f"[kernels] tail_x4 ou={ou}: max|kernel - plain| = {err:.6g} "
-              f"(bound 0.02*max(max|ref|,1) = {bound:.6g}) "
+        print(f"[kernels] tail_x4 ou={ou}, trunk {BATCH}x{hw}^2: max|kernel - plain| = "
+              f"{err:.6g} (bound 0.02*max(max|ref|,1) = {bound:.6g}) "
               f"{'PASS' if err <= bound else 'FAIL'}")
-        check(err <= bound, f"tail_x4 ou={ou} disagrees with its plain version")
+        check(err <= bound, f"tail_x4 ou={ou} at {hw}^2 disagrees with its plain version")
         t0m = t0.reshape(-1, NF)
         zall = tail_kernel.zall_reference(t0m, tw)
-        fin = tail_kernel._finish_kernel(zall, BATCH, LR, LR, ou, lb)
-        check(torch.equal(fin, tail_kernel.finish_reference(zall, BATCH, LR, LR, ou, lb)),
-              f"the tail's finish pass ou={ou} is not bit-equal to its plain version")
-        print(f"[kernels] tail_x4 finish ou={ou}: bit-equal to its plain version PASS")
-        if ou != 1:
+        fin = tail_kernel._finish_kernel(zall, BATCH, hw, hw, ou, lb)
+        check(torch.equal(fin, tail_kernel.finish_reference(zall, BATCH, hw, hw, ou, lb)),
+              f"the tail's finish pass ou={ou} at {hw}^2 is not bit-equal to its plain version")
+        print(f"[kernels] tail_x4 finish ou={ou}, trunk {BATCH}x{hw}^2: bit-equal to its "
+              f"plain version PASS")
+        if (ou, hw) != (1, LR):
             continue
 
         turns = in_turns_ms({"wrapper": lambda: tail_kernel.tail_x4_fused(t0, tw, lb)}, rounds=4)
@@ -888,7 +902,10 @@ def phase_rdb5(dev, card: str):
     wb = rk.prep_bf16(blk.convs())
     worst = {"bf16": 0.0, "int8": 0.0}
     first = {}
-    for shape in ((BATCH, LR, LR, NF), (1, 15, 128, NF), (2, 24, 512, NF)):
+    # the serving shape, a ragged height, the widest rows, and the tiles of a
+    # phase-15 scene
+    for shape in ((BATCH, LR, LR, NF), (1, 15, 128, NF), (2, 24, 512, NF),
+                  (BATCH, TILE, TILE, NF)):
         x = (torch.rand(shape, generator=gen) * 2 - 0.5).to(dev)
         xb = x.bfloat16()
         with torch.no_grad(), config.precision("fp32"):
@@ -2192,7 +2209,15 @@ def phase_zoo(dev, card: str):
 # 1 + 9 dense blocks x 5 convs + trunk_conv 1), its folded conv_last one more,
 # and SRCNN's 9x9 and 5x5 convs 6 HR pixels = 2 LR: 50 <= 64.
 SCENE_HW, TILE, TILE_OVERLAP = (700, 1000), 256, 64
-DAEMON_CLIENTS, DAEMON_REQUESTS = (1, 8, 32), 32   # concurrency levels; requests per level
+# the daemon's load levels (clients), each run until it has lasted
+# DAEMON_SECONDS and answered DAEMON_REQUESTS (a p99 over 100 samples) and
+# DAEMON_PER_CLIENT requests a client
+DAEMON_CLIENTS, DAEMON_SECONDS, DAEMON_REQUESTS, DAEMON_PER_CLIENT = (1, 8, 32, 64), 3.0, 100, 3
+# the bf16 daemon's answers against predict on each image alone (a batch of
+# 4 copies; their groups hold 4 or 8 different images): bounds from the
+# phase's readings on an H100 (max 3-4 LSB, mean 0.023-0.031 LSB), with
+# room for a batch that moves more rows; in fp32 the bound is 1 LSB
+ALONE_MAX, ALONE_MEAN = 6, 0.1
 EXTRAS_REPS = 5
 
 
@@ -2357,16 +2382,153 @@ def _unpng(data: bytes) -> np.ndarray:
     return np.asarray(Image.open(io.BytesIO(data)))
 
 
+def _burst(port: int, bodies) -> list:
+    """POST every body to /predict at once, one client thread each: the
+    (status, body) answers in order."""
+    import threading
+
+    results = [None] * len(bodies)
+
+    def client(i):
+        results[i] = _post(port, "/predict", bodies[i])
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        check(not t.is_alive(), "a client did not get its answer within 120 s")
+    check(all(r is not None and r[0] == 200 for r in results),
+          f"daemon answers {[r and r[0] for r in results]}")
+    return results
+
+
+def _load_client(port, levels, bodies_dir, min_seconds, min_requests, per_client):
+    """The daemon's load generator, run in a process of its own (stdlib only:
+    ``extras_daemon`` runs its source with ``python -c``), so that the
+    clients do not share the daemon's interpreter lock.  Each level runs
+    ``conc`` clients, each posting the bodies in turn on a new connection,
+    until the level has lasted ``min_seconds`` and answered ``min_requests``
+    and ``per_client`` requests a client; then the clients finish the
+    request in hand.  Prints one JSON line a
+    level: the (status, seconds) of every request, the wall time, and the
+    daemon's /stats before and after."""
+    import http.client
+    import json
+    import os
+    import threading
+    import time
+
+    bodies = [open(os.path.join(bodies_dir, n), "rb").read()
+              for n in sorted(os.listdir(bodies_dir))]
+
+    def call(method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            conn.request(method, path, body=body)
+            r = conn.getresponse()
+            return r.status, r.read()
+        finally:
+            conn.close()
+
+    for conc in levels:
+        lat, lock, stop = [], threading.Lock(), threading.Event()
+
+        def worker(i):
+            k = i
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                status, _ = call("POST", "/predict", bodies[k % len(bodies)])
+                dt = time.perf_counter() - t0
+                with lock:
+                    lat.append((status, dt))
+                k += conc
+
+        stats0 = json.loads(call("GET", "/stats")[1])
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=worker, args=(i,), daemon=True)
+                   for i in range(conc)]
+        for t in threads:
+            t.start()
+        while (time.perf_counter() - t0 < min_seconds
+               or len(lat) < max(min_requests, per_client * conc)):
+            if not any(t.is_alive() for t in threads):
+                break
+            time.sleep(0.01)
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        wall = time.perf_counter() - t0
+        stats1 = json.loads(call("GET", "/stats")[1])
+        print(json.dumps({"conc": conc, "lat": lat, "wall": wall, "stats0": stats0,
+                          "stats1": stats1, "hung": sum(t.is_alive() for t in threads)}),
+              flush=True)
+
+
+def daemon_load(port: int, bodies, card: str) -> list:
+    """Requests/s, latency quantiles and each request's split at the
+    DAEMON_CLIENTS levels, from ``_load_client`` in a child process."""
+    import inspect
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_load_") as d:
+        for i, b in enumerate(bodies):
+            with open(os.path.join(d, f"{i:03d}.png"), "wb") as f:
+                f.write(b)
+        src = (inspect.getsource(_load_client)
+               + f"\n_load_client({port}, {list(DAEMON_CLIENTS)!r}, {d!r}, "
+                 f"{DAEMON_SECONDS!r}, {DAEMON_REQUESTS!r}, {DAEMON_PER_CLIENT!r})\n")
+        run = subprocess.run([sys.executable, "-c", src], capture_output=True, text=True,
+                             timeout=600)
+    check(run.returncode == 0, f"the load client failed: {run.stderr[-2000:]}")
+    levels = [json.loads(line) for line in run.stdout.splitlines() if line.startswith("{")]
+    check([lv["conc"] for lv in levels] == list(DAEMON_CLIENTS), "a load level is missing")
+    for lv in levels:
+        conc, lat = lv["conc"], lv["lat"]
+        check(not lv["hung"] and len(lat) >= max(DAEMON_REQUESTS, DAEMON_PER_CLIENT * conc)
+              and all(st == 200 for st, _ in lat), f"a load request failed at {conc} clients")
+        xs = np.sort([dt for _, dt in lat]) * 1e3
+        q = {p: xs[min(len(xs) - 1, int(p / 100 * len(xs)))] for p in (50, 90, 99)}
+        d = {k: lv["stats1"][k] - lv["stats0"].get(k, 0)
+             for k in ("requests", "batches", "batched_samples", "decode_seconds",
+                       "queue_seconds", "forward_seconds", "encode_seconds")}
+        check(d["requests"] == len(lat), "the daemon counted other requests than were sent")
+        split = {k: d[f"{k}_seconds"] / d["requests"] * 1e3
+                 for k in ("decode", "queue", "forward", "encode")}
+        rest = xs.mean() - sum(split.values())
+        lv.update(rate=len(lat) / lv["wall"], q=q, split=split, rest=rest, mean=xs.mean())
+        print(f"[extras] daemon at {conc} clients on {card}: {len(lat)} requests in "
+              f"{lv['wall']:.3f} s = {lv['rate']:.2f} requests/s ({len(lat) / conc:.1f} a "
+              f"client); latency p50 {q[50]:.2f} ms, p90 {q[90]:.2f}, p99 {q[99]:.2f} (of "
+              f"{len(xs)}), mean {xs.mean():.2f}; mean batch "
+              f"{d['batched_samples'] / d['batches']:.2f}; a request's mean ms: PNG decode "
+              f"{split['decode']:.3f}, queue {split['queue']:.3f}, forward of its group "
+              f"{split['forward']:.3f}, PNG encode {split['encode']:.3f}, the rest (HTTP, "
+              f"sockets, threads) {rest:.3f}")
+    return levels
+
+
 def extras_daemon(dev, card: str, sr, c) -> dict:
-    """(c) the daemon: 32 clients, the launch count per group, /reload to a
-    cli.blend output, a drained backlog, requests/s and latency."""
+    """(c) the daemon: 32 clients, the launch count per group, each answer
+    against its image alone (bf16 bounded, fp32 1 LSB), /reload to a
+    cli.blend output, load levels from a client process, a drained backlog."""
     import threading
     import time
 
     from srcgan_tpu_torch import interop
     from srcgan_tpu_torch.cli import blend, serve
+    from srcgan_tpu_torch.models.blocks import rdb5_schedule
+    from srcgan_tpu_torch.models.rddb import no_tail_kernel
     from srcgan_tpu_torch.serving import CascadePredictor
     from srcgan_tpu_torch.train.state import save_params
+
+    rng = np.random.default_rng(17)
+    imgs = [rng.integers(0, 256, (LR, LR), dtype=np.uint8) for _ in range(32)]
+    bodies = [_png(im) for im in imgs]
+
+    def against_alone(outs, predict):
+        d = np.stack([np.abs(predict(im[None, ..., None])[0].astype(int) - o.astype(int))
+                      for o, im in zip(outs, imgs)])
+        return int(d.max()), float(d.mean())
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
         def save_pair(sr_net, c_net, epoch):
@@ -2376,14 +2538,22 @@ def extras_daemon(dev, card: str, sr, c) -> dict:
             save_params(paths[1], interop.jax_tree_from_module(c_net)[0])
             return paths
 
+        def start(*flags):
+            srv = serve.make_server(serve.build_parser().parse_args(
+                ["--netGA", first[0], "--netGB", first[1], "--port", "0",
+                 "--max-batch", "8", "--pad-batch", "4", *flags]))
+            server = threading.Thread(target=srv.serve_forever, daemon=True)
+            server.start()
+            return srv, server
+
+        def stop(srv, server):
+            srv.shutdown()
+            if srv.batcher._thread.is_alive():
+                serve.close(srv)
+            server.join(timeout=30)
+
         first = save_pair(sr, c, 1)
-        args = serve.build_parser().parse_args(
-            ["--netGA", first[0], "--netGB", first[1], "--port", "0", "--bf16",
-             "--max-batch", "8", "--pad-batch", "4", "--tile", str(TILE),
-             "--warmup", f"{LR}x{LR}"])
-        srv = serve.make_server(args)
-        server = threading.Thread(target=srv.serve_forever, daemon=True)
-        server.start()
+        srv, server = start("--bf16", "--tile", str(TILE), "--warmup", f"{LR}x{LR}")
         try:
             port = srv.server_address[1]
             pred = srv.batcher.predictor
@@ -2396,29 +2566,14 @@ def extras_daemon(dev, card: str, sr, c) -> dict:
                 return out
 
             pred.predict = recording
-            rng = np.random.default_rng(17)
-            imgs = [rng.integers(0, 256, (LR, LR), dtype=np.uint8) for _ in range(32)]
-            bodies = [_png(im) for im in imgs]
             stats0 = dict(srv.batcher.stats)
             reset_launches()
-            results = [None] * len(imgs)
-
-            def client(i):
-                results[i] = _post(port, "/predict", bodies[i])
-
-            threads = [threading.Thread(target=client, args=(i,)) for i in range(len(imgs))]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=120)
-                check(not t.is_alive(), "a client did not get its answer within 120 s")
+            results = _burst(port, bodies)
             torch.cuda.synchronize()
             launches = kernel_launches()
             pred.predict = predict
             batches = srv.batcher.stats["batches"] - stats0["batches"]
             samples = srv.batcher.stats["batched_samples"] - stats0["batched_samples"]
-            check(all(r is not None and r[0] == 200 for r in results),
-                  f"daemon answers {[r and r[0] for r in results]}")
             outs = [_unpng(r[1]) for r in results]
             # every response is its group's row; every group's output is what the
             # predictor gives for the same batch (the daemon's shapes: 4 or 8 rows)
@@ -2430,18 +2585,39 @@ def extras_daemon(dev, card: str, sr, c) -> dict:
                         for o, im in zip(outs, imgs))
             regroup = max(int(np.abs(predict(b).astype(int) - o.astype(int)).max())
                           for b, o in groups)
-            alone = max(int(np.abs(predict(im[None, ..., None])[0].astype(int)
-                                   - o.astype(int)).max()) for o, im in zip(outs, imgs))
+            alone_max, alone_mean = against_alone(outs, predict)
             mean_batch = samples / batches
             ok = (worst == 0 and regroup <= 1 and mean_batch > 1
+                  and alone_max <= ALONE_MAX and alone_mean <= ALONE_MEAN
                   and launches["rdb5_bf16"] == 9 * batches)
-            print(f"[extras] daemon, 32 clients of {LR}^2 PNG: {batches} groups, mean batch "
-                  f"{mean_batch:.2f} (bound > 1), rdb5_bf16 launches {launches['rdb5_bf16']} "
-                  f"(want 9 x {batches}), tail_x4 {launches['tail_x4']}; responses against "
-                  f"their group's rows max|diff| {worst} (want 0), groups against predict on "
-                  f"the same batch {regroup} (bound 1), each image alone (batch of 4) "
-                  f"{alone} {'PASS' if ok else 'FAIL'}")
+            print(f"[extras] daemon bf16, 32 clients of {LR}^2 PNG: {batches} groups, mean "
+                  f"batch {mean_batch:.2f} (bound > 1), rdb5_bf16 launches "
+                  f"{launches['rdb5_bf16']} (want 9 x {batches}), tail_x4 {launches['tail_x4']}; "
+                  f"responses against their group's rows max|diff| {worst} (want 0), groups "
+                  f"against predict on the same batch {regroup} (bound 1), each image alone "
+                  f"(a batch of 4 copies) max|diff| {alone_max} (bound {ALONE_MAX}), mean "
+                  f"{alone_mean:.4f} (bound {ALONE_MEAN}) {'PASS' if ok else 'FAIL'}")
             check(ok, "the daemon's answers, batching or launch counts are wrong")
+
+            # what moves a bf16 row with its batch: a batch of 8 images against
+            # each alone, with the port's kernels and with none (cuDNN only)
+            batch = np.stack(imgs[:BATCH])[..., None]
+            batch_moves = {}
+            for path in ("kernels", "cuDNN only"):
+                with contextlib.ExitStack() as scopes:
+                    if path == "cuDNN only":
+                        scopes.enter_context(rdb5_schedule("naive"))
+                        scopes.enter_context(no_tail_kernel())
+                    together = predict(batch).astype(int)
+                    alone = np.stack([predict(im[None, ..., None])[0] for im in imgs[:BATCH]])
+                    again = predict(batch).astype(int)
+                d = np.abs(together - alone.astype(int))
+                batch_moves[path] = (int(d.max()), float(d.mean()),
+                                     int(np.abs(again - together).max()))
+            print("[extras] bf16 predict, a batch of 8 images against each alone (a batch of "
+                  "4 copies): " + "; ".join(
+                      f"{k}: max|diff| {m} mean {a:.4f} (the batch twice: {r})"
+                      for k, (m, a, r) in batch_moves.items()))
 
             # /reload to a cli.blend output of two checkpoint pairs
             sr2, c2 = cascade(torch.Generator().manual_seed(2))
@@ -2459,45 +2635,15 @@ def extras_daemon(dev, card: str, sr, c) -> dict:
             fresh = CascadePredictor.from_checkpoints(*blended, bf16=True, pad_batch_to=4,
                                                       device=dev)
             want = fresh.predict(imgs[0][None, ..., None])[0].astype(int)
-            before = outs[0].astype(int)
             d = np.abs(after - want).max()
-            moved = np.abs(after - before).mean()
+            moved = np.abs(after - outs[0].astype(int)).mean()
             ok = status == 200 and d <= 1 and moved > 1
             print(f"[extras] /reload to the cli.blend (alpha 0.5) of two checkpoint pairs: "
                   f"against a fresh predictor on the blended files max|diff| {d} (bound 1); "
                   f"the output moved by {moved:.2f} LSB on average {'PASS' if ok else 'FAIL'}")
             check(ok, "the reloaded daemon does not serve the blended weights")
 
-            # requests/s and latency at three concurrencies
-            for conc in DAEMON_CLIENTS:
-                lat, lock = [], threading.Lock()
-                per = max(1, DAEMON_REQUESTS // conc)
-
-                def worker(i):
-                    for k in range(per):
-                        t0 = time.perf_counter()
-                        st, _ = _post(port, "/predict", bodies[(i * per + k) % len(bodies)])
-                        dt = time.perf_counter() - t0
-                        with lock:
-                            lat.append((st, dt))
-
-                g0 = dict(srv.batcher.stats)
-                t0 = time.perf_counter()
-                ws = [threading.Thread(target=worker, args=(i,)) for i in range(conc)]
-                for t in ws:
-                    t.start()
-                for t in ws:
-                    t.join(timeout=300)
-                    check(not t.is_alive(), "a load client hung")
-                wall = time.perf_counter() - t0
-                check(len(lat) == per * conc and all(st == 200 for st, _ in lat),
-                      "a load request failed")
-                xs = np.sort([dt for _, dt in lat]) * 1e3
-                nb = srv.batcher.stats["batches"] - g0["batches"]
-                print(f"[extras] daemon at concurrency {conc} on {card}: {len(lat)} requests in "
-                      f"{wall:.3f} s = {len(lat) / wall:.2f} requests/s; latency p50 "
-                      f"{xs[len(xs) // 2]:.2f} ms, p99 {xs[min(len(xs) - 1, int(0.99 * len(xs)))]:.2f} "
-                      f"ms; mean batch {(srv.batcher.stats['batched_samples'] - g0['batched_samples']) / nb:.2f}")
+            daemon_load(port, bodies, card)
 
             # draining shutdown: a queued backlog is answered, none lost
             srv.shutdown()
@@ -2530,10 +2676,24 @@ def extras_daemon(dev, card: str, sr, c) -> dict:
                   f"{len(got)} answered, {len(errors)} lost {'PASS' if ok else 'FAIL'}")
             check(ok, "the draining shutdown lost a request")
         finally:
-            srv.shutdown()
-            if srv.batcher._thread.is_alive():
-                serve.close(srv)
-            server.join(timeout=30)
+            stop(srv, server)
+
+        # fp32 (TF32 off), where a batch's shape cannot move a row by more
+        # than rounding: every answer within 1 LSB of predict on its image alone
+        srv, server = start()
+        try:
+            pred = srv.batcher.predictor
+            b0 = srv.batcher.stats["batches"]
+            outs = [_unpng(r[1]) for r in _burst(srv.server_address[1], bodies)]
+            n_groups = srv.batcher.stats["batches"] - b0
+            alone_max, alone_mean = against_alone(outs, pred.predict)
+            ok = alone_max <= 1 and n_groups < len(imgs)
+            print(f"[extras] daemon fp32 (TF32 off), 32 clients: {n_groups} groups; each "
+                  f"response against predict on its image alone max|diff| {alone_max} (bound "
+                  f"1), mean {alone_mean:.4f} {'PASS' if ok else 'FAIL'}")
+            check(ok, "the fp32 daemon's answers stray from predict on each image alone")
+        finally:
+            stop(srv, server)
     return launches
 
 
@@ -2580,9 +2740,49 @@ def extras_export(dev, card: str, sr, c) -> dict:
     return launches
 
 
+def extras_eval_ensemble(dev, card: str) -> dict:
+    """(e) cli.test_cas --self-ensemble on the card: RDDBNet x2 + ResDeconv at
+    full width from random weights, 8 test pairs of 256^2 in batches of 4,
+    fp32: one ssim launch per batch, a finite row, the PNGs written."""
+    from srcgan_tpu_torch import data, interop, models
+    from srcgan_tpu_torch.cli import test_cas
+    from srcgan_tpu_torch.train.state import save_params
+
+    gen = torch.Generator().manual_seed(19)
+    sr, c = models.RDDBNet(1, 1, TRAIN_UP, generator=gen), models.ResDeconv(1, 3, generator=gen)
+    with torch.no_grad():
+        c.pred.weight.mul_(PRED_SCALE)
+    n_test, batch = 8, 4
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ens_") as tmp:
+        data.make_synthetic_dataset(os.path.join(tmp, "Sat2Aerx1"), n_train=2, n_val=2,
+                                    n_test=n_test, size=EVAL_HW, seed=0, colorizable=True)
+        nets = (os.path.join(tmp, f"RDDBNet_A2C_x{TRAIN_UP}_0001.npz"),
+                os.path.join(tmp, f"ResDeconv_C2B_x{TRAIN_UP}_0001.npz"))
+        for path, net in zip(nets, (sr, c)):
+            save_params(path, interop.jax_tree_from_module(net)[0])
+        reset_launches()
+        row = test_cas.main(["--netGA", nets[0], "--netGB", nets[1], "--data-dir", tmp,
+                             "--result-dir", os.path.join(tmp, "result"), "--batch-size",
+                             str(batch), "--precision", "highest", "--self-ensemble"])
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        n_pngs = sum(len(os.listdir(os.path.join(tmp, "result", f"{side}_RDDBNet_x{TRAIN_UP}_0001")))
+                     for side in "AB")
+    n_batches = n_test // batch
+    ok = (row["images"] == n_test and row["device"].startswith("cuda")
+          and launches["ssim"] == n_batches and n_pngs == 2 * n_test
+          and all(math.isfinite(row[k]) for k in ("MSE", "PSNR", "AE", "SSIM")))
+    print(f"[extras] cli.test_cas --self-ensemble on {card}: {row['images']} images in "
+          f"{row['batches']} batches, ssim launches {launches['ssim']} (want {n_batches}), "
+          f"PSNR {row['PSNR']:.5f} dB, SSIM {row['SSIM']:.6f}, {n_pngs} PNGs, "
+          f"{row['eval_seconds']:.3f} s {'PASS' if ok else 'FAIL'}")
+    check(ok, "test_cas --self-ensemble did not score every batch through the ssim kernel")
+    return launches
+
+
 def phase_serve_extras(dev, card: str) -> dict:
     """Phase 15, the serving extras (see the module docstring).  Returns each
-    path's launch counts: tiled, ensemble, daemon, export."""
+    path's launch counts: tiled, ensemble, daemon, export, ensemble_eval."""
     import time
 
     t_phase = time.perf_counter()
@@ -2590,7 +2790,8 @@ def phase_serve_extras(dev, card: str) -> dict:
     counts = {"tiled": extras_tiled(dev, card, sr),
               "ensemble": extras_ensemble(dev, card, sr, c),
               "daemon": extras_daemon(dev, card, sr, c),
-              "export": extras_export(dev, card, sr, c)}
+              "export": extras_export(dev, card, sr, c),
+              "ensemble_eval": extras_eval_ensemble(dev, card)}
     print(f"[extras] phase took {time.perf_counter() - t_phase:.1f} s")
     return counts
 

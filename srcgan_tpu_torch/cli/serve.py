@@ -23,7 +23,9 @@
                   poll never reads a torn file).
   GET  /healthz   -> JSON liveness + model config
   GET  /stats     -> JSON counters (requests, batches, mean batch size,
-                     latency quantiles over a sliding window)
+                     latency quantiles over a sliding window, and the
+                     seconds summed over requests spent in PNG decode, in
+                     the queue, in the group's forward and in PNG encode)
   GET  /metrics   -> the same counters in the Prometheus text exposition
                      format (srcgan_* counters and gauges)
 
@@ -31,8 +33,9 @@ Requests are micro-batched: a collector thread groups same-shaped requests
 for up to --max-wait-ms (or --max-batch), runs ONE predictor call per group
 (--pad-batch pads ragged groups to buckets, so the card sees a few batch
 shapes and cuDNN chooses once per shape), and fans the outputs back out.
-Scene requests run on their HTTP thread through a TiledPredictor over the
-same modules and the same CUDA stream as the batcher's predictor.
+With --tile the predictor is a TiledPredictor: the Batcher's worker calls
+its ``predict`` and scene requests call its ``predict_scene`` on their HTTP
+thread, one object, so one set of modules on one CUDA stream.
 
 Shutdown drains: ``Batcher.close()`` stops admitting requests (late submits
 get a 503) but runs every queued group before the worker exits, so no
@@ -171,9 +174,10 @@ class _Request:
 
 class Batcher:
     """Groups same-shaped requests into one predictor call, on one worker
-    thread: the only thread that calls the predictor, so its per-thread
-    scopes (``quant.quant_mode`` of an int8 predictor, ``rdb5_schedule``)
-    are the predictor's own, entered inside ``predict``."""
+    thread: the only thread that calls the predictor's ``predict`` (scene
+    threads call ``predict_scene``), so its per-thread scopes
+    (``quant.quant_mode`` of an int8 predictor, ``rdb5_schedule``) are the
+    predictor's own, entered inside ``predict``."""
 
     def __init__(self, predictor, max_batch: int = 8, max_wait_s: float = 0.005):
         self.predictor = predictor
@@ -183,7 +187,8 @@ class Batcher:
         self._queues = defaultdict(deque)   # (h, w, c) -> deque[_Request]
         self._control = deque()             # (fn, result_box, done_event)
         self._stop = False
-        self.stats = {"requests": 0, "batches": 0, "batched_samples": 0, "errors": 0}
+        self.stats = {"requests": 0, "batches": 0, "batched_samples": 0, "errors": 0,
+                      "queue_seconds": 0.0, "forward_seconds": 0.0}
         self._lat = deque(maxlen=512)
         self._thread = threading.Thread(target=self._run, daemon=True, name="batcher")
         self._thread.start()
@@ -296,6 +301,7 @@ class Batcher:
                 continue
             if not group:
                 continue
+            t_run = time.perf_counter()
             try:
                 outs = self.predictor.predict(np.stack([r.img for r in group]))
                 for r, o in zip(group, outs):
@@ -305,28 +311,35 @@ class Batcher:
                     r.err = e
                 self.stats["errors"] += 1
             finally:
+                # summed over requests: each waits in the queue, then for its
+                # group's whole forward
+                self.stats["queue_seconds"] += sum(t_run - r.t0 for r in group)
+                self.stats["forward_seconds"] += (time.perf_counter() - t_run) * len(group)
                 self.stats["batches"] += 1
                 self.stats["batched_samples"] += len(group)
                 for r in group:
                     r.event.set()
 
 
-def make_reloader(batcher, config, tiled, tiled_lock):
+def make_reloader(batcher, config, tiled_lock):
     """A serialised do_reload(netGA, netGB) closure shared by the /reload
     endpoint and the --watch poller.  None arguments mean "re-read the
-    currently served path".  The scene predictor takes the batcher's new
-    modules, so the two keep serving one set of weights on one stream."""
+    currently served path".  The new weights are installed on the Batcher's
+    worker between groups and under the scene lock, so neither a group nor
+    a scene sees half-swapped weights."""
     reload_lock = threading.Lock()
 
     def do_reload(ga=None, gb=None):
         with reload_lock:
             ga = ga or config["netGA"]
             gb = gb or config["netGB"]
-            pred = batcher.predictor
-            batcher.run_in_worker(pred.reload_checkpoints(ga, gb))
-            if tiled is not None:
+            install = batcher.predictor.reload_checkpoints(ga, gb)
+
+            def install_between_scenes():
                 with tiled_lock:
-                    tiled.sr_model, tiled.c_model = pred.sr_model, pred.c_model
+                    install()
+
+            batcher.run_in_worker(install_between_scenes)
             config["netGA"], config["netGB"] = ga, gb
             batcher.stats["reloads"] = batcher.stats.get("reloads", 0) + 1
         return ga, gb
@@ -379,7 +392,15 @@ def make_handler(batcher, config, tiled=None, scene_gate=None, do_reload=None,
     if tiled_lock is None:
         tiled_lock = threading.Lock()
     if do_reload is None:
-        do_reload = make_reloader(batcher, config, tiled, tiled_lock)
+        do_reload = make_reloader(batcher, config, tiled_lock)
+    # PNG codec seconds summed over answered requests, beside the Batcher's
+    # queue and forward seconds
+    codec_lock = threading.Lock()
+    codec = {"decode_seconds": 0.0, "encode_seconds": 0.0}
+
+    def add_codec(key, seconds):
+        with codec_lock:
+            codec[key] += seconds
 
     class Handler(BaseHTTPRequestHandler):
         # headers and body go out as two writes: with Nagle's algorithm the
@@ -399,6 +420,8 @@ def make_handler(batcher, config, tiled=None, scene_gate=None, do_reload=None,
 
         def _collect_stats(self):
             s = dict(batcher.stats)
+            with codec_lock:
+                s.update(codec)
             if s["batches"]:
                 s["mean_batch"] = round(s["batched_samples"] / s["batches"], 2)
             s.update(batcher.latency_quantiles())
@@ -460,7 +483,10 @@ def make_handler(batcher, config, tiled=None, scene_gate=None, do_reload=None,
                     return
                 from PIL import Image
 
-                img = np.asarray(Image.open(io.BytesIO(self.rfile.read(n))))
+                body = self.rfile.read(n)
+                t0 = time.perf_counter()
+                img = np.asarray(Image.open(io.BytesIO(body)))
+                t_decoded = time.perf_counter()
                 if img.dtype != np.uint8:
                     raise ValueError("PNG must be 8-bit")
                 if img.ndim == 2:
@@ -470,9 +496,12 @@ def make_handler(batcher, config, tiled=None, scene_gate=None, do_reload=None,
                         out = tiled.predict_scene(img)
                 else:
                     out = batcher.submit(img)
+                t1 = time.perf_counter()
                 buf = io.BytesIO()
                 Image.fromarray(out).save(buf, format="PNG")
                 body = buf.getvalue()
+                add_codec("decode_seconds", t_decoded - t0)
+                add_codec("encode_seconds", time.perf_counter() - t1)
                 self.send_response(200)
                 self.send_header("Content-Type", "image/png")
                 self.send_header("Content-Length", str(len(body)))
@@ -537,26 +566,23 @@ def make_server(args) -> ThreadingHTTPServer:
     from srcgan_tpu_torch.serving import CascadePredictor, TiledPredictor
 
     device = tconfig.resolve_device(args.device)
-    pred = CascadePredictor.from_checkpoints(
+    # with --tile one TiledPredictor serves both endpoints: one set of modules
+    # on one CUDA stream
+    cls, kw = ((TiledPredictor, {"tile": args.tile, "overlap": args.tile_overlap,
+                                 "max_batch": args.max_batch})
+               if args.tile else (CascadePredictor, {}))
+    pred = cls.from_checkpoints(
         args.netGA, args.netGB, bf16=args.bf16, pad_batch_to=args.pad_batch,
-        self_ensemble=args.self_ensemble, device=device)
+        self_ensemble=args.self_ensemble, device=device, **kw)
     if args.warmup:
         _warm(pred, args)
-    tiled = None
-    if args.tile:
-        # the same modules on the same stream: their cached operands are
-        # built by whichever predictor runs first and read by both
-        tiled = TiledPredictor(
-            pred.sr_model, pred.c_model, pred.up, lab=pred.lab, bf16=pred.bf16,
-            self_ensemble=args.self_ensemble, tile=args.tile,
-            overlap=args.tile_overlap, max_batch=args.max_batch,
-            device=device, stream=pred.stream)
-        if args.warmup:
-            for ch in (1, 3):
-                t0 = time.perf_counter()
-                tiled.predict(np.zeros((args.max_batch, args.tile, args.tile, ch), np.uint8))
-                print(f"warmed scene tile {args.max_batch}x{args.tile}x{args.tile}x{ch} "
-                      f"in {time.perf_counter() - t0:.1f}s")
+    tiled = pred if args.tile else None
+    if args.tile and args.warmup:
+        for ch in (1, 3):
+            t0 = time.perf_counter()
+            tiled.predict(np.zeros((args.max_batch, args.tile, args.tile, ch), np.uint8))
+            print(f"warmed scene tile {args.max_batch}x{args.tile}x{args.tile}x{ch} "
+                  f"in {time.perf_counter() - t0:.1f}s")
     batcher = Batcher(pred, max_batch=args.max_batch, max_wait_s=args.max_wait_ms / 1e3)
     config = {"netGA": args.netGA, "netGB": args.netGB, "up": pred.up,
               "lab": pred.lab, "bf16": pred.bf16, "max_batch": args.max_batch,
@@ -566,7 +592,7 @@ def make_server(args) -> ThreadingHTTPServer:
                  if args.tile else {})}
     scene_gate = SceneGate() if tiled is not None else None
     tiled_lock = threading.Lock()
-    do_reload = make_reloader(batcher, config, tiled, tiled_lock)
+    do_reload = make_reloader(batcher, config, tiled_lock)
     srv = _Server(
         (args.host, args.port),
         make_handler(batcher, config, tiled=tiled, scene_gate=scene_gate,

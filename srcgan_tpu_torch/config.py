@@ -47,8 +47,8 @@ def cast_parameters(module: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Mod
 # The backend flags are process-wide: the open fp32 / tf32 scopes of every
 # thread, oldest first, and the flags from before the first of them.  The
 # newest open scope sets the flags, so a thread that leaves its scope while
-# another thread's is open (the serve daemon's two predictors) does not turn
-# TF32 back on under it.
+# another thread's is open (the serve daemon's worker and a scene thread)
+# does not turn TF32 back on under it.
 _SCOPES_LOCK = threading.Lock()
 _SCOPES: list = []
 _BASE_FLAGS = None

@@ -45,15 +45,14 @@ class CascadePredictor:
     caller passes ``device="cpu"``), their parameters cast to the compute
     dtype (buffers, BatchNorm's running statistics, stay fp32), put in channels_last memory and in eval mode.
 
-    On the card every batch is enqueued on ``stream``, a side stream of the
-    predictor's own unless the caller passes one.  Predictors over the same
-    modules must share one stream: the models' cached operands (the folded
-    tail weights, the RDB5 kernel's packed weights) are built by the first
-    forward, on its stream, and read by every later one."""
+    On the card every batch is enqueued on the predictor's own side stream,
+    also when several threads call it: the models' cached operands (the
+    folded tail weights, the RDB5 kernel's packed weights) are built by the
+    first forward, on that stream, and read by every later one."""
 
     def __init__(self, sr_model, c_model, up: int, *, lab: bool = False,
                  bf16: bool = False, pad_batch_to: int = 0, int8: bool = False,
-                 self_ensemble: bool = False, device=None, stream=None):
+                 self_ensemble: bool = False, device=None):
         # geometric self-ensemble: the D4 copies run as ONE 8N-row batch and
         # the inverted outputs average in fp32 (~8x the FLOPs of a request)
         self.self_ensemble = self_ensemble
@@ -69,11 +68,7 @@ class CascadePredictor:
         self.dtype = config.DTYPES["bf16" if bf16 else "fp32"]
         self.sr_model = self._adopt(sr_model)
         self.c_model = self._adopt(c_model)
-        if self.device.type != "cuda":
-            stream = None
-        elif stream is None:
-            stream = torch.cuda.Stream(self.device)
-        self.stream = stream
+        self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
     def _adopt(self, model):
         model.to(device=self.device, memory_format=torch.channels_last)
@@ -254,8 +249,11 @@ class TiledPredictor(CascadePredictor):
     never tile-exact.
 
     The output scale is inferred from the first output tile, so
-    resolution-preserving cascades stitch too.  A scene smaller than one
-    tile in either dimension runs as one call of its own shape, unpadded.
+    resolution-preserving cascades stitch too.  Tile batches are padded to
+    ``max_batch`` (one batch shape for ragged chunks); ``predict`` keeps the
+    ``pad_batch_to`` bucket, so one TiledPredictor serves single requests
+    and scenes.  A scene smaller than one tile in either dimension runs as
+    one call of its own shape, unpadded.
     With ``self_ensemble=True`` each tile is ensembled on its own: a valid
     estimator, not equal to ensembling the whole scene.
     """
@@ -267,7 +265,6 @@ class TiledPredictor(CascadePredictor):
                              "to leave a core")
         super().__init__(sr_model, c_model, up, **kw)
         self.tile, self.overlap, self.max_batch = tile, overlap, max_batch
-        self.pad = max_batch      # one batch shape for ragged chunks
 
     @staticmethod
     def _axis_windows(n: int, t: int, ov: int):
@@ -298,7 +295,8 @@ class TiledPredictor(CascadePredictor):
 
         outs, pending = [], deque()
         for k in range(0, len(tiles), self.max_batch):
-            pending.append(self._predict_async(tiles[k:k + self.max_batch]))
+            pending.append(self._predict_async(tiles[k:k + self.max_batch],
+                                               pad=self.max_batch))
             if len(pending) > 2:          # at most two batches in flight
                 outs.append(self._collect(*pending.popleft()))
         while pending:

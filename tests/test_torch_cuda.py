@@ -6,7 +6,7 @@ the fused RDB5 schedule and the int8 predictor through it, the six probe
 kernels, the LAB predictor, the CycleGAN step and eval tool (one ssim
 launch per test image), the multi-task GAN step (no kernel), a full-width
 instance-norm generator's gradients, two zoo models' forwards, and the serve
-daemon's two predictors on shared modules from two threads at once.
+daemon's one predictor serving requests and scenes from two threads at once.
 
 Every test here needs a card (marker ``cuda``) and skips without one.  The
 file imports no jax, so it also runs where jax is not installed; there the
@@ -1315,12 +1315,12 @@ def test_instance_norm_generator_gradients_on_card_match_cpu(dev):
 
 
 def test_daemon_predictors_serve_shared_modules_from_two_threads(dev, tmp_path):
-    """``cli.serve.make_server``'s two predictors (the batcher's and the scene
-    TiledPredictor) hold the same fresh modules and one CUDA stream; the
-    modules' cached operands (the tail's folded weights, the RDB5 kernel's
-    packed weights) are built by whichever thread runs first.  Served from
-    two threads at once, bf16, every output equals a sequential run on a
-    second daemon over the same files."""
+    """``cli.serve.make_server`` with --tile serves /predict (the Batcher's
+    worker) and /predict_scene (an HTTP thread) through one TiledPredictor:
+    fresh modules on one CUDA stream, whose cached operands (the tail's
+    folded weights, the RDB5 kernel's packed weights) are built by whichever
+    thread runs first.  Served from two threads at once, bf16, every output
+    equals a sequential run on a second daemon over the same files."""
     import threading
 
     import numpy as np
@@ -1368,8 +1368,7 @@ def test_daemon_predictors_serve_shared_modules_from_two_threads(dev, tmp_path):
     for together in (True, False):
         srv = serve.make_server(args)
         try:
-            assert srv.tiled.stream is srv.batcher.predictor.stream is not None
-            assert srv.tiled.sr_model is srv.batcher.predictor.sr_model
+            assert srv.tiled is srv.batcher.predictor and srv.tiled.stream is not None
             outs[together] = serve_both(srv, together)
         finally:
             serve.close(srv)

@@ -153,6 +153,8 @@ def test_stats_counters(server):
     assert s["requests"] >= 2 and s["batches"] >= 1
     assert s["batched_samples"] >= s["batches"] and s["mean_batch"] >= 1
     assert {"p50_s", "p90_s", "p99_s"} <= set(s)
+    for k in ("decode_seconds", "queue_seconds", "forward_seconds", "encode_seconds"):
+        assert s[k] > 0, k
 
 
 def test_metrics_prometheus_exposition(server):
@@ -217,7 +219,7 @@ def test_predict_scene_tiled(tmp_path, ckpts):
     try:
         port = srv.server_address[1]
         assert isinstance(srv.tiled, TiledPredictor)
-        assert srv.tiled.sr_model is srv.batcher.predictor.sr_model   # one set of modules
+        assert srv.tiled is srv.batcher.predictor   # one predictor for both endpoints
         scene = np.random.default_rng(8).integers(0, 256, (48, 64), dtype=np.uint8)
         status, _, out = post_png(port, scene, "/predict_scene")
         assert status == 200 and out.shape == (96, 128, 3)
@@ -387,7 +389,7 @@ def test_reload_hot_swaps_weights(tmp_path):
             out2, CascadePredictor.from_checkpoints(*ck2, device="cpu").predict(
                 img[None, ..., None])[0])
         assert not np.array_equal(out1, out2)
-        assert srv.tiled.sr_model is srv.batcher.predictor.sr_model
+        assert srv.tiled is srv.batcher.predictor
         np.testing.assert_array_equal(post_png(port, img, "/predict_scene")[2], out2)
         h = get_json(port, "/healthz")
         assert h["netGA"] == ck2[0] and h["netGB"] == ck2[1]
