@@ -92,12 +92,21 @@ def graph_ms(calls, reps: int = 15, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def whole_session(events, calls: int) -> bool:
+    """Whether a profiler session over ``calls`` calls kept every kernel's
+    record: it holds device entries, and each kernel ran a whole number of
+    times a call (every ``fn`` timed here launches the same kernels on each
+    call once warm, so a count such as 4 of 5 is a lost record)."""
+    return bool(events) and all(e.count % calls == 0 for e in events)
+
+
 def _device_events(fn, calls: int, tries: int = 3) -> list:
     """torch.profiler's device entries over ``calls`` calls of ``fn`` (after
     one that builds and warms it).  Now and then a session records no device
     activity at all, not even a plain PyTorch kernel's (seen on an H100 after
-    many sessions in one process); such a session is taken again, up to
-    ``tries`` sessions, and its empty list returned only after the last."""
+    many sessions in one process), or loses one kernel's record (4 launches
+    of 5 calls, seen on an H100); such a session is taken again, up to
+    ``tries`` sessions, and the last one's entries returned as they are."""
     from torch import profiler
 
     fn()
@@ -105,12 +114,13 @@ def _device_events(fn, calls: int, tries: int = 3) -> list:
     for _ in range(tries):
         with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
                                           profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
+        if whole_session(events, calls):
             break
     return events
 

@@ -268,6 +268,20 @@ def test_entry_points_print_a_table_on_the_cpu(sweep, lines, capsys):
     assert not any("FLOP/s" in line or "GB/s" in line for line in out)
 
 
+@pytest.mark.parametrize("counts,whole", [((), False), ((5,), True), ((5, 10), True),
+                                          ((4,), False), ((5, 9), False)],
+                         ids=["empty", "one-a-call", "two-kernels", "lost-record", "one-lost"])
+def test_profiler_session_is_whole_only_with_every_record(counts, whole):
+    """A profiler session over 5 calls is taken again unless it holds device
+    entries and each kernel ran a whole number of times a call."""
+    from types import SimpleNamespace
+
+    from srcgan_tpu_torch.probes import common
+
+    events = [SimpleNamespace(key=f"k{i}", count=n) for i, n in enumerate(counts)]
+    assert common.whole_session(events, 5) is whole
+
+
 def test_entry_points_raise_without_a_card(monkeypatch, capsys):
     """The default device is the card: without one the error names --device cpu."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
