@@ -152,8 +152,39 @@ Phases, in order; the first failure raises and the script exits non-zero:
                ms against the predictor with its kernels; (e) cli.test_cas
                --self-ensemble (RDDBNet x2 + ResDeconv, 8 pairs of 256^2,
                batch 4, fp32): one ssim launch per batch, a finite row.
+ 16. distill - distillation and the perceptual term: the serve cascade saved as
+               a checkpoint pair is the teacher of DistillTrainer.from_checkpoints
+               (alpha 0.5, student ESPCN x4 + a fresh ResDeconv, bf16,
+               fused_input): 10 steps at batch 8 of 512^2 uint8 targets (the
+               teacher's trunk at the serving shape), each launching rdb5_bf16
+               9 times, tail_x4's main kernel and finish once each and
+               gray_degrade once, the losses finite and falling, the peak
+               memory; the step's ms in turns with the plain CasTrainer step and
+               the teacher's share of its device time (profiler); alpha=1 bit-
+               equal to the CasTrainer step (cuDNN deterministic); one fp32
+               distill step on the card against the CPU (phase 8's bounds, the
+               step after a warm-up step of the card's, both sides from its
+               state, as phase 12 does); CasTrainer with random VGG16 weights:
+               3 bf16 steps at phase 8's shape and its fp32 step against the
+               CPU, likewise; cli.convert_vgg on a
+               torchvision-layout .pth written here; cli.train_cas
+               --distill-netGA/--distill-netGB for one epoch, then cli.test_cas
+               on the student: one ssim launch per batch, the row within 0.01
+               dB / 1e-4 SSIM of --device cpu.
+ 17. axis    - the data axis over an NCCL process group of world size 1 (the
+               run has one card: no scaling is read here; the two-rank
+               arithmetic is held against the JAX package's 2-device mesh by
+               tests/test_torch_parallel.py on the CPU): at phase 8's slice
+               (bf16, fused_input, batch 8 of 256^2), make_cas_dp_step and
+               make_cas_dp_steps_u8 (K=2, two gray_degrade launches) bit-equal
+               to the plain steps (cuDNN deterministic), the ZeRO-1 and FSDP
+               updates within rel-L2 1e-6 of the plain step's; the CycleGAN's
+               make_gd_zero1_step against gd_step (fp32, 128^2) likewise; a
+               torch.distributed.checkpoint save and restore of a ZeRO-1 and an
+               FSDP state, bit-equal, with their seconds; the world-1 DP step's
+               ms in turns with the plain step.
 Then one JSON line of kernel results (with each kernel's launches on the
-paths of phases 13, 14 and 15), the nvidia-smi line, and last
+paths of phases 13 to 17), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Weights are random, from fixed seeds.
 """
 from __future__ import annotations
@@ -647,24 +678,46 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
 
-def phase_train_fp32(dev):
+def cas_match(dst, src):
+    """``dst`` (a CasState) holding ``src``'s parameters, buffers and Adam
+    state (copied first: see ``gan_match``), for the next step of both."""
+    for r in ("sr", "c"):
+        getattr(dst, r).model.load_state_dict(getattr(src, r).model.state_dict())
+        getattr(dst, r).opt.load_state_dict(copy.deepcopy(getattr(src, r).opt.state_dict()))
+    return dst._replace(sr=dst.sr._replace(step=src.sr.step), c=dst.c._replace(step=src.c.step))
+
+
+def phase_train_fp32(dev, make=None, tag="train", warmup=False):
     """One fp32 fused-input uint8 step (TF32 off) on the card against the
     CPU, batch 2 of 64^2: losses within rtol 1e-4; every tensor's gradient,
     and each network's Adam update, within rel-L2 5e-2 (the fp32 envelope of
     L1 gradients across backends, tests/test_training_dynamics.py).  A
     tensor's own first Adam update is lr * g / (|g| + eps), about +-lr per
     element, so one sign flip of a near-zero gradient in a 64-element
-    GroupNorm bias moves it by rel-L2 0.25: that number is printed, not bound."""
+    GroupNorm bias moves it by rel-L2 0.25: that number is printed, not bound.
+    ``make(device)`` builds the trainer (default: the training slice's).
+    ``warmup``: the card first takes one step alone and the CPU's state
+    becomes a copy of the card's (parameters, Adam's moments and count);
+    the step compared is the second, from that one point, where Adam's
+    update no longer is the sign of each gradient element (phase 12's
+    procedure): for losses with more near-zero gradient elements, as
+    distillation's blend of two L1 terms."""
     from srcgan_tpu_torch import config
 
+    make = make or (lambda where: slice_trainer(where, fused_input=True))
     rng = np.random.default_rng(6)
     src, tar = (torch.from_numpy(rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8))
                 for _ in range(2))
     runs = []
     with config.precision("fp32"):
+        trainers = {where: make(where) for where in ("cpu", dev)}
+        states = {where: t.init(3) for where, t in trainers.items()}
+        if warmup:
+            states[dev], _ = trainers[dev].train_step_u8(states[dev], src.to(dev), tar.to(dev),
+                                                         TRAIN_LR)
+            states["cpu"] = cas_match(states["cpu"], states[dev])
         for where in ("cpu", dev):
-            tr = slice_trainer(where, fused_input=True)
-            state = tr.init(3)
+            tr, state = trainers[where], states[where]
             before = {r: {n: p.detach().cpu().clone() for n, p in
                           getattr(state, r).model.named_parameters()} for r in ("sr", "c")}
             real_a, real_b, pre = tr._u8_inputs(src.to(where), tar.to(where))
@@ -685,13 +738,14 @@ def phase_train_fp32(dev):
     upd_err, upd_at = max((rel_l2(d_card[r][n], d_cpu[r][n]), f"{r}.{n}")
                           for r in d_cpu for n in d_cpu[r])
     ok = loss_err <= 1e-4 and grad_err <= 5e-2 and net_err <= 5e-2
-    print(f"[train] fp32 step card vs CPU (batch 2, 64^2, TF32 off): losses "
+    print(f"[{tag}] fp32 step card vs CPU (batch 2, 64^2, TF32 off"
+          f"{', the second from the card state' if warmup else ''}): losses "
           f"{m_card['loss_SR']:.6f}/{m_card['loss_C']:.6f} vs {m_cpu['loss_SR']:.6f}/"
           f"{m_cpu['loss_C']:.6f}, max rel {loss_err:.2e} (bound 1e-4); max per-tensor "
           f"gradient rel-L2 {grad_err:.2e} at {grad_at} (bound 5e-2); per-network update "
           f"rel-L2 {net_err:.2e} (bound 5e-2); max per-tensor update rel-L2 {upd_err:.2e} "
           f"at {upd_at} (not bound) {'PASS' if ok else 'FAIL'}")
-    check(ok, "the fp32 train step on the card disagrees with the CPU")
+    check(ok, f"the fp32 {tag} step on the card disagrees with the CPU")
 
 
 def phase_train(dev, card: str) -> int:
@@ -2796,6 +2850,368 @@ def phase_serve_extras(dev, card: str) -> dict:
     return counts
 
 
+# The distillation slice: the serve cascade as teacher, ESPCN x4 + a fresh
+# ResDeconv as student, batch 8 of 512^2 uint8 targets (the teacher's trunk at
+# the serving shape (8,128,128,64)).
+DISTILL_HW, DISTILL_STEPS, DISTILL_REPS, DISTILL_ALPHA = 512, 10, 5, 0.5
+DISTILL_TRAIN, DISTILL_TEST, DISTILL_EVAL_HW = 16, 8, 256
+
+
+def save_teacher(sr, c, directory: str):
+    """The serve cascade as a name-encoded checkpoint pair (RDDBNet x4 +
+    ResDeconv); returns the two paths."""
+    from srcgan_tpu_torch import interop
+    from srcgan_tpu_torch.train.state import checkpoint_name, save_params
+
+    net_a = os.path.join(directory, checkpoint_name("RDDBNet", "A2C", 4, 1))
+    net_b = os.path.join(directory, checkpoint_name("ResDeconv", "C2B", 4, 1))
+    save_params(net_a, interop.jax_tree_from_module(sr)[0])
+    save_params(net_b, interop.jax_tree_from_module(c)[0])
+    return net_a, net_b
+
+
+def distill_trainer(dev, teacher, **kw):
+    from srcgan_tpu_torch.train.distill import DistillTrainer
+
+    return DistillTrainer.from_checkpoints(*teacher, alpha=kw.pop("alpha", DISTILL_ALPHA),
+                                           sr_model="ESPCN", c_model="ResDeconv", up=4,
+                                           lr=TRAIN_LR, device=dev, **kw)
+
+
+def device_busy_ms(fn) -> float:
+    """Device time of one call of ``fn``: the sum of its kernels' own times
+    (profiler)."""
+    from torch import profiler
+
+    torch.cuda.synchronize()
+    with profiler.profile(activities=[profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms, for comparisons that must be bit-equal
+    (a nondeterministic backward sums in another order on each call)."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def phase_distill(dev, card: str) -> dict:
+    """Phase 16, distillation and the perceptual term (see the module
+    docstring).  Returns the launch counts of the distill steps and of
+    test_cas on the student."""
+    import time
+
+    from srcgan_tpu_torch import data, losses_vgg
+    from srcgan_tpu_torch.cli import convert_vgg, test_cas, train_cas
+    from srcgan_tpu_torch.ops.kernels import tail_kernel
+    from srcgan_tpu_torch.train.cas import CasTrainer
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_distill_") as tmp:
+        teacher = save_teacher(*cascade(torch.Generator().manual_seed(1)), tmp)
+
+        # (a) the slice's path: 10 bf16 fused-input distill steps at batch 8 of 512^2
+        rng = np.random.default_rng(40)
+        shape = (TRAIN_BATCH, DISTILL_HW, DISTILL_HW, 3)
+        src, tar = (torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+                    for _ in range(2))
+        tr = distill_trainer(dev, teacher, act_dtype=torch.bfloat16, fused_input=True)
+        state = tr.init(41)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        metrics = []
+        for _ in range(DISTILL_STEPS):
+            state, m = tr.train_step_u8(state, src, tar, TRAIN_LR)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        counts = kernel_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = {"rdb5_bf16": 9 * DISTILL_STEPS, "gray_degrade": DISTILL_STEPS,
+                "tail_x4": 2 * DISTILL_STEPS, "ssim": 0, "rdb5_int8": 0, "probes": 0}
+        print(f"[distill] {DISTILL_STEPS} bf16 fused-input DistillTrainer steps (alpha "
+              f"{DISTILL_ALPHA}, teacher RDDBNet x4 nf 64 nb 3 + ResDeconv, student ESPCN x4 + "
+              f"ResDeconv, batch {TRAIN_BATCH} of {DISTILL_HW}^2, remat off): launches {counts} "
+              f"(main {tail_kernel.launches}, finish {tail_kernel.finish_launches}); peak "
+              f"{peak:.3f} GiB")
+        check(counts == want and tail_kernel.launches == DISTILL_STEPS,
+              f"a distill step did not launch 9 rdb5_bf16, 1 + 1 tail_x4 and 1 gray_degrade: "
+              f"{counts}")
+        loss = {k: [float(m[k]) for m in metrics] for k in ("loss_SR", "loss_C")}
+        finite = all(math.isfinite(v) for vs in loss.values() for v in vs)
+        falls = all(vs[-1] < vs[0] for vs in loss.values())
+        print(f"[distill] loss_SR {loss['loss_SR'][0]:.5f} -> {loss['loss_SR'][-1]:.5f}, "
+              f"loss_C {loss['loss_C'][0]:.5f} -> {loss['loss_C'][-1]:.5f}; finite {finite}, "
+              f"both fall {falls} {'PASS' if finite and falls else 'FAIL'}")
+        check(finite and falls, "distillation: a loss is not finite or does not fall")
+
+        # (b) the step's ms in turns with the plain CasTrainer step; the teacher's device share
+        plain = CasTrainer("ESPCN", "ResDeconv", up=4, lr=TRAIN_LR, act_dtype=torch.bfloat16,
+                           fused_input=True, device=dev)
+        p_state = plain.init(41)
+        turns = in_turns_ms({"distill": lambda: tr.train_step_u8(state, src, tar, TRAIN_LR),
+                             "plain": lambda: plain.train_step_u8(p_state, src, tar,
+                                                                   TRAIN_LR)},
+                            rounds=2, reps=DISTILL_REPS)
+        real_bc, real_ba = tr._u8_inputs(src, tar)[2]
+        sr_in, c_in = real_ba.to(torch.bfloat16), real_bc.to(torch.bfloat16)
+        step_busy = device_busy_ms(lambda: tr.train_step_u8(state, src, tar, TRAIN_LR))
+        teacher_busy = device_busy_ms(lambda: tr._distill_targets(sr_in, c_in))
+        ms = {k: statistics.median(v) for k, v in turns.items()}
+        print(f"[distill] bf16 step, batch {TRAIN_BATCH} of {DISTILL_HW}^2 on {card}: distill "
+              f"{' / '.join(f'{v:.3f}' for v in turns['distill'])} ms, plain CasTrainer "
+              f"{' / '.join(f'{v:.3f}' for v in turns['plain'])} ms (in turns, median of "
+              f"{DISTILL_REPS}); +{ms['distill'] - ms['plain']:.3f} ms for the teacher; device "
+              f"busy {step_busy:.3f} ms a step, of which the teacher's forward {teacher_busy:.3f}"
+              f" ms = {100 * teacher_busy / step_busy:.1f}% (profiler)")
+        check(step_busy > 0 and teacher_busy > 0, "the profiler saw no device time")
+        del state, tr, plain, p_state
+        torch.cuda.empty_cache()
+
+        # (c) alpha = 1 is the CasTrainer step, bit for bit, on the card
+        s_u8, t_u8 = (torch.from_numpy(rng.integers(0, 256, (2, 128, 128, 3), dtype=np.uint8))
+                      .to(dev) for _ in range(2))
+        with deterministic_cudnn():
+            runs = []
+            for t in (distill_trainer(dev, teacher, alpha=1.0, act_dtype=torch.bfloat16,
+                                      fused_input=True),
+                      CasTrainer("ESPCN", "ResDeconv", up=4, lr=TRAIN_LR,
+                                 act_dtype=torch.bfloat16, fused_input=True, device=dev)):
+                st = t.init(42)
+                st, m = t.train_step_u8(st, s_u8, t_u8, TRAIN_LR)
+                runs.append(([p.detach().clone() for r in ("sr", "c")
+                              for p in getattr(st, r).model.parameters()], m))
+        same = (all(torch.equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+                and all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in runs[0][1]))
+        print(f"[distill] alpha=1 step bit-equal to CasTrainer's on the card (cuDNN "
+              f"deterministic): {'PASS' if same else 'FAIL'}")
+        check(same, "the alpha=1 distill step differs from the CasTrainer step")
+
+        # (d) one fp32 distill step (TF32 off) on the card against the CPU, phase 8's bounds
+        phase_train_fp32(dev, lambda where: distill_trainer(where, teacher, fused_input=True),
+                         tag="distill", warmup=True)
+
+        # (e) the perceptual term: 3 bf16 steps at phase 8's shape, and its fp32 step vs the CPU
+        vgg = losses_vgg.init_vgg_params(torch.Generator().manual_seed(0))
+        ptr = slice_trainer(dev, act_dtype=torch.bfloat16, fused_input=True,
+                            perceptual_params=vgg)
+        pst = ptr.init(43)
+        ps, pt = (torch.from_numpy(rng.integers(0, 256, (TRAIN_BATCH, TRAIN_HW, TRAIN_HW, 3),
+                                                dtype=np.uint8)).to(dev) for _ in range(2))
+        pm = []
+        for _ in range(3):
+            pst, m = ptr.train_step_u8(pst, ps, pt, TRAIN_LR)
+            pm.append({k: float(v) for k, v in m.items()})
+        check(all(math.isfinite(v) for m in pm for v in m.values()),
+              "a perceptual step's metrics are not finite")
+        print(f"[perceptual] 3 bf16 CasTrainer steps with random VGG16 weights (batch "
+              f"{TRAIN_BATCH} of {TRAIN_HW}^2): loss_SR {pm[0]['loss_SR']:.5f} -> "
+              f"{pm[-1]['loss_SR']:.5f}, loss_C {pm[0]['loss_C']:.5f} -> {pm[-1]['loss_C']:.5f}, "
+              f"finite PASS")
+        del ptr, pst
+        phase_train_fp32(dev, lambda where: slice_trainer(
+            where, fused_input=True, perceptual_params=vgg), tag="perceptual", warmup=True)
+
+        # (f) cli.convert_vgg on a torchvision-layout .pth written here
+        g = torch.Generator().manual_seed(44)
+        sd, cin = {}, 3
+        for idx, kind, cout in losses_vgg._features_plan(losses_vgg.VGG16_CFG):
+            if kind == "conv":
+                sd[f"features.{idx}.weight"] = torch.randn(cout, cin, 3, 3, generator=g)
+                sd[f"features.{idx}.bias"] = torch.randn(cout, generator=g)
+                cin = cout
+        torch.save(sd, os.path.join(tmp, "vgg16.pth"))
+        n = convert_vgg.convert(os.path.join(tmp, "vgg16.pth"), os.path.join(tmp, "vgg16.npz"))
+        back = losses_vgg.load_vgg_params(os.path.join(tmp, "vgg16.npz"))
+        same = n == 26 and all(torch.equal(p["w"], sd[f"features.{i}.weight"])
+                               and torch.equal(p["b"], sd[f"features.{i}.bias"])
+                               for i, p in back.items())
+        print(f"[perceptual] cli.convert_vgg: {n} arrays, load_vgg_params gives the .pth's "
+              f"tensors {'PASS' if same else 'FAIL'}")
+        check(same, "convert_vgg's .npz does not hold the .pth's weights")
+
+        # (g) cli.train_cas --distill-* for one epoch, then cli.test_cas on the student
+        data_dir = os.path.join(tmp, "data")
+        data.make_synthetic_dataset(os.path.join(data_dir, "Sat2Aerx1"), n_train=DISTILL_TRAIN,
+                                    n_val=1, n_test=DISTILL_TEST, size=DISTILL_EVAL_HW, seed=0,
+                                    colorizable=True)
+        ck = os.path.join(tmp, "student")
+        state = train_cas.main(["--data-dir", data_dir, "--SRModel", "ESPCN", "--CModel",
+                                "ResDeconv", "--up", "4", "--batch-size", str(EVAL_BATCH),
+                                "--bf16-acts", "--num-epochs", "1", "--save-every", "1",
+                                "--log-every", "2", "--checkpoints", ck, "--run-dir",
+                                os.path.join(tmp, "run"), "--distill-netGA", teacher[0],
+                                "--distill-netGB", teacher[1]])
+        check(state.sr.step == DISTILL_TRAIN // EVAL_BATCH, "train_cas --distill steps")
+        net_a = os.path.join(ck, "ESPCN_A2C_x4_0001.npz")
+        net_b = os.path.join(ck, "ResDeconv_C2B_x4_0001.npz")
+        print()
+
+        def evaluate(result, *extra):
+            return test_cas.main(["--netGA", net_a, "--netGB", net_b, "--data-dir", data_dir,
+                                  "--result-dir", os.path.join(tmp, result), "--batch-size",
+                                  str(EVAL_BATCH), "--precision", "highest", *extra])
+
+        reset_launches()
+        on_card = evaluate("result")
+        eval_counts = kernel_launches()
+        n_batches = -(-DISTILL_TEST // EVAL_BATCH)
+        on_cpu = evaluate("result_cpu", "--device", "cpu")
+        d_psnr = abs(on_card["PSNR"] - on_cpu["PSNR"])
+        d_ssim = abs(on_card["SSIM"] - on_cpu["SSIM"])
+        ok = (eval_counts["ssim"] == n_batches and d_psnr <= 0.01 and d_ssim <= 1e-4
+              and on_card["images"] == DISTILL_TEST)
+        print(f"[distill] cli.train_cas --distill-netGA/--distill-netGB, one epoch of "
+              f"{DISTILL_TRAIN} pairs of {DISTILL_EVAL_HW}^2, then cli.test_cas on the student "
+              f"(batch {EVAL_BATCH}, fp32): launches {eval_counts} for {n_batches} batches; PSNR "
+              f"{on_card['PSNR']:.5f} vs CPU {on_cpu['PSNR']:.5f} (|d| {d_psnr:.2e}, bound 0.01),"
+              f" SSIM {on_card['SSIM']:.6f} vs {on_cpu['SSIM']:.6f} (|d| {d_ssim:.2e}, bound "
+              f"1e-4) {'PASS' if ok else 'FAIL'}")
+        check(ok, "test_cas on the distilled student: ssim launches or the row vs the CPU")
+    print(f"[distill] phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"distill": counts, "distill_eval": eval_counts}
+
+
+# The data axis on one card: the training slice's step, world size 1.
+AXIS_REPS = 10
+
+
+def phase_data_axis(dev, card: str) -> dict:
+    """Phase 17, the data axis over an NCCL process group of world size 1
+    (see the module docstring).  One card shows no scaling: the two-rank
+    arithmetic is held against the JAX package's 2-device mesh by the CPU
+    tests (tests/test_torch_parallel.py, gloo).  Returns the launch counts
+    of the data-parallel steps."""
+    import time
+
+    from srcgan_tpu_torch import config, parallel
+    from srcgan_tpu_torch.train.cyclegan import CycleGANTrainer
+    from srcgan_tpu_torch.train.orbax_io import OrbaxCheckpointer
+
+    t_phase = time.perf_counter()
+    mesh = parallel.make_mesh((1,), ("data",))
+    check(mesh.backend == "nccl" and mesh.device == dev, f"the mesh: {mesh}")
+    rng = np.random.default_rng(50)
+    shape = (TRAIN_BATCH, TRAIN_HW, TRAIN_HW, 3)
+    src, tar = (torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+                for _ in range(2))
+    tr = slice_trainer(dev, act_dtype=torch.bfloat16, fused_input=True)
+    real_a, real_b, _ = tr._u8_inputs(src, tar)
+
+    def params(state):
+        return torch.cat([p.detach().reshape(-1).float() for r in ("sr", "c")
+                          for p in getattr(state, r).model.parameters()])
+
+    start = params(tr.init(51))
+    try:
+        with deterministic_cudnn():
+            plain, _ = tr.train_step(tr.init(51), real_a, real_b, TRAIN_LR)
+            want = params(plain)
+            dp, _ = parallel.make_cas_dp_step(tr, mesh)(
+                parallel.put_replicated(tr.init(51), mesh), real_a, real_b, TRAIN_LR)
+            dp_same = torch.equal(params(dp), want)
+            k_plain, _ = tr.train_steps_u8(tr.init(51), src[None].expand(2, *shape),
+                                           tar[None].expand(2, *shape), TRAIN_LR)
+            reset_launches()
+            k_dp, _ = parallel.make_cas_dp_steps_u8(tr, mesh)(
+                parallel.put_replicated(tr.init(51), mesh), src[None].expand(2, *shape),
+                tar[None].expand(2, *shape), TRAIN_LR)
+            torch.cuda.synchronize()
+            counts = kernel_launches()
+            u8_same = torch.equal(params(k_dp), params(k_plain))
+            rel = {}
+            z, _ = parallel.make_cas_zero1_step(tr, mesh)(parallel.zero1_init(tr, 51, mesh),
+                                                          real_a, real_b, TRAIN_LR)
+            rel["zero1"] = rel_l2(params(z) - start, want - start)
+            f, _ = parallel.make_cas_fsdp_step(tr, mesh)(parallel.fsdp_init(tr, 51, mesh)[0],
+                                                         real_a, real_b, TRAIN_LR)
+            with parallel.gathered(f):
+                rel["fsdp"] = rel_l2(params(f) - start, want - start)
+        print(f"[data-axis] NCCL world 1 on {dev}: make_cas_dp_step bit-equal to the plain "
+              f"step {dp_same}; make_cas_dp_steps_u8 (K=2, fused_input) bit-equal to "
+              f"train_steps_u8 {u8_same}, launches {counts}; updates against the plain step's: "
+              f"ZeRO-1 rel-L2 {rel['zero1']:.2e}, FSDP {rel['fsdp']:.2e} (bound 1e-6) "
+              f"{'PASS' if dp_same and u8_same and max(rel.values()) <= 1e-6 else 'FAIL'}")
+        check(dp_same and u8_same, "a world-1 DP step is not bit-equal to the plain step")
+        check(counts["gray_degrade"] == 2, "the DP uint8 steps missed the gray_degrade kernel")
+        check(max(rel.values()) <= 1e-6, "a ZeRO-1 / FSDP update strays from the plain step's")
+
+        # the GAN's ZeRO-1 fused G+D iteration against gd_step, fp32 (TF32 off), 128^2
+        with config.precision("fp32"), deterministic_cudnn():
+            gtr = CycleGANTrainer(pool_size=0, device=dev)
+            ga = torch.from_numpy(rng.uniform(0, 1, (2, GAN_CHECK_HW // 2, GAN_CHECK_HW // 2, 3))
+                                  .astype(np.float32)).to(dev)
+            gb = torch.from_numpy(rng.uniform(0, 1, (2, GAN_CHECK_HW, GAN_CHECK_HW, 3))
+                                  .astype(np.float32)).to(dev)
+
+            def gan_params(st):
+                return torch.cat([p.detach().reshape(-1) for r in ("g", "d")
+                                  for p in getattr(st, r).model.parameters()])
+
+            g0 = gan_params(gtr.init(52))
+            ref, _ = gtr.gd_step(gtr.init(52), ga, gb, 1e-4, 1e-5)
+            zg, _ = parallel.make_gd_zero1_step(gtr, mesh)(
+                parallel.zero1_gd_from_state(gtr.init(52), mesh), ga, gb, 1e-4, 1e-5)
+            g_rel = rel_l2(gan_params(zg) - g0, gan_params(ref) - g0)
+        print(f"[data-axis] make_gd_zero1_step (CycleGAN net='1', batch 2 of {GAN_CHECK_HW}^2, "
+              f"fp32) against gd_step: update rel-L2 {g_rel:.2e} (bound 1e-6) "
+              f"{'PASS' if g_rel <= 1e-6 else 'FAIL'}")
+        check(g_rel <= 1e-6, "the GAN ZeRO-1 update strays from gd_step's")
+        del gtr, ref, zg
+
+        # torch.distributed.checkpoint: a ZeRO-1 and an FSDP state, saved and restored
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dcp_") as tmp:
+            secs = {}
+            for name, state, fresh in (("zero1", z, lambda: parallel.zero1_init(tr, 53, mesh)),
+                                       ("fsdp", f, lambda: parallel.fsdp_init(tr, 53, mesh)[0])):
+                ck = OrbaxCheckpointer(os.path.join(tmp, name), max_to_keep=1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ck.save(1, state, {"epoch": 1})
+                secs[f"{name} save"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                like, extra = ck.restore(fresh())
+                torch.cuda.synchronize()
+                secs[f"{name} restore"] = time.perf_counter() - t0
+                a, b = parallel.fsdp_full_params(state), parallel.fsdp_full_params(like)
+                same = (extra == {"epoch": 1} and all(torch.equal(a[r][k], b[r][k])
+                                                      for r in a for k in a[r])
+                        and all(torch.equal(x, y) for t1, t2 in zip(state, like)
+                                for x, y in zip(t1.opt.moments()[:2], t2.opt.moments()[:2])))
+                check(same, f"the {name} state does not restore bit-equal")
+        nbytes = sum(p.numel() for r in ("sr", "c") for p in getattr(tr.init(0), r)
+                     .model.parameters()) * 4
+        print(f"[data-axis] torch.distributed.checkpoint round trip bit-equal (parameters, "
+              f"both moments): " + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
+              + f" ({nbytes / 2 ** 20:.1f} MiB of parameters, x3 with the moments) PASS")
+        del z, f
+
+        # the world-1 DP step's ms in turns with the plain step
+        st_p = tr.init(54)
+        st_d = parallel.put_replicated(tr.init(54), mesh)
+        dp_step = parallel.make_cas_dp_step(tr, mesh)
+        turns = in_turns_ms({"plain": lambda: tr.train_step(st_p, real_a, real_b, TRAIN_LR),
+                             "dp": lambda: dp_step(st_d, real_a, real_b, TRAIN_LR)},
+                            rounds=2, reps=AXIS_REPS)
+        print(f"[data-axis] bf16 step, batch {TRAIN_BATCH} of {TRAIN_HW}^2 on {card}: plain "
+              f"{' / '.join(f'{v:.3f}' for v in turns['plain'])} ms, world-1 DP (one NCCL "
+              f"all-reduce of the gradients, model states and metrics) "
+              f"{' / '.join(f'{v:.3f}' for v in turns['dp'])} ms (in turns, median of "
+              f"{AXIS_REPS})")
+    finally:
+        parallel.destroy_mesh()
+    print(f"[data-axis] phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script runs "
@@ -2839,6 +3255,8 @@ def main() -> int:
     mt = phase_multitask(dev, where)
     zoo, zoo_eval = phase_zoo(dev, where)
     extras = phase_serve_extras(dev, where)
+    extras.update(phase_distill(dev, where))
+    extras["data_axis"] = phase_data_axis(dev, where)
     for entry, key in ((tail, "tail_x4"), (gray, "gray_degrade"), (ssim, "ssim"),
                        (rdb5_bf16, "rdb5_bf16"), (rdb5_int8, "rdb5_int8"),
                        *((p, "probes") for p in probes)):

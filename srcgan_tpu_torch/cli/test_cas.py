@@ -18,7 +18,12 @@ The protocol:
     L (+) ab converted to RGB;
   - with --self-ensemble both domains' (SR, colorized) pairs are the x8
     dihedral self-ensemble (``ops.ensemble``): every D4 copy of a batch in one
-    forward, inverted and averaged.
+    forward, inverted and averaged;
+  - with --mesh-size N each batch (rounded up to a multiple of N and padded
+    with copies of its last row) is split over N ranks (``parallel.mesh``:
+    the tool spawns them, one card each, or all on the CPU with --device
+    cpu); rank 0 gathers the outputs and metrics and writes the same PNGs
+    and Performs.csv row as one process.
 
 Runs on the card unless ``--device cpu`` is given.
 """
@@ -44,8 +49,9 @@ def build_parser():
     p.add_argument("--result-dir", type=str, default="./result")
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--mesh-size", type=int, default=None,
-                   help="data-parallel eval over N devices: not ported yet "
-                        "(ROADMAP A14); exits")
+                   help="data-parallel eval over N ranks (one card each, or the "
+                        "CPU with --device cpu); the batch size is raised to a "
+                        "multiple of N")
     p.add_argument("--self-ensemble", action="store_true",
                    help="geometric self-ensemble (x8 dihedral TTA, the 'EDSR+' "
                         "protocol): run every D4 transform of each input as one "
@@ -62,13 +68,6 @@ def build_parser():
                    help="where to run: the card by default (an error without "
                         "one); 'cpu' to run on the CPU")
     return p
-
-
-def _refuse_unported(args) -> None:
-    """Exit, before any work, on a flag whose machinery is still to be ported."""
-    if args.mesh_size:
-        sys.exit("--mesh-size: the data-parallel eval comes with the parallel "
-                 "stack (ROADMAP A14)")
 
 
 def load_cascade(netGA: str, netGB: str, device, dtype):
@@ -169,8 +168,12 @@ def format_row(row: dict) -> str:
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
+    from srcgan_tpu_torch.parallel import mesh as mesh_lib
+    if mesh_lib.spawned_by_tool(args.mesh_size or 0):
+        return mesh_lib.launch("srcgan_tpu_torch.cli.test_cas:main", argv, args.mesh_size,
+                               args.device)
 
     import torch
 
@@ -180,7 +183,19 @@ def main(argv=None):
     from srcgan_tpu_torch.ops import color
     from srcgan_tpu_torch.utils import vis
 
-    device = config.resolve_device(args.device)
+    mesh = None
+    if args.mesh_size:
+        mesh = mesh_lib.make_mesh((args.mesh_size,), ("data",), device=args.device)
+        if args.batch_size % args.mesh_size:
+            eff = -(-args.batch_size // args.mesh_size) * args.mesh_size
+            if mesh.is_main:
+                print(f"--mesh-size {args.mesh_size}: raising --batch-size "
+                      f"{args.batch_size} -> {eff} (a mesh multiple; per-sample "
+                      "metrics make this protocol-neutral, and without it every "
+                      "batch would be mostly discarded pad rows)")
+            args.batch_size = eff
+    main_rank = mesh is None or mesh.is_main
+    device = mesh.device if mesh is not None else config.resolve_device(args.device)
     mode = "bf16" if args.precision == "default" else "fp32"
     info_a, sr_net, c_net = load_cascade(args.netGA, args.netGB, device, config.DTYPES[mode])
     sf, lab = info_a["up"], info_a["ver"] == "G2LAB"
@@ -191,12 +206,18 @@ def main(argv=None):
     tag = "_".join([info_a["model"], f"x{sf}", f"{info_a['epoch']:04d}"])
     save_dir_a = os.path.join(args.result_dir, "A_" + tag)
     save_dir_b = os.path.join(args.result_dir, "B_" + tag)
-    os.makedirs(save_dir_a, exist_ok=True)
-    os.makedirs(save_dir_b, exist_ok=True)
+    if main_rank:
+        os.makedirs(save_dir_a, exist_ok=True)
+        os.makedirs(save_dir_b, exist_ok=True)
+
+    def gather(t):
+        """The global batch of a per-rank tensor (every rank's rows in order)."""
+        return t if mesh is None else mesh_lib.all_gather_batch(t, mesh)
 
     def to_u8(t):
-        """float NHWC batch -> uint8 on the host: clip, times 255, truncate."""
-        return (t.clamp(0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
+        """float NHWC batch -> uint8 on the host: clip, times 255, truncate
+        (the global batch under a mesh)."""
+        return gather((t.clamp(0.0, 1.0) * 255.0).to(torch.uint8)).cpu().numpy()
 
     run_ctx = contextlib.nullcontext
     if args.precision == "int8":
@@ -219,22 +240,34 @@ def main(argv=None):
     done = n_batches = 0
     encode_seconds = 0.0
     t_start = time.perf_counter()
-    # the indices stay on the host (a list passes through the staging as it is)
-    host_batches = ((src, tar, idxs.tolist())
-                    for src, tar, idxs in data.batches(testset, args.batch_size))
-    for src_u8, tar_u8, idxs in preprocess.device_put_iter(host_batches, device):
+
+    def host_batches():
+        """The host batches (this rank's shard of each, padded, under a mesh);
+        the indices stay on the host (a list passes the staging as it is)."""
+        for src, tar, idxs in data.batches(testset, args.batch_size):
+            if mesh is not None:
+                # pad rows only feed the ranks' programs; the loop below walks
+                # idxs, so they never reach Performs.csv or disk
+                src, tar = (mesh_lib.shard_of(mesh_lib.pad_batch_to(a, mesh.size)[0], mesh)
+                            for a in (src, tar))
+            yield src, tar, idxs.tolist()
+
+    for src_u8, tar_u8, idxs in preprocess.device_put_iter(host_batches(), device):
         real_a, real_b = preprocess.convert_pair(src_u8, tar_u8, info_a["ver"])
         with run_ctx():
             fake_ac, fake_ab, fake_bc, fake_bb = cascade(real_a, real_b)
         pred = torch.cat([fake_bc, fake_bb], dim=-1) if lab else fake_bb
         # one copy to the host for the four metrics of the batch
-        per_sample = torch.stack([fn(pred, real_b) for _, fn in ps_evals]).cpu().numpy()
+        per_sample = gather(torch.stack([fn(pred, real_b) for _, fn in ps_evals], 1)
+                            ).T.cpu().numpy()
         if lab:
             imgs_a = to_u8(color.lab_norm_to_rgb(torch.cat([fake_ac, fake_ab], dim=-1)))
             imgs_b = to_u8(color.lab_norm_to_rgb(pred))
         else:
             imgs_a, imgs_b = to_u8(fake_ab), to_u8(fake_bb)
         n_batches += 1
+        if not main_rank:
+            continue
         names = []
         for j, idx in enumerate(idxs):
             acc = ""
@@ -247,10 +280,12 @@ def main(argv=None):
             sys.stdout.write("\rGenerated %s (%04d / %04d) >> %s" %
                              (names[-1], done - 1, len(testset), acc))
         t_enc = time.perf_counter()
-        vis.save_png_batch([os.path.join(save_dir_a, n) for n in names], imgs_a)
-        vis.save_png_batch([os.path.join(save_dir_b, n) for n in names], imgs_b)
+        vis.save_png_batch([os.path.join(save_dir_a, n) for n in names], imgs_a[:len(names)])
+        vis.save_png_batch([os.path.join(save_dir_b, n) for n in names], imgs_b[:len(names)])
         encode_seconds += time.perf_counter() - t_enc
     seconds = time.perf_counter() - t_start
+    if not main_rank:
+        return None
     sys.stdout.write("\n")
 
     row = {"time": time.strftime("%h_%d"),

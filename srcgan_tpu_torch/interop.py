@@ -16,7 +16,8 @@ are constants no JAX tree holds sets ``jax_constant`` (the zoo's
 is its inverse: a port module (or any state_dict-shaped dict of its tensors,
 such as Adam's moments) -> the JAX parameter tree and model state, as numpy,
 which the JAX package's ``load_params`` reads.  ``quant_scales_from_jax``
-carries an int8 calibration table across.  The ``jax_constant`` tensors
+carries an int8 calibration table across, ``vgg_params_from_jax`` a set
+of VGG weights (``losses_vgg``).  The ``jax_constant`` tensors
 are in no JAX tree: ``state_dict_from_jax`` takes them from the module,
 ``jax_tree_from_module`` leaves them out; ``nn.PReLU``'s ``weight`` is the
 JAX ``alpha``.
@@ -182,3 +183,12 @@ def jax_tree_from_module(model: nn.Module, tensors: Optional[Dict[str, torch.Ten
             node = node.setdefault(part, {})
         node[path[-1]] = np.ascontiguousarray(a)
     return params, state
+
+
+def vgg_params_from_jax(params) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The port's VGG parameters (``losses_vgg``: OIHW weights) from the JAX
+    package's ``{idx: {"w": HWIO, "b"}}`` tree of arrays, copied to float32."""
+    return {str(idx): {"w": torch.from_numpy(np.array(p["w"], np.float32).transpose(3, 2, 0, 1)
+                                             .copy()),
+                       "b": torch.from_numpy(np.array(p["b"], np.float32))}
+            for idx, p in params.items()}

@@ -3,7 +3,7 @@
 Means over every element, as the JAX functions reduce: the cascade's L1 /
 MSE / PSNR, the batch losses of the multi-task family (``ce``, ``con``,
 ``cross``, ``focal``, ``nearest_select``, ``multi_task``), DSSIM and the GAN
-objectives.  The VGG perceptual loss waits for ROADMAP A13.
+objectives.  The VGG perceptual losses are ``losses_vgg``.
 
 ``dssim`` takes the plain SSIM (``metrics.ssim_reference``, differentiable)
 whenever a gradient is being recorded for one of its inputs: the ``ssim``

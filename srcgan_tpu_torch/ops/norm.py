@@ -6,8 +6,17 @@ state_dicts load), and call the functions on an NHWC view.  Whatever the
 activation dtype, statistics and the affine map run in fp32 (instance norm:
 in float64 for a float64 input) and the result is cast back, as the JAX
 package does.
+
+Inside ``sync_batch_norm()`` a train-mode batch norm takes its
+statistics over the batch of every rank of the process group (the data-parallel
+GAN steps: the JAX package's GSPMD step normalizes over the global batch).
+The ranks' means go through ``torch.distributed.nn.functional.all_reduce``,
+which carries the gradient across ranks; unlike ``nn.SyncBatchNorm`` it
+runs on any backend, gloo on the CPU included.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +46,50 @@ def instance_norm(x, scale=None, bias=None, eps: float = 1e-5):
     return to_nhwc(y).to(x.dtype)
 
 
+# Whether a sync_batch_norm scope is open: process-wide, not per thread,
+# because on the card the autograd engine recomputes a checkpointed pass in a
+# thread of its own, and that recompute must normalize as the forward did.
+_SYNCED = False
+
+
+@contextlib.contextmanager
+def sync_batch_norm():
+    """Scope: train-mode ``batch_norm`` takes global batch statistics over
+    the default process group."""
+    global _SYNCED
+    prev, _SYNCED = _SYNCED, True
+    try:
+        yield
+    finally:
+        _SYNCED = prev
+
+
+def _moments(xf, synced: bool = False):
+    """(mean, biased variance, element count) per channel of NCHW xf, as
+    mean((x - mean)^2); ``synced``: over every rank's batch (the ranks'
+    batches are of one size, so the global moments are the means of the
+    ranks' own), differentiable through the all-reduces.  On one rank the
+    two forms are the same arithmetic."""
+    if not synced:
+        mean = xf.mean(dim=(0, 2, 3))
+        d = xf - mean.view(1, -1, 1, 1)
+        return mean, (d * d).mean(dim=(0, 2, 3)), xf.numel() // xf.shape[1]
+    import warnings
+
+    import torch.distributed as dist
+    from torch.distributed.nn import functional as dist_fn
+
+    def avg(t):
+        with warnings.catch_warnings():     # torch 2.13 marks the module as deprecated
+            warnings.simplefilter("ignore", FutureWarning)
+            return dist_fn.all_reduce(t, op=dist.ReduceOp.AVG)
+
+    mean = avg(xf.mean(dim=(0, 2, 3)))
+    d = xf - mean.view(1, -1, 1, 1)
+    var = avg((d * d).mean(dim=(0, 2, 3)))
+    return mean, var, xf.numel() // xf.shape[1] * dist.get_world_size()
+
+
 def batch_norm(x, scale, bias, running_mean, running_var, *, train: bool,
                momentum: float = 0.1, eps: float = 1e-5):
     """BatchNorm2d over x (N,H,W,C).  Returns (y, new_mean, new_var).
@@ -51,9 +104,7 @@ def batch_norm(x, scale, bias, running_mean, running_var, *, train: bool,
         y = F.batch_norm(xf, running_mean.float(), running_var.float(), scale.float(),
                          bias.float(), training=False, eps=eps)
         return to_nhwc(y).to(x.dtype), running_mean, running_var
-    mean = xf.mean(dim=(0, 2, 3))
-    var = xf.var(dim=(0, 2, 3), unbiased=False)
-    count = xf.numel() // xf.shape[1]
+    mean, var, count = _moments(xf, _SYNCED)
     with torch.no_grad():
         unbiased = var * count / max(count - 1, 1)
         new_mean = (1 - momentum) * running_mean + momentum * mean

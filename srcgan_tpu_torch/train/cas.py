@@ -27,6 +27,10 @@ The math is the JAX trainer's; the form is PyTorch's:
 - **fused_input** routes the uint8 steps' gray + degrade through the
   sm_90a kernel (``ops.kernels.preprocess_kernel``) on a card, and through
   its plain version on the CPU.
+- **Loss hooks**: each stage's loss is ``_stage_loss(pred, target,
+  kd_target)`` (L1, plus the VGG16 perceptual term with
+  ``perceptual_params``), and ``_distill_targets(sr_in, c_in)`` gives the
+  ``kd_target``s, None here; ``train.distill.DistillTrainer`` overrides both.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ import torch
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from srcgan_tpu_torch import config, losses, models
+from srcgan_tpu_torch import config, losses, losses_vgg, models
 from srcgan_tpu_torch.data import preprocess
 from srcgan_tpu_torch.ops.conv import to_nchw, to_nhwc
 from srcgan_tpu_torch.ops.kernels import preprocess_kernel
@@ -86,9 +90,6 @@ class CasTrainer:
         if fused_input and (lab or const):
             raise ValueError("fused_input applies to the G2RGB non-const "
                              "uint8 input path only")
-        if perceptual_params is not None:
-            raise NotImplementedError("the VGG perceptual loss comes with "
-                                      "losses_vgg (ROADMAP A13)")
         self.sr_name, self.c_name = sr_model, c_model
         self.up, self.lr, self.const, self.lab = up, lr, const, lab
         self.lr_policy, self.num_epochs = lr_policy, num_epochs
@@ -96,6 +97,12 @@ class CasTrainer:
         self.act_dtype = act_dtype
         self.fused_input = fused_input
         self.device = config.resolve_device(device)
+        # the optional VGG16 perceptual term of both stage losses (RGB only):
+        # loss = L1 + perceptual_weight * vgg16_loss, the VGG weights frozen
+        self.perceptual_params = (None if perceptual_params is None else
+                                  {k: {n: t.to(self.device) for n, t in p.items()}
+                                   for k, p in perceptual_params.items()})
+        self.perceptual_weight = perceptual_weight
 
     # -- setup ---------------------------------------------------------------
 
@@ -150,10 +157,24 @@ class CasTrainer:
             return checkpoint(run, x, use_reentrant=False)
         return run(x)
 
-    def _stage_grads(self, net, x, target):
+    def _stage_loss(self, pred, target, kd_target):
+        """One stage's training loss.  A hook: ``DistillTrainer`` blends in
+        ``kd_target``, the frozen teacher's output, which is None here."""
+        loss = losses.l1(pred, target)
+        if self.perceptual_params is not None:
+            loss = loss + self.perceptual_weight * losses_vgg.vgg16_loss(
+                self.perceptual_params, pred, target)
+        return loss
+
+    def _distill_targets(self, sr_in, c_in):
+        """A hook: ``DistillTrainer`` returns the frozen teacher's outputs on
+        the stage inputs; the base trainer has no teacher."""
+        return None, None
+
+    def _stage_grads(self, net, x, target, kd_target=None):
         """(loss, fp32 output detached, grads by parameter name, model state)."""
         y, mstate = self._apply(net, x)
-        loss = losses.l1(y, target)
+        loss = self._stage_loss(y, target, kd_target)
         names, params = zip(*net.named_parameters())
         grads = dict(zip(names, torch.autograd.grad(loss, params)))
         return loss.detach(), y.detach(), grads, mstate
@@ -174,10 +195,11 @@ class CasTrainer:
         sr_in, c_in = real_BA, real_BC
         if self.act_dtype is not None:
             sr_in, c_in = sr_in.to(self.act_dtype), c_in.to(self.act_dtype)
+        kd_sr, kd_c = self._distill_targets(sr_in, c_in)
         # stage 1's backward runs before stage 2's forward: one stage's
         # activations are live at a time
-        loss_sr, fake_BC, g_sr, ms_sr = self._stage_grads(state.sr.model, sr_in, real_BC)
-        loss_c, fake_BB, g_c, ms_c = self._stage_grads(state.c.model, c_in, tgt_B)
+        loss_sr, fake_BC, g_sr, ms_sr = self._stage_grads(state.sr.model, sr_in, real_BC, kd_sr)
+        loss_c, fake_BB, g_c, ms_c = self._stage_grads(state.c.model, c_in, tgt_B, kd_c)
         metrics = {"loss_SR": loss_sr, "loss_C": loss_c,
                    "psnr_SR": losses.psnr(fake_BC, real_BC),
                    "psnr_C": losses.psnr(fake_BB, tgt_B)}

@@ -59,7 +59,7 @@ from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from srcgan_tpu_torch import config, losses, models
+from srcgan_tpu_torch import config, losses, losses_vgg, models
 from srcgan_tpu_torch.data import preprocess
 from srcgan_tpu_torch.models.blocks import set_trunk_remat
 from srcgan_tpu_torch.ops.conv import to_nchw, to_nhwc
@@ -137,6 +137,12 @@ class _GANTrainer:
     def lr_at_epoch(self, epoch: int) -> Tuple[float, float]:
         f = optim.reference_lr(self.lr_policy, 1.0, self.num_epochs, epoch)
         return self.lr * f, self.d_lr * f
+
+    def _update(self, ts: TrainState, grads: Dict[str, torch.Tensor], lr) -> TrainState:
+        """The Adam update of the G and D steps; the data-parallel wrappers
+        (``parallel.dp``, ``parallel.zero``) replace it on their copy of the
+        trainer to reduce the gradients first."""
+        return _adam_update(ts, grads, lr)
 
     def _tensor(self, x):
         return torch.as_tensor(x, device=self.device)
@@ -219,7 +225,7 @@ class _GANTrainer:
         """Discriminator update on pooled fakes; the BatchNorm state moves on."""
         grads, (l_da, l_db, bufs) = self.d_grads(state, realA, realB, fake_A_pooled,
                                                  fake_B_pooled)
-        d = _adam_update(state.d, grads, lr)
+        d = self._update(state.d, grads, lr)
         with torch.no_grad():
             for name, b in d.model.named_buffers():
                 b.copy_(bufs[name])
@@ -281,9 +287,6 @@ class CycleGANTrainer(_GANTrainer):
                  remat: bool = True, act_dtype=None,
                  perceptual_params=None, perceptual_weight: float = 1.0,
                  pack_passes: bool = False, *, device=None):
-        if perceptual_params is not None:
-            raise NotImplementedError("the VGG perceptual term comes with losses_vgg "
-                                      "(ROADMAP A13)")
         self.remat = remat
         # pack_passes batches the independent passes of the same generator
         # into one forward (6 passes -> 3); the generators are conv-only, so
@@ -298,12 +301,17 @@ class CycleGANTrainer(_GANTrainer):
         self.lambda_a, self.lambda_b = lambda_a, lambda_b
         self.gan_mode = gan_mode
         self.lr_policy, self.num_epochs = lr_policy, num_epochs
+        # the optional VGG16 perceptual term on the cycle reconstructions
+        self.perceptual_params = perceptual_params
         self.perceptual_weight = perceptual_weight
         self.fake_A_pool = ImagePool(pool_size)
         self.fake_B_pool = ImagePool(pool_size)
         # (b1, b2, eps) of both optimizers
         self.adam_hparams = (beta1, optim.ADAM_HPARAMS[1], optim.ADAM_HPARAMS[2])
         self.device = config.resolve_device(device)
+        if perceptual_params is not None:
+            self.perceptual_params = {k: {n: t.to(self.device) for n, t in p.items()}
+                                      for k, p in perceptual_params.items()}
         self._work = None            # (generators, their act_dtype working copy)
 
     # -- setup ---------------------------------------------------------------
@@ -403,6 +411,12 @@ class CycleGANTrainer(_GANTrainer):
             loss_iden_a = loss_iden_b = torch.zeros((), device=realA.device)
         loss_g = (loss_g_a + loss_g_b + loss_cycle_a + loss_cycle_b
                   + loss_iden_a + loss_iden_b)
+        if self.perceptual_params is not None:
+            f32 = torch.float32
+            loss_g = loss_g + self.perceptual_weight * (
+                losses_vgg.vgg16_loss(self.perceptual_params, recl_A.to(f32), realA.to(f32))
+                + losses_vgg.vgg16_loss(self.perceptual_params, recl_B.to(f32),
+                                        realB.to(f32)))
         grads = [g.float() if self.act_dtype is not None else g
                  for g in torch.autograd.grad(loss_g, params, allow_unused=True,
                                               materialize_grads=True)]
@@ -417,7 +431,7 @@ class CycleGANTrainer(_GANTrainer):
         """Generator update against frozen discriminators; aux carries the
         generated images for the pools."""
         grads, aux = self.g_grads(state, realA, realB)
-        return state._replace(g=_adam_update(state.g, grads, lr)), aux
+        return state._replace(g=self._update(state.g, grads, lr)), aux
 
     # -- one iteration, pool passing through ---------------------------------
 

@@ -40,8 +40,7 @@ from torch import nn
 
 from srcgan_tpu_torch import config, losses, models
 from srcgan_tpu_torch.train import optim
-from srcgan_tpu_torch.train.cyclegan import (Aux, CycleState, ImagePool, _adam_update,
-                                             _GANTrainer)
+from srcgan_tpu_torch.train.cyclegan import Aux, CycleState, ImagePool, _GANTrainer
 from srcgan_tpu_torch.train.state import TrainState
 
 
@@ -150,7 +149,7 @@ class MultiTaskTrainer(_GANTrainer):
     def g_step(self, state: CycleState, realA, realB, lr) -> Tuple[CycleState, Aux]:
         """Generator update (G_A, G_B, G_C) against frozen discriminators."""
         grads, aux = self.g_grads(state, realA, realB)
-        return state._replace(g=_adam_update(state.g, grads, lr)), aux
+        return state._replace(g=self._update(state.g, grads, lr)), aux
 
     # -- D step --------------------------------------------------------------
 

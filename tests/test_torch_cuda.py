@@ -5,8 +5,11 @@ and the eval tool through the ssim kernel, and the RDB5 kernel (both forms),
 the fused RDB5 schedule and the int8 predictor through it, the six probe
 kernels, the LAB predictor, the CycleGAN step and eval tool (one ssim
 launch per test image), the multi-task GAN step (no kernel), a full-width
-instance-norm generator's gradients, two zoo models' forwards, and the serve
-daemon's one predictor serving requests and scenes from two threads at once.
+instance-norm generator's gradients, two zoo models' forwards, the serve
+daemon's one predictor serving requests and scenes from two threads at once,
+a distillation step whose frozen teacher runs through the RDB5 and tail
+kernels, and the data-parallel, ZeRO-1 and FSDP steps over an NCCL group of
+one.
 
 Every test here needs a card (marker ``cuda``) and skips without one.  The
 file imports no jax, so it also runs where jax is not installed; there the
@@ -1377,3 +1380,65 @@ def test_daemon_predictors_serve_shared_modules_from_two_threads(dev, tmp_path):
         assert a.shape == (512, 512, 3) and np.array_equal(a, b)
     for a in outs[True]["scenes"]:
         assert a.shape == (1200, 1600, 3) and np.array_equal(a, outs[False]["scenes"][0])
+
+
+def test_distill_step_runs_the_teacher_through_the_kernels(dev):
+    """A bf16 fused-input DistillTrainer step on the card, 512^2 targets: the
+    frozen x4 teacher (RDDBNet nf 64, nb 1, gc 32; its trunk (1,128,128,64),
+    a width the kernel takes) runs its 3 RDB5 blocks through
+    ``rdb5_bf16`` and its tail through ``tail_x4`` (main + finish), the
+    gray + degrade once through ``gray_degrade``; the student's parameters
+    stay fp32, the teacher's bf16 with no gradient."""
+    from srcgan_tpu_torch.train.distill import DistillTrainer
+
+    g = torch.Generator().manual_seed(0)
+    tr = DistillTrainer(models.RDDBNet(1, 1, 4, nb=1, generator=g),
+                        models.ResDeconv(1, 3, generator=g), sr_model="ESPCN",
+                        c_model="SRCNN", up=4, act_dtype=torch.bfloat16, fused_input=True,
+                        device=dev)
+    state = tr.init(0)
+    before = (rdb5_kernel.launches_bf16, tail_kernel.launches, tail_kernel.finish_launches,
+              preprocess_kernel.launches)
+    for _ in range(2):
+        state, m = tr.train_step_u8(state, u8(5, (1, 512, 512, 3), dev),
+                                    u8(6, (1, 512, 512, 3), dev), 1e-4)
+    torch.cuda.synchronize()
+    after = (rdb5_kernel.launches_bf16, tail_kernel.launches, tail_kernel.finish_launches,
+             preprocess_kernel.launches)
+    assert [a - b for a, b in zip(after, before)] == [6, 2, 2, 2]
+    assert all(torch.isfinite(v) for v in m.values())
+    assert all(p.dtype == torch.float32 for p in state.sr.model.parameters())
+    assert all(p.dtype == torch.bfloat16 and not p.requires_grad
+               for p in tr.teacher_sr.parameters())
+
+
+def test_data_axis_world_one_over_nccl(dev):
+    """An NCCL group of one: the DP step bit-equal to the plain step (cuDNN
+    deterministic), the ZeRO-1 and FSDP updates within rel-L2 1e-6 of it."""
+    from srcgan_tpu_torch import parallel
+    from srcgan_tpu_torch.train.cas import CasTrainer
+
+    mesh = parallel.make_mesh((1,), ("data",))
+    try:
+        assert mesh.backend == "nccl"
+        tr = CasTrainer("ESPCN", "SRCNN", up=2, device=dev)
+        a, b, _ = tr._u8_inputs(u8(7, (2, 64, 64, 3), dev), u8(8, (2, 64, 64, 3), dev))
+
+        def flat(state):
+            with parallel.gathered(state):
+                return torch.cat([p.detach().reshape(-1) for r in ("sr", "c")
+                                  for p in getattr(state, r).model.parameters()])
+
+        torch.backends.cudnn.deterministic = True
+        start = flat(tr.init(0))
+        want = flat(tr.train_step(tr.init(0), a, b, 1e-3)[0])
+        got = flat(parallel.make_cas_dp_step(tr, mesh)(
+            parallel.put_replicated(tr.init(0), mesh), a, b, 1e-3)[0])
+        assert torch.equal(got, want)
+        for state, step in ((parallel.zero1_init(tr, 0, mesh), parallel.make_cas_zero1_step),
+                            (parallel.fsdp_init(tr, 0, mesh)[0], parallel.make_cas_fsdp_step)):
+            got = flat(step(tr, mesh)(state, a, b, 1e-3)[0])
+            assert ((got - want).norm() / (want - start).norm()).item() <= 1e-6
+    finally:
+        torch.backends.cudnn.deterministic = False
+        parallel.destroy_mesh()

@@ -6,9 +6,9 @@ Sat2Aerx2 set (small generators: RDDBNetB/D at nf=16, nb=1, gc=8; PatchGANs
 at ndf=16), with --eval-after-save; its netG_A2B checkpoint loads into the
 JAX RDDBNetB and gives the port's output (max|diff| <= 1e-5 * max|ref|);
 test_cyclegan --device cpu writes the PNGs and a Performs.csv row; the
-device pool with K steps per call, --resume and SIGTERM; the flags still
-to be ported exit naming their ROADMAP item; without --device both tools
-raise on a host with no card.
+device pool with K steps per call, --resume and SIGTERM; --perceptual
+random, and --mesh-size 2 (with and without --zero-opt) over two gloo
+ranks; without --device both tools raise on a host with no card.
 """
 import csv
 import os
@@ -170,12 +170,21 @@ def test_device_pool_k_steps_resume_and_sigterm(synth, tmp_path, capsys):
         signal.signal(signal.SIGTERM, previous)
 
 
-@pytest.mark.parametrize("flags,item", [(["--perceptual", "random"], "A13"),
-                                        (["--mesh-size", "2"], "A14"),
-                                        (["--zero-opt"], "A14")])
-def test_unported_flags_exit_naming_their_item(flags, item):
-    with pytest.raises(SystemExit, match=item):
-        train_cyclegan.main(["--device", "cpu", *flags])
+@pytest.mark.parametrize("flags,item", [
+    (["--perceptual", "random", "--perceptual-weight", "0.1"], "A13"),
+    (["--mesh-size", "2", "--net", "SRdens", "--batch-size", "2"], "A14"),
+    (["--mesh-size", "2", "--zero-opt", "--pool-size", "0", "--net", "SRdens",
+      "--batch-size", "2"], "A14")])
+def test_unported_flags_exit_naming_their_item(flags, item, synth, tmp_path):
+    """The flags that ROADMAP ``item`` brought, now run: the VGG16 term on the
+    cycle reconstructions (random VGG weights), and two gloo ranks spawned by
+    the tool (the registry's full-width nets there; net SRdens keeps them
+    small) with plain data parallelism through the host pools, and with
+    ZeRO-1; each writes its checkpoints and full state."""
+    train_cyclegan.main(gan_args(synth, tmp_path / "ck", tmp_path / "run", *flags))
+    for name in ("netG_A2B_SRtask_x2_0001.npz", "netG_B2A_SRtask_x2_0001.npz",
+                 "cyclestate_latest.npz"):
+        assert (tmp_path / "ck" / name).exists(), name
 
 
 def test_tools_default_to_the_card():

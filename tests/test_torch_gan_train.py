@@ -369,8 +369,25 @@ def test_device_pool_semantics():
 
 
 def test_perceptual_params_raise_naming_a13():
-    with pytest.raises(NotImplementedError, match="A13"):
-        CycleGANTrainer(perceptual_params={}, device="cpu")
+    """perceptual_params (brought by ROADMAP A13) no longer raise: the G loss
+    gains perceptual_weight x the VGG16 loss of both cycle reconstructions,
+    computed in fp32, whose gradient reaches the generators only."""
+    from srcgan_tpu_torch import losses_vgg
+
+    vgg = losses_vgg.init_vgg_params(torch.Generator().manual_seed(0))
+    with_term = CycleGANTrainer(net="SRdens", remat=False, perceptual_params=vgg,
+                                perceptual_weight=2.0, device="cpu")
+    plain = CycleGANTrainer(net="SRdens", remat=False, device="cpu")
+    state = plain.init(0)
+    real_a, real_b = (torch.rand(1, s, s, c, generator=torch.Generator().manual_seed(c))
+                      for s, c in ((16, 1), (32, 3)))
+    _, aux = with_term.g_grads(state, real_a, real_b)
+    _, ref = plain.g_grads(state, real_a, real_b)
+    term = 2.0 * (losses_vgg.vgg16_loss(vgg, aux["recl_A"], real_a)
+                  + losses_vgg.vgg16_loss(vgg, aux["recl_B"], real_b))
+    torch.testing.assert_close(aux["loss_G"], ref["loss_G"] + term, rtol=1e-6, atol=0)
+    assert all(not t.requires_grad for p in with_term.perceptual_params.values()
+               for t in p.values())
 
 
 def test_lr_at_epoch_matches_jax():

@@ -5,8 +5,8 @@ set (ngf 8, resnet_6blocks): the three checkpoints
 ``netG_{G_A,G_B,G_C}_MTtask_x2_0001.npz`` load into the port's nets with
 ``strict=True``, and G_A's into the JAX generator, which gives the port's
 output (rel-L2 1e-5); the logged losses are the JAX tool's four.  A second
-run with --device-pool, --pack-passes and --bf16-acts; --mesh-size 2 exits
-naming ROADMAP A14; without --device the tool raises on a host with no card.
+run with --device-pool, --pack-passes and --bf16-acts; --mesh-size 2 over
+two gloo ranks; without --device the tool raises on a host with no card.
 prepare_data writes the JAX tool's lists for the same seed.
 """
 import json
@@ -99,9 +99,15 @@ def test_device_pool_pack_passes_bf16(synth, tmp_path):
     assert (tmp_path / "ck" / "netG_G_C_MTtask_x2_0001.npz").exists()
 
 
-def test_mesh_size_exits_naming_a14():
-    with pytest.raises(SystemExit, match="A14"):
-        train_multitask.main(["--device", "cpu", "--mesh-size", "2"])
+def test_mesh_size_exits_naming_a14(synth, tmp_path):
+    """--mesh-size (brought by ROADMAP A14) now runs: two gloo ranks spawned
+    by the tool, BatchNorm on the global batch, the host pools on the
+    gathered fakes; rank 0 writes the three checkpoints."""
+    train_multitask.main(mt_args(synth, tmp_path, "--mesh-size", "2", "--batch-size", "2"))
+    for name in ("G_A", "G_B", "G_C"):
+        assert (tmp_path / "ck" / f"netG_{name}_MTtask_x2_0001.npz").exists()
+    with pytest.raises(SystemExit, match="divisible"):
+        train_multitask.main(mt_args(synth, tmp_path, "--mesh-size", "2", "--batch-size", "3"))
 
 
 def test_tool_defaults_to_the_card():

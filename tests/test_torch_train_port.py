@@ -262,11 +262,33 @@ def test_transfer_at_bf16_leaves_masters_fp32(init_state):
     (dict(lab=True, perceptual_params={}), ValueError, "perceptual"),
     (dict(lab=True, fused_input=True), ValueError, "fused_input"),
     (dict(sr="SRCNN", const=True, fused_input=True), ValueError, "fused_input"),
-    (dict(perceptual_params={}), NotImplementedError, "A13"),
 ])
 def test_unsupported_options_raise(kw, exc, match):
     with pytest.raises(exc, match=match):
         trainer(**kw)
+
+
+def test_perceptual_term_joins_both_stage_losses(init_state):
+    """perceptual_params (random VGG16 weights): each stage's loss is its L1
+    plus perceptual_weight x vgg16_loss of the same output, the VGG weights
+    stay as they were, and the step trains."""
+    from srcgan_tpu_torch import losses, losses_vgg
+
+    vgg = losses_vgg.init_vgg_params(torch.Generator().manual_seed(0))
+    before = {k: {n: t.clone() for n, t in p.items()} for k, p in vgg.items()}
+    tr = trainer(perceptual_params=vgg, perceptual_weight=0.5)
+    pred, tgt = (torch.rand(N, HW, HW, 3, generator=torch.Generator().manual_seed(s))
+                 for s in (1, 2))
+    want = losses.l1(pred, tgt) + 0.5 * losses_vgg.vgg16_loss(vgg, pred, tgt)
+    assert torch.equal(tr._stage_loss(pred, tgt, None), want)
+    state = init_state()
+    state, m = tr.train_step_u8(state, u8(14, N, HW, HW, 3), u8(15, N, HW, HW, 3), LR)
+    plain = trainer()
+    _, _, pm = plain.grads(init_state(), *plain._u8_inputs(u8(14, N, HW, HW, 3),
+                                                           u8(15, N, HW, HW, 3))[:2])
+    assert state.sr.step == 1 and all(torch.isfinite(v) for v in m.values())
+    assert float(m["loss_SR"]) > float(pm["loss_SR"]) and float(m["loss_C"]) > float(pm["loss_C"])
+    assert all(torch.equal(vgg[k][n], before[k][n]) for k in vgg for n in vgg[k])
 
 
 def test_init_is_seeded():
