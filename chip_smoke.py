@@ -183,8 +183,26 @@ Phases, in order; the first failure raises and the script exits non-zero:
                torch.distributed.checkpoint save and restore of a ZeRO-1 and an
                FSDP state, bit-equal, with their seconds; the world-1 DP step's
                ms in turns with the plain step.
+ 18. axes    - the space, model and pipe axes: the serving cascade (bf16,
+               batch 8 of 128^2) cut into 2 and 4 row strips in this process,
+               one thread a strip in turns, each strip's halos taken from its
+               neighbours' rows as the ranks' exchanges bring them
+               (parallel.spatial under a local message backend): the
+               stitched uint8 within 1 LSB of CascadePredictor, the RDDBNet
+               output's max |diff| printed, rdb5_bf16 9 and tail_x4 1 + 1
+               launches a strip; on NCCL meshes of one rank, the
+               SpatialShardedPredictor within 1 LSB (bit-equal or not
+               printed), the fp32 gradients (TF32 off) of the (space),
+               (data, space), (model) and (data, model) steps within rel-L2
+               1e-5 of the plain step's, and a bf16 fused-input (data, space)
+               uint8 step (one gray_degrade launch).  With 2 or more cards
+               the readings of parallel.axes_check --cards (the sharded
+               predictor at 2 and 4 ranks on a 2048x512 input, ms and peak
+               memory a rank; the cascade and trunk pipelines against the
+               unsharded forward) and steps_check --axes; with one card, a
+               line saying what was not run.
 Then one JSON line of kernel results (with each kernel's launches on the
-paths of phases 13 to 17), the nvidia-smi line, and last
+paths of phases 13 to 18), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Weights are random, from fixed seeds.
 """
 from __future__ import annotations
@@ -3212,6 +3230,273 @@ def phase_data_axis(dev, card: str) -> dict:
     return counts
 
 
+class _Lockstep:
+    """Runs n strip functions in threads on one card, one thread at a time:
+    a thread runs until it waits for a neighbour's halo rows or a sum, then
+    hands the turn on.  The strips' messages go through mailboxes in this
+    process, so each strip's halo comes from its neighbours' rows as the
+    ranks' exchanges would bring it; one thread at a time keeps the launch
+    counters exact."""
+
+    def __init__(self, n: int):
+        import threading
+
+        self.n, self.cv, self.turn = n, threading.Condition(), 0
+        self.done = [False] * n
+        self.mail = {}
+        self.sums = {}
+
+    def _hand_on(self, i: int) -> None:
+        for k in range(1, self.n + 1):
+            j = (i + k) % self.n
+            if not self.done[j]:
+                self.turn = j
+                break
+        self.cv.notify_all()
+
+    def wait_for(self, i: int, ready) -> None:
+        """Hand the turn on until ``ready()`` holds on this thread's turn
+        (called with the lock held)."""
+        while not ready():
+            self._hand_on(i)
+            self.cv.wait_for(lambda: self.turn == i)
+
+    def run(self, fns) -> list:
+        import threading
+
+        out, errors = [None] * self.n, []
+
+        def body(i):
+            with self.cv:
+                self.cv.wait_for(lambda: self.turn == i)
+            try:
+                out[i] = fns[i]()
+            except BaseException as e:       # raised again in the caller
+                errors.append(e)
+                raise
+            finally:
+                with self.cv:
+                    self.done[i] = True
+                    self._hand_on(i)
+
+        threads = [threading.Thread(target=body, args=(i,)) for i in range(self.n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return out
+
+
+def _local_strip(lockstep: _Lockstep, i: int):
+    """A ``parallel.spatial.SpaceScope`` for strip i of the lockstep, its
+    messages through the lockstep's mailboxes."""
+    from collections import deque
+
+    from srcgan_tpu_torch.parallel.spatial import SpaceScope
+
+    class LocalStrip(SpaceScope):
+        def __init__(self):
+            n = lockstep.n
+            super().__init__(None, i - 1 if i > 0 else None, i + 1 if i + 1 < n else None,
+                             True)
+            self.calls = 0
+
+        def transfer(self, sends, recvs):
+            peers = {"prev": self.prev, "next": self.next}
+            with lockstep.cv:
+                for side, t in sends:
+                    if peers[side] is not None and t.numel():
+                        lockstep.mail.setdefault((i, peers[side]), deque()).append(t.clone())
+                for side, b in recvs:
+                    if peers[side] is not None and b.numel():
+                        box = lockstep.mail.setdefault((peers[side], i), deque())
+                        lockstep.wait_for(i, lambda: len(box) > 0)
+                        b.copy_(box.popleft())
+
+        def total(self, t, stats=False):
+            key, self.calls = self.calls, self.calls + 1
+            with lockstep.cv:
+                parts = lockstep.sums.setdefault(key, {})
+                parts[i] = t
+                lockstep.wait_for(i, lambda: len(parts) == lockstep.n)
+                return sum(parts[j] for j in range(lockstep.n))
+
+    return LocalStrip()
+
+
+def strips_in_turns(n: int, fn) -> list:
+    """fn(i) of each of n strips under its local scope, in lockstep."""
+    from srcgan_tpu_torch.parallel import spatial
+
+    lock = _Lockstep(n)
+
+    def run(i):
+        with spatial.activate(_local_strip(lock, i)):
+            return fn(i)
+
+    return lock.run([lambda i=i: run(i) for i in range(n)])
+
+
+AXES_GRAD_HW = 64
+
+
+def phase_axes(dev, card: str) -> dict:
+    """Phase 18, the space, model and pipe axes (see the module docstring).
+    Returns the launch counts of the strip runs, the world-1 sharded
+    predictor and the world-1 (data, space) uint8 step."""
+    import time
+
+    from srcgan_tpu_torch import config, parallel
+    from srcgan_tpu_torch.parallel import axes_check, spatial, steps_check
+    from srcgan_tpu_torch.serving import CascadePredictor, SpatialShardedPredictor
+
+    t_phase = time.perf_counter()
+    sr, c = cascade(torch.Generator().manual_seed(1))
+    preds = {mode: CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4,
+                                    bf16=mode == "bf16", device=dev) for mode in ("fp32", "bf16")}
+    pred = preds["bf16"]
+    x = np.random.default_rng(60).integers(0, 256, (BATCH, LR, LR, 1), dtype=np.uint8)
+    wants = {mode: p.predict(x).astype(int) for mode, p in preds.items()}
+    want = wants["bf16"]
+    # the bf16 cascade's own rounding noise, against fp32
+    noise = np.abs(want - wants["fp32"])
+    xd = torch.from_numpy(x).to(dev)
+    x_sr = (xd.float() / 255.0).permute(0, 3, 1, 2).to(torch.bfloat16,
+                                                       memory_format=torch.channels_last)
+    with torch.no_grad(), config.precision("bf16"):
+        trunk_want = pred.sr_model(x_sr)
+    totals = dict.fromkeys(kernel_launches(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] += v
+
+    def within_noise(got: np.ndarray):
+        """(max and mean |got - fp32 cascade|, whether they stay within the
+        bf16 cascade's own: its mean + 10%, its share of values beyond 1 LSB
+        + 10% + 1 point)"""
+        d = np.abs(got.astype(int) - wants["fp32"])
+        return d.max(), d.mean(), (d.mean() <= 1.1 * noise.mean()
+                                   and (d > 1).mean() <= 1.1 * (noise > 1).mean() + 0.01)
+
+    geometry = spatial.cascade_geometry(pred.sr_model, pred.c_model, 4)
+    print(f"[axes] the bf16 CascadePredictor against the fp32 one, (batch {BATCH} of {LR}^2): "
+          f"max |diff| {noise.max()} LSB, mean {noise.mean():.4f}, {(noise > 1).mean():.2%} "
+          f"of values beyond 1 LSB: the bf16 cascade's own rounding noise")
+    for n in (2, 4):
+        plan = spatial.plan_strips(LR, n, *geometry)
+        stitched = {}
+        for mode in ("fp32", "bf16"):
+            reset_launches()
+            outs = strips_in_turns(n, lambda i: preds[mode]._run(plan.cut(xd, i)))
+            torch.cuda.synchronize()
+            counts = kernel_launches()
+            stitched[mode] = torch.cat(outs, 1).cpu().numpy()
+        add(counts)
+        diff32 = int(np.abs(stitched["fp32"].astype(int) - wants["fp32"]).max())
+        diff = int(np.abs(stitched["bf16"].astype(int) - want).max())
+        dmax, dmean, quiet = within_noise(stitched["bf16"])
+
+        def trunk(i):
+            with torch.no_grad(), config.precision("bf16"):
+                return pred.sr_model(plan.cut(x_sr, i, dim=2))
+
+        trunk_got = torch.cat(strips_in_turns(n, trunk), 2)
+        dtrunk = (trunk_got.float() - trunk_want.float()).abs().max().item()
+        ok = (diff32 <= 1 and quiet and counts["rdb5_bf16"] == 9 * n
+              and counts["tail_x4"] == 2 * n
+              and counts["gray_degrade"] == counts["ssim"] == counts["rdb5_int8"] == 0)
+        print(f"[axes] cascade, batch {BATCH} of {LR}^2, in {n} strips {plan.heights} (halos "
+              f"from the neighbours' rows, one thread a strip in turns): fp32 stitched vs "
+              f"CascadePredictor max |diff| {diff32} LSB (bound 1); bf16 stitched vs the bf16 "
+              f"CascadePredictor max |diff| {diff} LSB, vs the fp32 cascade max {dmax} / mean "
+              f"{dmean:.4f} (bound: the bf16 predictor's own mean +10%, its share beyond 1 LSB +10% +1 point); bf16 RDDBNet "
+              f"output max |diff| {dtrunk:.3e}; bf16 launches {counts} (want rdb5_bf16 9 and "
+              f"tail_x4 1 + 1 a strip) {'PASS' if ok else 'FAIL'}")
+        check(ok, f"the cascade in {n} strips")
+
+    mesh = parallel.make_mesh((1,), ("space",))
+    try:
+        check(mesh.backend == "nccl", f"the mesh: {mesh}")
+        got = {}
+        for mode, p in preds.items():
+            sharded = SpatialShardedPredictor(copy.deepcopy(p.sr_model),
+                                              copy.deepcopy(p.c_model), 4, bf16=mode == "bf16",
+                                              mesh=mesh, device=dev)
+            reset_launches()
+            got[mode] = sharded.predict(x).astype(int)
+            torch.cuda.synchronize()
+            del sharded
+        counts = kernel_launches()
+        add(counts)
+        diff32 = int(np.abs(got["fp32"] - wants["fp32"]).max())
+        dmax, dmean, quiet = within_noise(got["bf16"])
+        ok = diff32 <= 1 and quiet and counts["rdb5_bf16"] == 9 and counts["tail_x4"] == 2
+        print(f"[axes] SpatialShardedPredictor on an NCCL space mesh of 1: fp32 max |diff| "
+              f"{diff32} LSB (bound 1), bit-equal {bool((got['fp32'] == wants['fp32']).all())}; "
+              f"bf16 max |diff| {int(np.abs(got['bf16'] - want).max())} LSB, bit-equal "
+              f"{bool((got['bf16'] == want).all())}, vs the fp32 cascade max {dmax} / mean "
+              f"{dmean:.4f} (the bf16 predictor's own bound); bf16 launches {counts} "
+              f"{'PASS' if ok else 'FAIL'}")
+        check(ok, "the world-1 sharded predictor")
+
+        rng = np.random.default_rng(61)
+        shape = (2, AXES_GRAD_HW, AXES_GRAD_HW, 3)
+        src, tar = (torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+                    for _ in range(2))
+        rows = []
+        with config.precision("fp32"), deterministic_cudnn():
+            tr = slice_trainer(dev)
+            real_a, real_b, _ = tr._u8_inputs(src, tar)
+            plain, _, _ = tr.grads(tr.init(62), real_a, real_b)
+            for axes, make in ((("space",), parallel.make_cas_2d_step),
+                               (("data", "space"), parallel.make_cas_2d_step),
+                               (("model",), parallel.make_cas_tp_step),
+                               (("data", "model"), parallel.make_cas_tp_step)):
+                m = parallel.make_mesh((1,) * len(axes), axes)
+                g = make(tr, m).grads(tr.init(62), real_a, real_b)
+                worst = max((rel_l2(g[r][k], plain[r][k]), f"{r}.{k}")
+                            for r in plain for k in plain[r])
+                rows.append((axes, worst))
+        for axes, (err, at) in rows:
+            print(f"[axes] fp32 gradients (TF32 off, batch 2 of {AXES_GRAD_HW}^2, the training "
+                  f"slice) on a world-1 {' x '.join(axes)} mesh against the plain step's: max "
+                  f"per-tensor rel-L2 {err:.2e} at {at} (bound 1e-5) "
+                  f"{'PASS' if err <= 1e-5 else 'FAIL'}")
+        check(all(err <= 1e-5 for _, (err, _) in rows), "a world-1 step's gradients")
+
+        m2 = parallel.make_mesh((1, 1), ("data", "space"))
+        tr = slice_trainer(dev, act_dtype=torch.bfloat16, fused_input=True)
+        reset_launches()
+        state, met = parallel.make_cas_2d_steps_u8(tr, m2)(tr.init(63), src[None], tar[None],
+                                                          TRAIN_LR)
+        torch.cuda.synchronize()
+        counts = kernel_launches()
+        add(counts)
+        finite = all(bool(torch.isfinite(v).all()) for v in met.values())
+        print(f"[axes] bf16 fused-input (data, space) uint8 step on a world-1 mesh: metrics "
+              f"finite {finite}; launches {counts} {'PASS' if finite else 'FAIL'}")
+        check(finite and counts["gray_degrade"] == 1, "the world-1 (data, space) uint8 step")
+    finally:
+        parallel.destroy_mesh()
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"[axes] {cards} card: the cascade pipeline (2 ranks), the trunk pipeline "
+              f"(nb=3, 3 ranks), the sharded predictor at 2 and 4 ranks and steps_check "
+              f"--axes were not run; they run where the host has 2 or more cards")
+    else:
+        rows = axes_check.cards(cards)
+        check(all(b is None or v <= b for _, v, b in rows), "a reading on the cards")
+        ranks = cards - cards % 2
+        check(steps_check.cli(["--ranks", str(ranks), "--axes"]) == 0,
+              f"steps_check --axes on {ranks} cards")
+    print(f"[axes] phase took {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script runs "
@@ -3257,6 +3542,7 @@ def main() -> int:
     extras = phase_serve_extras(dev, where)
     extras.update(phase_distill(dev, where))
     extras["data_axis"] = phase_data_axis(dev, where)
+    extras["axes"] = phase_axes(dev, where)
     for entry, key in ((tail, "tail_x4"), (gray, "gray_degrade"), (ssim, "ssim"),
                        (rdb5_bf16, "rdb5_bf16"), (rdb5_int8, "rdb5_int8"),
                        *((p, "probes") for p in probes)):

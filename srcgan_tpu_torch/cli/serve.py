@@ -43,6 +43,14 @@ accepted request is dropped on SIGINT / SIGTERM.  Scene requests get the
 same contract through ``SceneGate``.  Oversized bodies are rejected with 413
 before the body is read (--max-request-mb).
 
+With --mesh-size N the cascade runs over N ranks of a space mesh, a row
+strip of each batch a rank (serving.SpatialShardedPredictor, or its tiled
+form with --tile): this process is rank 0 and answers HTTP, and it starts
+ranks 1..N-1 as local processes (one card each, or gloo on the CPU with
+--device cpu) that follow its calls until it closes.  Under ``torchrun
+--nproc-per-node N`` every rank runs the tool: rank 0 serves, the others
+follow.  A follower that dies makes rank 0's next call raise.
+
 Stdlib only (http.server + threading).  Runs on the card unless
 ``--device cpu`` is given.
 """
@@ -93,8 +101,8 @@ def build_parser():
                         "through one NxN tile shape (serving.TiledPredictor); "
                         "0 disables")
     p.add_argument("--mesh-size", type=int, default=0,
-                   help="shard the cascade over an N-device mesh: not ported "
-                        "yet (ROADMAP A14); exits")
+                   help="shard each batch's rows over N ranks of a space mesh "
+                        "(serving.SpatialShardedPredictor); this process is rank 0")
     p.add_argument("--tile-overlap", type=int, default=32,
                    help="tile halo cropped from each output tile; >= the "
                         "cascade's receptive-field radius makes stitching "
@@ -558,22 +566,62 @@ class _Server(ThreadingHTTPServer):
     request_queue_size = 256
 
 
-def make_server(args) -> ThreadingHTTPServer:
-    if args.mesh_size:
-        raise SystemExit("--mesh-size: the sharded daemon comes with the parallel "
-                         "stack (ROADMAP A14)")
-    from srcgan_tpu_torch import config as tconfig
-    from srcgan_tpu_torch.serving import CascadePredictor, TiledPredictor
+def _predictor(args, device, mesh=None, followers=None):
+    """The daemon's predictor: with --tile one TiledPredictor serves both
+    endpoints (one set of modules on one CUDA stream); with a mesh, their
+    space-sharded forms."""
+    from srcgan_tpu_torch import serving
 
-    device = tconfig.resolve_device(args.device)
-    # with --tile one TiledPredictor serves both endpoints: one set of modules
-    # on one CUDA stream
-    cls, kw = ((TiledPredictor, {"tile": args.tile, "overlap": args.tile_overlap,
-                                 "max_batch": args.max_batch})
-               if args.tile else (CascadePredictor, {}))
-    pred = cls.from_checkpoints(
+    kw = ({"tile": args.tile, "overlap": args.tile_overlap, "max_batch": args.max_batch}
+          if args.tile else {})
+    if mesh is not None:
+        cls = serving.SpatialShardedTiledPredictor if args.tile else serving.SpatialShardedPredictor
+        kw.update(mesh=mesh, followers=followers)
+    else:
+        cls = serving.TiledPredictor if args.tile else serving.CascadePredictor
+    return cls.from_checkpoints(
         args.netGA, args.netGB, bf16=args.bf16, pad_batch_to=args.pad_batch,
         self_ensemble=args.self_ensemble, device=device, **kw)
+
+
+def _in_torchrun(args) -> bool:
+    return args.mesh_size > 1 and "WORLD_SIZE" in os.environ
+
+
+def follow(argv) -> None:
+    """A follower rank of ``--mesh-size``: the predictor rank 0 built, on
+    this rank's device, serving rank 0's calls until it closes."""
+    args = argv[0] if isinstance(argv[0], argparse.Namespace) else argparse.Namespace(**argv[0])
+    from srcgan_tpu_torch import parallel
+
+    mesh = parallel.make_mesh((args.mesh_size,), ("space",), device=args.device)
+    _predictor(args, mesh.device, mesh).follow()
+
+
+def make_server(args) -> ThreadingHTTPServer:
+    from srcgan_tpu_torch import config as tconfig
+
+    mesh = followers = None
+    if args.mesh_size > 1:
+        from srcgan_tpu_torch import parallel
+        from srcgan_tpu_torch.parallel import mesh as mesh_lib
+
+        if _in_torchrun(args):
+            mesh = parallel.make_mesh((args.mesh_size,), ("space",), device=args.device)
+            if not mesh.is_main:
+                raise SystemExit("make_server runs on rank 0; the other ranks run follow()")
+        else:
+            mesh, followers = mesh_lib.lead("srcgan_tpu_torch.cli.serve:follow", [vars(args)],
+                                            args.mesh_size, ("space",), args.device)
+        device = mesh.device
+    else:
+        device = tconfig.resolve_device(args.device)
+    try:
+        pred = _predictor(args, device, mesh, followers)
+    except BaseException:
+        if followers is not None:
+            followers.kill()
+        raise
     if args.warmup:
         _warm(pred, args)
     tiled = pred if args.tile else None
@@ -586,7 +634,7 @@ def make_server(args) -> ThreadingHTTPServer:
     batcher = Batcher(pred, max_batch=args.max_batch, max_wait_s=args.max_wait_ms / 1e3)
     config = {"netGA": args.netGA, "netGB": args.netGB, "up": pred.up,
               "lab": pred.lab, "bf16": pred.bf16, "max_batch": args.max_batch,
-              "device": str(device),
+              "device": str(device), "mesh_size": max(args.mesh_size, 1),
               "max_request_bytes": int(args.max_request_mb * 1024 * 1024),
               **({"tile": args.tile, "tile_overlap": args.tile_overlap}
                  if args.tile else {})}
@@ -598,6 +646,7 @@ def make_server(args) -> ThreadingHTTPServer:
         make_handler(batcher, config, tiled=tiled, scene_gate=scene_gate,
                      do_reload=do_reload, tiled_lock=tiled_lock))
     srv.batcher = batcher
+    srv.pred, srv.followers = pred, followers
     srv.scene_gate = scene_gate
     srv.tiled = tiled
     srv.do_reload = do_reload
@@ -615,12 +664,25 @@ def close(srv) -> None:
     if srv.scene_gate is not None:
         srv.scene_gate.close()  # wait out in-flight scenes too
     srv.server_close()
+    if hasattr(srv.pred, "follow"):
+        srv.pred.stop()
+        if srv.followers is not None:
+            srv.followers.join()
+        else:
+            from srcgan_tpu_torch.parallel import destroy_mesh
+            destroy_mesh()
 
 
 def main(argv=None):
     import signal
 
     args = build_parser().parse_args(argv)
+    if _in_torchrun(args) and int(os.environ.get("RANK", 0)) != 0:
+        try:
+            return follow([args])
+        finally:
+            from srcgan_tpu_torch.parallel import destroy_mesh
+            destroy_mesh()
     srv = make_server(args)
     host, port = srv.server_address[:2]
     print(f"serving on http://{host}:{port}  (POST /predict, GET /healthz, GET /stats)")

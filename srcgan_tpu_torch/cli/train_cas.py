@@ -5,6 +5,7 @@
   python -m srcgan_tpu_torch.cli.train_cas --lab        # LAB colour space (also with --const)
 
   python -m srcgan_tpu_torch.cli.train_cas --mesh-size 2 [--zero-opt | --fsdp]
+  python -m srcgan_tpu_torch.cli.train_cas --mesh-size 2 --space-size 2
   python -m srcgan_tpu_torch.cli.train_cas --distill-netGA T_A2C.npz --distill-netGB T_C2B.npz
 
 Every flag of the JAX package's tool keeps its name.  Checkpoints keep the
@@ -18,8 +19,14 @@ step directories under ``--orbax-dir``).  Runs on the card unless
 spawns its N workers itself, one card each (NCCL), or all on the CPU with
 ``--device cpu`` (gloo); under ``torchrun --nproc-per-node N`` it is one of
 them.  Every rank reads the same shuffled batches and trains on its shard;
-rank 0 prints, logs and writes the files.  ``--space-size`` exits: the
-space axis comes with the rest of ROADMAP A14.
+rank 0 prints, logs and writes the files.  ``--space-size S`` with
+``--mesh-size D`` trains on a (data, space) mesh of D x S ranks
+(``parallel.make_cas_2d_steps_u8``): each rank takes its data shard's row
+strip of every batch.  As in the JAX tool, ``--space-size`` without
+``--mesh-size`` trains on one device, and it refuses ``--zero-opt``,
+``--fsdp``, ``--steps-per-dispatch``, ``--grad-accum`` and ``--ema-decay``;
+here it also refuses ``--const``, ``--perceptual``, ``--remat`` and
+distillation, which the strip step does not take.
 """
 from __future__ import annotations
 
@@ -56,8 +63,8 @@ def build_parser():
                         "split over N processes, one card each (or the CPU with "
                         "--device cpu), gradients averaged by all-reduce")
     p.add_argument("--space-size", type=int, default=0,
-                   help="extra mesh axis over image height: not ported yet "
-                        "(ROADMAP A14); a value above 1 exits")
+                   help="with --mesh-size: a second mesh axis over image height, "
+                        "D x S ranks, each a row strip of its data shard")
     p.add_argument("--fsdp", action="store_true",
                    help="FSDP over the --mesh-size data mesh: parameters AND Adam "
                         "moments stored as per-rank rows (3 x n/N values a rank at "
@@ -148,9 +155,10 @@ def build_parser():
 def _check_flags(args) -> None:
     """Exit, before any work, on a flag still to be ported or a composition
     the tool does not have (the JAX tool's exits, with its messages)."""
-    if args.space_size > 1:
-        sys.exit("--space-size: the space axis of the parallel stack is still to be "
-                 "ported (ROADMAP A14)")
+    two_d = args.mesh_size > 1 and args.space_size > 1
+    if two_d and (args.const or args.perceptual or args.remat or args.distill_netGA):
+        sys.exit("--space-size takes the plain L1 cascade: not --const, --perceptual, "
+                 "--remat or distillation")
     if bool(args.distill_netGA) != bool(args.distill_netGB):
         sys.exit("--distill-netGA and --distill-netGB must be given together "
                  "(a teacher cascade)")
@@ -159,7 +167,7 @@ def _check_flags(args) -> None:
             sys.exit("--zero-opt and --fsdp are mutually exclusive (FSDP subsumes "
                      "the moment sharding)")
         which = "--fsdp" if args.fsdp else "--zero-opt"
-        if args.mesh_size <= 1:
+        if args.mesh_size <= 1 or args.space_size > 1:
             sys.exit(f"{which} requires a 1-D --mesh-size data mesh (no --space-size)")
         if args.ema_decay > 0 or args.grad_accum > 1:
             sys.exit(f"{which} composes with the plain DP loop (not "
@@ -172,7 +180,7 @@ def _check_flags(args) -> None:
                      "a mesh add data-parallel shards instead")
     if args.ema_decay > 0 and (args.mesh_size > 1 or args.grad_accum > 1):
         sys.exit("--ema-decay currently composes with the plain single-device step only")
-    if args.steps_per_dispatch > 1 and (args.grad_accum > 1 or args.ema_decay > 0):
+    if args.steps_per_dispatch > 1 and (args.grad_accum > 1 or args.ema_decay > 0 or two_d):
         sys.exit("--steps-per-dispatch composes with the plain single-device step or a "
                  "1-D --mesh-size data mesh (not --space-size/--grad-accum/--ema-decay)")
 
@@ -218,8 +226,8 @@ def main(argv=None):
     _check_flags(args)
     from srcgan_tpu_torch.parallel import mesh as mesh_lib
     if mesh_lib.spawned_by_tool(args.mesh_size):
-        return mesh_lib.launch("srcgan_tpu_torch.cli.train_cas:main", argv, args.mesh_size,
-                               args.device)
+        return mesh_lib.launch("srcgan_tpu_torch.cli.train_cas:main", argv,
+                               args.mesh_size * max(args.space_size, 1), args.device)
 
     # Preemption safety: register the SIGTERM flag handler FIRST, so a signal
     # during setup is not fatal.  The loop checks the flag after every trainer
@@ -254,8 +262,12 @@ def _run(args, preempted):
                                               save_params, save_train_state)
     from srcgan_tpu_torch.utils import Logger
 
-    mesh = (parallel.make_mesh((args.mesh_size,), ("data",), device=args.device)
-            if args.mesh_size > 1 else None)
+    mesh = None
+    if args.mesh_size > 1 and args.space_size > 1:
+        mesh = parallel.make_mesh((args.mesh_size, args.space_size), ("data", "space"),
+                                  device=args.device)
+    elif args.mesh_size > 1:
+        mesh = parallel.make_mesh((args.mesh_size,), ("data",), device=args.device)
     device = mesh.device if mesh is not None else config.resolve_device(args.device)
     main_rank = mesh is None or mesh.is_main
     mode = "bf16" if args.bf16_acts else "tf32" if args.bf16 else "fp32"
@@ -298,6 +310,8 @@ def _run(args, preempted):
         steps_u8 = parallel.make_cas_fsdp_steps_u8(trainer, mesh)
     elif args.zero_opt:
         steps_u8 = parallel.make_cas_zero1_steps_u8(trainer, mesh)
+    elif mesh is not None and "space" in mesh.shape:
+        steps_u8 = parallel.make_cas_2d_steps_u8(trainer, mesh)
     elif mesh is not None:
         steps_u8 = parallel.make_cas_dp_steps_u8(trainer, mesh)
 

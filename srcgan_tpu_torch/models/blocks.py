@@ -18,10 +18,18 @@ other-shaped forward takes the naive form.  All are the same function up to
 the order of float sums.  A yardstick that means cuDNN scopes "naive".  The
 JAX package's "paired" schedule shaped the work for the TPU's matrix unit and
 is not ported.
+
+On a strip of ``parallel.spatial`` the kernel runs on the strip plus the 5
+rows each side that its five chained convolutions need, exchanged once, and
+the block crops them, where that extended strip passes the gate.  Under
+``tensor_parallel()`` (``parallel.tp``) every block takes the naive form: a
+channel slice of its convolutions cannot go through a kernel that needs the
+block's whole weights, and each per-conv call is a split convolution.
 """
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 from typing import Tuple
 
@@ -54,6 +62,35 @@ def rdb5_schedule(name: str):
 
 def current_rdb5_schedule() -> str:
     return getattr(_SCHED_TL, "value", None) or DEFAULT_RDB5_SCHEDULE
+
+
+# Whether a tensor_parallel scope is open: process-wide, as a recompute of a
+# checkpointed pass may run in another thread
+_TP = False
+
+
+@contextlib.contextmanager
+def tensor_parallel():
+    """Scope of ``parallel.tp``'s steps: the RDB5 blocks take their per-conv
+    form and RDDBNet's tail its unfolded deconvs and conv_last, so that
+    every convolution is a module call that a split layer can take."""
+    global _TP
+    prev, _TP = _TP, True
+    try:
+        yield
+    finally:
+        _TP = prev
+
+
+def in_tensor_parallel() -> bool:
+    return _TP
+
+
+def strip_scope():
+    """The ``parallel.spatial`` scope of this thread's forward, or None (the
+    module is not even imported where no strip ever ran)."""
+    sp = sys.modules.get("srcgan_tpu_torch.parallel.spatial")
+    return None if sp is None else sp.current()
 
 
 def get_deconv_params(upscale_factor: int) -> Tuple[int, int, int]:
@@ -102,6 +139,8 @@ class ResidualDenseBlock5(nn.Module):
                      for pair in self.convs() for t in pair if t is not None)
 
     def forward(self, x, lemda: float = 0.2):
+        if _TP:
+            return self.forward_with_sources(x, lemda)[0]
         if not self.training and lemda == 0.2:  # the int8 dispatch is for the default lemda
             y = quant.rdb5_dispatch(self, x)
             if y is not None:  # int8 serving: the whole block in one kernel
@@ -111,8 +150,10 @@ class ResidualDenseBlock5(nn.Module):
             # on the card the kernel, where it can take the forward; else the naive form
             wants_grad = torch.is_grad_enabled() and (x.requires_grad
                                                       or self.conv1.weight.requires_grad)
-            if x.is_cuda and not wants_grad and self._kernel_takes(x):
-                return self._forward_kernel(x, lemda)
+            if x.is_cuda and not wants_grad:
+                y = self._kernel_or_none(x, lemda)
+                if y is not None:
+                    return y
             sched = "naive"
         if sched == "fused":
             return self._forward_fused(x, lemda)
@@ -158,16 +199,27 @@ class ResidualDenseBlock5(nn.Module):
         x5 = pre[4] if bs[4] is None else pre[4] + bs[4].view(1, -1, 1, 1)
         return x5 * lemda + x
 
-    def _kernel_takes(self, x) -> bool:
-        """The gate of the bf16 kernel: eval mode, bf16, a supported shape."""
+    def _kernel_takes(self, x, extra_rows: int = 0) -> bool:
+        """The gate of the bf16 kernel: eval mode, bf16, a supported shape
+        (with ``extra_rows`` of halo)."""
         n, c, h, w = x.shape
         return (not self.training and x.dtype == torch.bfloat16
-                and rdb5_kernel.supported((n, h, w, c), self.nf, self.gc))
+                and rdb5_kernel.supported((n, h + extra_rows, w, c), self.nf, self.gc))
+
+    def _kernel_or_none(self, x, lemda: float):
+        """The kernel's forward where its gate takes x, on a strip x plus its
+        5-row halo; else None."""
+        sc = strip_scope()
+        if sc is None:
+            return self._forward_kernel(x, lemda) if self._kernel_takes(x) else None
+        halo = 5 * ((sc.prev is not None) + (sc.next is not None))
+        if not sc.active or not self._kernel_takes(x, halo):
+            return None
+        return sc.halo_unit(x, 5, 5, lambda e: self._forward_kernel(e, lemda), symmetric=True)
 
     def _forward_fused(self, x, lemda: float = 0.2):
-        if not self._kernel_takes(x):
-            return self._forward_grouped(x, lemda)
-        return self._forward_kernel(x, lemda)
+        y = self._kernel_or_none(x, lemda)
+        return self._forward_grouped(x, lemda) if y is None else y
 
     def _forward_kernel(self, x, lemda: float = 0.2):
         key = self.weights_key()

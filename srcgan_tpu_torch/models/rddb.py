@@ -6,9 +6,10 @@ import math
 import threading
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from srcgan_tpu_torch.models.blocks import deconv, rrdb_trunk
+from srcgan_tpu_torch.models.blocks import deconv, in_tensor_parallel, rrdb_trunk, strip_scope
 from srcgan_tpu_torch.ops import fused
 from srcgan_tpu_torch.ops.conv import to_nchw, to_nhwc
 from srcgan_tpu_torch.ops.initializers import init_kaiming_
@@ -26,7 +27,9 @@ def no_tail_kernel():
     """Send the x4 tail of forwards in this thread and scope through the
     phase-folded plain path, never the tail kernel.  ``deploy.export_cascade``
     traces under it (with ``rdb5_schedule("naive")``) so that an artifact holds
-    no call into this package's kernels; no serve, train or eval path enters it."""
+    no call into this package's kernels; no serve, train or eval path enters it.
+    Tensor parallelism (``parallel.tp``) keeps the kernel out by its own scope,
+    ``blocks.tensor_parallel``, which also unfolds the tail."""
     prev = getattr(_TL, "off", False)
     _TL.off = True
     try:
@@ -47,6 +50,16 @@ class RDDBNet(nn.Module):
     weight set without autograd and cached (rebuilt when a weight's version,
     storage, dtype or device changes); a ``torch.export`` trace builds them
     in its graph and caches nothing.  ``no_tail_kernel`` scopes the kernel off.
+    On a strip of ``parallel.spatial`` the kernel runs on the strip plus one
+    trunk row each side and as many more of a neighbour's rows as its gate's
+    H % 8 wants, and the output is cropped.  Under ``blocks.tensor_parallel``
+    the tail runs unfolded: each deconv (LeakyReLU after it) and conv_last a
+    module call, so that a split layer computes its channel slice (the phase
+    fold mixes channels and cannot take one).
+
+    ``head`` (conv_first) and ``finish(fea, h)`` (trunk_conv, the global
+    residual, the tail) are the edges of the trunk that ``parallel.pipeline``
+    runs on its first and last stages.
     """
 
     def __init__(self, in_ch: int, ou_ch: int, upscale_factor: int,
@@ -65,23 +78,43 @@ class RDDBNet(nn.Module):
         self.to(device=device, memory_format=torch.channels_last)
         self._prepared = (None, None)     # (key, folded tail weights)
 
-    def forward(self, x):
-        fea = self.conv_first(x)
-        fea = fea + self.trunk_conv(self.RRDB_trunk(fea))
+    def head(self, x):
+        """The trunk's input features: conv_first."""
+        return self.conv_first(x)
+
+    def finish(self, fea, h):
+        """trunk_conv of the trunk output h, the global residual fea, the tail."""
+        fea = fea + self.trunk_conv(h)
         if self.upscale_factor == 1:
             return self.conv_last(fea)
         return to_nchw(self._tail(to_nhwc(fea)))
+
+    def forward(self, x):
+        fea = self.head(x)
+        return self.finish(fea, self.RRDB_trunk(fea))
 
     def _tail(self, t):
         """Upsample tail on the NHWC view t of the trunk output."""
         deconvs = list(self.upscale_layers)[::2]
         lb = self.conv_last.bias
+        if in_tensor_parallel():
+            y = to_nchw(t)
+            for d in deconvs:
+                y = F.leaky_relu(d(y), 0.2)
+            return to_nhwc(self.conv_last(y))
         if (not self.training and len(deconvs) == 2 and t.is_cuda
-                and not getattr(_TL, "off", False)
-                and tail_kernel.supported(t.shape, 4, t.dtype)):
-            tw = self._eval_weights("kernel", lambda: tail_kernel.prepare(
-                deconvs[0].weight, deconvs[1].weight, self.conv_last.weight))
-            return tail_kernel.tail_x4_fused(t, tw, lb)
+                and not getattr(_TL, "off", False)):
+            sc = strip_scope()
+            rows = (0, 0) if sc is None else sc.tail_rows(t.shape[1]) if sc.active else None
+            n, h, w, c = t.shape
+            if rows is not None and tail_kernel.supported((n, h + sum(rows), w, c), 4,
+                                                          t.dtype):
+                tw = self._eval_weights("kernel", lambda: tail_kernel.prepare(
+                    deconvs[0].weight, deconvs[1].weight, self.conv_last.weight))
+                if sc is None:
+                    return tail_kernel.tail_x4_fused(t, tw, lb)
+                return sc.halo_unit(t, *rows, lambda e: tail_kernel.tail_x4_fused(e, tw, lb),
+                                    out_scale=4, nhwc=True)
         # (in,out,kh,kw) -> HWIO; (ou,nf,3,3) -> (3,3,nf,ou)
         dws = [d.weight.permute(2, 3, 0, 1) for d in deconvs]
         lw = self.conv_last.weight.permute(2, 3, 1, 0)

@@ -7,12 +7,15 @@ activation dtype, statistics and the affine map run in fp32 (instance norm:
 in float64 for a float64 input) and the result is cast back, as the JAX
 package does.
 
-Inside ``sync_batch_norm()`` a train-mode batch norm takes its
-statistics over the batch of every rank of the process group (the data-parallel
-GAN steps: the JAX package's GSPMD step normalizes over the global batch).
-The ranks' means go through ``torch.distributed.nn.functional.all_reduce``,
-which carries the gradient across ranks; unlike ``nn.SyncBatchNorm`` it
-runs on any backend, gloo on the CPU included.
+Inside ``sync_batch_norm(group)`` a train-mode batch norm takes its
+statistics over the batch of every rank of ``group`` (the data-parallel GAN
+steps pass the mesh's data line: the JAX package's GSPMD step normalizes
+over the global batch).  The ranks' means go through
+``torch.distributed.nn.functional.all_reduce``, which carries the gradient
+across ranks; unlike ``nn.SyncBatchNorm`` it runs on any backend, gloo on
+the CPU included.  Inside ``moments_by(fn)`` (``parallel.spatial``'s strips,
+whose heights differ) ``fn`` gives the moments instead, from sums and
+element counts.
 """
 from __future__ import annotations
 
@@ -26,8 +29,9 @@ from srcgan_tpu_torch.ops.conv import to_nchw, to_nhwc
 
 
 def group_norm(x, scale, bias, num_groups: int = 32, eps: float = 1e-5):
-    """torch.nn.GroupNorm over x (N,H,W,C)."""
-    y = F.group_norm(to_nchw(x).float(), num_groups, scale.float(), bias.float(), eps)
+    """torch.nn.GroupNorm over x (N,H,W,C), in fp32 (float64 stays)."""
+    dt = torch.promote_types(x.dtype, torch.float32)
+    y = F.group_norm(to_nchw(x).to(dt), num_groups, scale.to(dt), bias.to(dt), eps)
     return to_nhwc(y).to(x.dtype)
 
 
@@ -46,31 +50,50 @@ def instance_norm(x, scale=None, bias=None, eps: float = 1e-5):
     return to_nhwc(y).to(x.dtype)
 
 
-# Whether a sync_batch_norm scope is open: process-wide, not per thread,
-# because on the card the autograd engine recomputes a checkpointed pass in a
-# thread of its own, and that recompute must normalize as the forward did.
+# The group of an open sync_batch_norm scope (False where none): process-wide,
+# not per thread, because on the card the autograd engine recomputes a
+# checkpointed pass in a thread of its own, and that recompute must normalize
+# as the forward did.
 _SYNCED = False
+# the moments function of an open moments_by scope
+_MOMENTS = None
 
 
 @contextlib.contextmanager
-def sync_batch_norm():
+def sync_batch_norm(group=None):
     """Scope: train-mode ``batch_norm`` takes global batch statistics over
-    the default process group."""
+    ``group`` (the default process group where None)."""
+    import torch.distributed as dist
+
     global _SYNCED
-    prev, _SYNCED = _SYNCED, True
+    prev, _SYNCED = _SYNCED, dist.group.WORLD if group is None else group
     try:
         yield
     finally:
         _SYNCED = prev
 
 
-def _moments(xf, synced: bool = False):
+@contextlib.contextmanager
+def moments_by(fn):
+    """Scope: train-mode ``batch_norm`` takes (mean, biased variance,
+    count) from ``fn(xf)`` over NCHW xf."""
+    global _MOMENTS
+    prev, _MOMENTS = _MOMENTS, fn
+    try:
+        yield
+    finally:
+        _MOMENTS = prev
+
+
+def _moments(xf, synced=False):
     """(mean, biased variance, element count) per channel of NCHW xf, as
-    mean((x - mean)^2); ``synced``: over every rank's batch (the ranks'
-    batches are of one size, so the global moments are the means of the
-    ranks' own), differentiable through the all-reduces.  On one rank the
-    two forms are the same arithmetic."""
-    if not synced:
+    mean((x - mean)^2); ``synced``, a process group: over every rank's batch
+    (the ranks' batches are of one size, so the global moments are the means
+    of the ranks' own), differentiable through the all-reduces.  On one rank
+    the two forms are the same arithmetic."""
+    if _MOMENTS is not None:
+        return _MOMENTS(xf)
+    if synced is False:
         mean = xf.mean(dim=(0, 2, 3))
         d = xf - mean.view(1, -1, 1, 1)
         return mean, (d * d).mean(dim=(0, 2, 3)), xf.numel() // xf.shape[1]
@@ -82,12 +105,12 @@ def _moments(xf, synced: bool = False):
     def avg(t):
         with warnings.catch_warnings():     # torch 2.13 marks the module as deprecated
             warnings.simplefilter("ignore", FutureWarning)
-            return dist_fn.all_reduce(t, op=dist.ReduceOp.AVG)
+            return dist_fn.all_reduce(t, op=dist.ReduceOp.AVG, group=synced)
 
     mean = avg(xf.mean(dim=(0, 2, 3)))
     d = xf - mean.view(1, -1, 1, 1)
     var = avg((d * d).mean(dim=(0, 2, 3)))
-    return mean, var, xf.numel() // xf.shape[1] * dist.get_world_size()
+    return mean, var, xf.numel() // xf.shape[1] * dist.get_world_size(synced)
 
 
 def batch_norm(x, scale, bias, running_mean, running_var, *, train: bool,
@@ -99,10 +122,10 @@ def batch_norm(x, scale, bias, running_mean, running_var, *, train: bool,
     through the statistics, and returns the running statistics (detached)
     updated with the unbiased variance, as torch does; train=False uses and
     returns the running statistics."""
-    xf = to_nchw(x).float()
+    xf = to_nchw(x).to(torch.promote_types(x.dtype, torch.float32))     # float64 stays
     if not train:
-        y = F.batch_norm(xf, running_mean.float(), running_var.float(), scale.float(),
-                         bias.float(), training=False, eps=eps)
+        y = F.batch_norm(xf, running_mean.to(xf.dtype), running_var.to(xf.dtype),
+                         scale.to(xf.dtype), bias.to(xf.dtype), training=False, eps=eps)
         return to_nhwc(y).to(x.dtype), running_mean, running_var
     mean, var, count = _moments(xf, _SYNCED)
     with torch.no_grad():
@@ -110,8 +133,8 @@ def batch_norm(x, scale, bias, running_mean, running_var, *, train: bool,
         new_mean = (1 - momentum) * running_mean + momentum * mean
         new_var = (1 - momentum) * running_var + momentum * unbiased
     c = (1, -1, 1, 1)
-    y = ((xf - mean.view(c)) / torch.sqrt(var.view(c) + eps) * scale.float().view(c)
-         + bias.float().view(c))
+    y = ((xf - mean.view(c)) / torch.sqrt(var.view(c) + eps) * scale.to(xf.dtype).view(c)
+         + bias.to(xf.dtype).view(c))
     return to_nhwc(y).to(x.dtype), new_mean, new_var
 
 

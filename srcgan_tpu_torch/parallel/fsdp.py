@@ -121,7 +121,8 @@ def fsdp_state_bytes_per_device(params, mesh: Mesh, axis: str = "data") -> int:
 def _fsdp_update(trainer, state, realA, realB, lr, precomputed=None):
     with gathered(state):
         grads, mstates, metrics = trainer.grads(state, realA, realB, precomputed=precomputed)
-    average_([b for r in mstates.values() for b in r.values()] + list(metrics.values()))
+    average_([b for r in mstates.values() for b in r.values()] + list(metrics.values()),
+             state[0].opt.group)
     new = {}
     for role, ts in state._asdict().items():
         opt: ShardedAdam = ts.opt

@@ -24,9 +24,18 @@ what they must equal on the whole batch (the plain steps, the GAN's
 the losses within rtol 1e-5 (the GAN's 1e-4), each tensor's update within
 rel-L2 5e-2 (Adam's first update amplifies a near-zero gradient's
 reduction-order noise to +-lr), each D BatchNorm statistic within rel-L2
-1e-5.
+1e-5.  ``compare_grads`` adds the gradients that decide whether an update's
+disagreement is that amplification or a wrong gradient: the cascade DP
+step's averaged gradients, per tensor, within rel-L2 1e-4 of one process's.
 The tests hold the ranks' results against the JAX package's 2-device mesh
 too (tests/test_torch_parallel.py).
+
+``--axes`` (an even number of ranks) adds the other axes on the same
+cascade problem and ``compare_axes`` their rows: the (data, space) step on
+N/2 x 2 ranks and the (data, model) step on N/2 x 2 (losses rtol 1e-5,
+updates rel-L2 5e-2, gradients 1e-4 against one process), and the trunk
+pipeline of an RDDBNet(1,1,2,nf=16,nb=2) on a (pipe 2, data N/2) mesh (its
+loss rtol 1e-5 and gradients 1e-4 against the unsharded model's).
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ import numpy as np
 import torch
 
 from srcgan_tpu_torch import config, parallel
+from srcgan_tpu_torch.parallel.dp import average_
 from srcgan_tpu_torch.train.cas import CasTrainer
 from srcgan_tpu_torch.train.cyclegan import CycleGANTrainer
 from srcgan_tpu_torch.train.orbax_io import OrbaxCheckpointer
@@ -48,6 +58,8 @@ LR, G_LR, D_LR, POOL = 1e-3, 1e-3, 1e-3, 2
 CAS_SEED, GAN_SEED = 3, 4
 HW, K, GAN_HW, PER_RANK = 16, 2, 32, 2
 RUNS = ("dp", "dp_u8", "zero1", "fsdp", "gan_dp", "gan_zero1")
+AXES_RUNS = ("2d", "tp")
+TRUNK_SEED, TRUNK_T = 6, 2
 
 
 def cas_trainer(lr: float, device) -> CasTrainer:
@@ -84,17 +96,32 @@ def make_problem(ranks: int) -> dict:
         src_k=rng.integers(0, 256, (K, n, HW, HW, 3), dtype=np.uint8),
         tar_k=rng.integers(0, 256, (K, n, HW, HW, 3), dtype=np.uint8),
         ganA=rng.uniform(0, 1, (n, GAN_HW // 2, GAN_HW // 2, 1)).astype(np.float32),
-        ganB=gan_b)
+        ganB=gan_b,
+        trunk_x=rng.uniform(0, 1, (TRUNK_T, n, 1, 8, 8)).astype(np.float32),
+        trunk_y=rng.uniform(0, 1, (TRUNK_T, n, 1, 16, 16)).astype(np.float32))
 
 
-def run_ranks(problem: dict, ranks: int, device: str = "cuda") -> dict:
+def trunk_model(device):
+    from srcgan_tpu_torch import models
+
+    return models.RDDBNet(1, 1, 2, nf=16, nb=2, device=device,
+                          generator=torch.Generator().manual_seed(TRUNK_SEED)).train()
+
+
+def _grads(grads: dict, prefix: str, out: dict) -> None:
+    for role, named in grads.items():
+        for name, g in named.items():
+            out[f"{prefix}/grad/{role}/{name}"] = g.detach().cpu().numpy()
+
+
+def run_ranks(problem: dict, ranks: int, device: str = "cuda", axes: bool = False) -> dict:
     """``main`` on ``ranks`` ranks (``parallel.launch``); rank 0's results."""
     tmp = tempfile.mkdtemp(prefix="srcgan_steps_check_")
     try:
         np.savez(os.path.join(tmp, "problem.npz"), **problem)
         parallel.launch("srcgan_tpu_torch.parallel.steps_check:main",
                         [os.path.join(tmp, "problem.npz"), os.path.join(tmp, "results.npz"),
-                         device], ranks, device=device)
+                         device] + (["axes"] if axes else []), ranks, device=device)
         with np.load(os.path.join(tmp, "results.npz")) as raw:
             return {k: raw[k] for k in raw.files}
     finally:
@@ -110,10 +137,20 @@ def one_process(problem: dict, device: str = "cuda") -> dict:
     out: dict = {}
     with config.precision("fp32"):
         tr = cas_trainer(LR, device)
+        g, _, _ = tr.grads(tr.init(CAS_SEED), tr._tensor(p["realA"]), tr._tensor(p["realB"]))
+        for run in ("dp",) + AXES_RUNS:
+            _grads(g, run, out)
         state, m = tr.train_step(tr.init(CAS_SEED), p["realA"], p["realB"], LR)
-        for run in ("dp", "zero1", "fsdp"):
+        for run in ("dp", "zero1", "fsdp") + AXES_RUNS:
             _params(state, run, out)
             _metrics(m, run, out)
+        model = trunk_model(device)
+        xq, yq = (p[k].to(device) for k in ("trunk_x", "trunk_y"))
+        loss = (model(xq.flatten(0, 1)) - yq.flatten(0, 1)).abs().mean()
+        names, params = zip(*model.named_parameters())
+        out["pipe/loss"] = loss.detach().cpu().numpy()
+        for name, gt in zip(names, torch.autograd.grad(loss, params)):
+            out[f"pipe/grad/net/{name}"] = gt.cpu().numpy()
         state, m = tr.train_steps_u8(tr.init(CAS_SEED), p["src_k"], p["tar_k"], LR)
         _params(state, "dp_u8", out)
         _metrics(m, "dp_u8", out)
@@ -127,6 +164,40 @@ def one_process(problem: dict, device: str = "cuda") -> dict:
             for name, b in gstate.d.model.named_buffers():
                 out[f"{run}/d_state/{name}"] = b.cpu().numpy()
     return out
+
+
+def _rel(a, b) -> float:
+    return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-30))
+
+
+def compare_grads(ranks: dict, ref: dict, runs=("dp",), bound: float = 1e-4) -> list:
+    """[(what, error, bound)]: per run, the largest per-tensor rel-L2 of the
+    ranks' gradients against one process's."""
+    rows = []
+    for run in runs:
+        keys = [k for k in ref if k.startswith(f"{run}/grad/")]
+        if not keys or any(k not in ranks for k in keys):
+            rows.append((f"{run} gradients (missing)", float("inf"), bound))
+            continue
+        rows.append((f"{run} gradients", max(_rel(ranks[k], ref[k]) for k in keys), bound))
+    return rows
+
+
+def compare_axes(ranks: dict, ref: dict) -> list:
+    """The rows of ``--axes``: losses, updates and gradients of the (data,
+    space) and (data, model) steps, the trunk pipeline's loss and gradients."""
+    rows = []
+    for run in AXES_RUNS:
+        err = max(float(np.abs(ranks[f"{run}/metric/{k}"] - ref[f"{run}/metric/{k}"])
+                        / np.abs(ref[f"{run}/metric/{k}"])) for k in ("loss_SR", "loss_C"))
+        rows.append((f"{run} losses", err, 1e-5))
+        start = _before(run)
+        rows.append((f"{run} updates", max(_rel(ranks[k] - p0, ref[k] - p0)
+                                           for k, p0 in start.items()), 5e-2))
+    rows += compare_grads(ranks, ref, AXES_RUNS + ("pipe",))
+    rows.append(("pipe loss", float(abs(ranks["pipe/loss"] - ref["pipe/loss"])
+                                    / abs(ref["pipe/loss"])), 1e-5))
+    return rows
 
 
 def _before(run: str) -> dict:
@@ -170,10 +241,15 @@ def cli(argv=None) -> int:
     ap = argparse.ArgumentParser(description="the data axis on N ranks against one process")
     ap.add_argument("--ranks", type=int, default=2)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--axes", action="store_true",
+                    help="also the (data, space), (data, model) and pipeline runs")
     args = ap.parse_args(argv)
     problem = make_problem(args.ranks)
-    got = run_ranks(problem, args.ranks, args.device)
-    rows = compare(got, one_process(problem, args.device))
+    got = run_ranks(problem, args.ranks, args.device, args.axes)
+    ref = one_process(problem, args.device)
+    rows = compare(got, ref) + compare_grads(got, ref)
+    if args.axes:
+        rows += compare_axes(got, ref)
     rows.append(("step directories: keep-last and bit-equal round trips",
                  0.0 if (got["orbax/steps"].tolist() == [2, 3] and got["orbax/zero1_equal"].all()
                          and got["orbax/fsdp_equal"].all()) else 1.0, 0.0))
@@ -186,14 +262,79 @@ def cli(argv=None) -> int:
 
 
 def main(argv) -> None:
-    problem, results, device = argv
+    problem, results, device = argv[:3]
     with np.load(problem) as raw:
         p = {k: raw[k] for k in raw.files}
     mesh = parallel.make_mesh(device=device)
     with config.precision("fp32"):
         out = _run(p, mesh)
+        if argv[3:] == ["axes"]:
+            out.update(_run_axes(p, mesh))
     if mesh.is_main:
         np.savez(results, **out)
+
+
+def _run_axes(p: dict, world) -> dict:
+    """The (data, space), (data, model) and trunk pipeline runs."""
+    n = world.size
+    if n % 2:
+        raise SystemExit("--axes needs an even number of ranks")
+    dev, out = world.device, {}
+    lr, seed = float(p["lr"]), int(p["cas_seed"])
+    tr = cas_trainer(lr, dev)
+    for run, axes, make in (("2d", ("data", "space"), parallel.make_cas_2d_step),
+                            ("tp", ("data", "model"), parallel.make_cas_tp_step)):
+        mesh = parallel.make_mesh((n // 2, 2), axes, device=dev)
+        realA, realB = parallel.put_batch((p["realA"], p["realB"]), mesh)
+        step = make(tr, mesh)
+        state = parallel.put_replicated(tr.init(seed), mesh)
+        g = step.grads(state, realA, realB)
+        state = parallel.put_replicated(tr.init(seed), mesh)
+        state, m = step(state, realA, realB, lr)
+        if run == "tp":      # the slices, whole again
+            from srcgan_tpu_torch.parallel import tp as tp_lib
+
+            g = {role: _whole(g[role], tp_lib.tp_param_shardings(ts.model, mesh), mesh)
+                 for role, ts in zip(("sr", "c"), state)}
+            full = {role: _whole(dict(ts.model.named_parameters()),
+                                 tp_lib.tp_param_shardings(ts.model, mesh), mesh)
+                    for role, ts in zip(("sr", "c"), state)}
+            for role, named in full.items():
+                for name, t in named.items():
+                    out[f"tp/{role}/{name}"] = t.detach().cpu().numpy()
+        else:
+            _params(state, run, out)
+        _grads(g, run, out)
+        _metrics(m, run, out)
+
+    mesh = parallel.make_mesh((2, n // 2), ("pipe", "data"), device=dev)
+    model = trunk_model(dev)
+    _, _, grads = parallel.make_trunk_pipeline_train(model, mesh, data_axis="data")
+    pair = parallel.place_trunk_pipeline_params(model, mesh)
+    xq, yq = (torch.as_tensor(p[k]).to(dev) for k in ("trunk_x", "trunk_y"))
+    loss, g_ht, g_st = grads(pair, xq, yq)
+    out["pipe/loss"] = loss.detach().cpu().numpy()
+    for name, g in g_ht.items():
+        out[f"pipe/grad/net/{name}"] = g.cpu().numpy()
+    for name, g in g_st.items():
+        parts = [torch.empty_like(g) for _ in range(2)]
+        torch.distributed.all_gather(parts, g.contiguous(), group=mesh.group("pipe"))
+        for s, part in enumerate(parts):
+            out[f"pipe/grad/net/RRDB_trunk.{s}.{name}"] = part.cpu().numpy()
+    return out
+
+
+def _whole(named: dict, dims: dict, mesh) -> dict:
+    """Tensor-parallel slices gathered whole over ``model``, by name."""
+    out = {}
+    for name, t in named.items():
+        t = t.detach()
+        if dims.get(name) is not None:
+            parts = [torch.empty_like(t) for _ in range(mesh.size("model"))]
+            torch.distributed.all_gather(parts, t.contiguous(), group=mesh.group("model"))
+            t = torch.cat(parts, dims[name])
+        out[name] = t
+    return out
 
 
 def _run(p: dict, mesh) -> dict:
@@ -204,6 +345,9 @@ def _run(p: dict, mesh) -> dict:
     seed = int(p["cas_seed"])
     realA, realB = parallel.put_batch((p["realA"], p["realB"]), mesh)
 
+    g, _, _ = tr.grads(tr.init(seed), realA, realB)
+    average_([t for named in g.values() for t in named.values()], mesh.group("data"))
+    _grads(g, "dp", out)
     state = parallel.put_replicated(tr.init(seed), mesh)
     state, m = parallel.make_cas_dp_step(tr, mesh)(state, realA, realB, lr)
     _params(state, "dp", out)

@@ -82,9 +82,11 @@ class ShardedAdam:
         # each parameter's strides (channels_last convs), which FSDP restores
         self.strides = [p.stride() for _, p in named]
         self.numel = sum(math.prod(s) for s in self.shapes)
-        self.chunk = _chunk(self.numel, mesh.size)
+        self.ranks, self.group = mesh.size("data"), mesh.group("data")
+        self.chunk = _chunk(self.numel, self.ranks)
+        at = mesh.coord("data")
         flat = self.flatten([p.detach() for _, p in named])
-        self.rows = flat[mesh.rank * self.chunk:(mesh.rank + 1) * self.chunk].clone()
+        self.rows = flat[at * self.chunk:(at + 1) * self.chunk].clone()
         self.rows.requires_grad_(True)
         self.opt = torch.optim.Adam([self.rows], lr=lr, betas=tuple(betas), eps=eps)
 
@@ -94,7 +96,7 @@ class ShardedAdam:
 
     def flatten(self, tensors: List[torch.Tensor]) -> torch.Tensor:
         """The tensors as one fp32 vector padded to D rows of ``chunk``."""
-        flat = torch.zeros(self.mesh.size * self.chunk, dtype=torch.float32,
+        flat = torch.zeros(self.ranks * self.chunk, dtype=torch.float32,
                            device=self.mesh.device)
         off = 0
         for t in tensors:
@@ -115,13 +117,13 @@ class ShardedAdam:
         """This rank's row of the ranks' mean gradient."""
         flat = self.flatten([grads[n] for n in self.names])
         out = torch.empty(self.chunk, dtype=flat.dtype, device=flat.device)
-        _reduce_scatter(out, flat, op=dist.ReduceOp.SUM)
-        return out.div_(self.mesh.size)
+        _reduce_scatter(out, flat, op=dist.ReduceOp.SUM, group=self.group)
+        return out.div_(self.ranks)
 
     def gather(self, rows: torch.Tensor) -> torch.Tensor:
         """Every rank's row of a vector, concatenated (the padded full vector)."""
-        out = torch.empty(self.mesh.size * self.chunk, dtype=rows.dtype, device=rows.device)
-        _all_gather(out, rows.detach().contiguous())
+        out = torch.empty(self.ranks * self.chunk, dtype=rows.dtype, device=rows.device)
+        _all_gather(out, rows.detach().contiguous(), group=self.group)
         return out
 
     @torch.no_grad()
@@ -162,7 +164,8 @@ def _shard_ts(ts: TrainState, mesh: Mesh, keep_moments: bool, fsdp: bool = False
         states = [ts.opt.state.get(p, {}) for p in params]
         count = int(states[0]["step"]) if "step" in states[0] else 0
         if count:
-            lo, hi = mesh.rank * sharded.chunk, (mesh.rank + 1) * sharded.chunk
+            at = mesh.coord("data")
+            lo, hi = at * sharded.chunk, (at + 1) * sharded.chunk
             mu = sharded.flatten([s["exp_avg"] for s in states])[lo:hi]
             nu = sharded.flatten([s["exp_avg_sq"] for s in states])[lo:hi]
             sharded.set_moments(mu, nu, count)
@@ -220,7 +223,8 @@ def _zero1_update_ts(ts: TrainState, grads: Dict[str, torch.Tensor], lr) -> Trai
 
 def _zero1_update(trainer, state, realA, realB, lr, precomputed=None):
     grads, mstates, metrics = trainer.grads(state, realA, realB, precomputed=precomputed)
-    average_([b for r in mstates.values() for b in r.values()] + list(metrics.values()))
+    average_([b for r in mstates.values() for b in r.values()] + list(metrics.values()),
+             state[0].opt.group)
     new = {}
     for role, ts in state._asdict().items():
         ts = _zero1_update_ts(ts, grads[role], lr)
@@ -268,9 +272,9 @@ def make_gd_zero1_step(trainer, mesh: Mesh):
     t._update = lambda ts, grads, lr: _zero1_update_ts(ts, grads, lr)
 
     def step(state, realA, realB, g_lr, d_lr):
-        with norm.sync_batch_norm():
+        with norm.sync_batch_norm(mesh.group("data")):
             state, aux = t.gd_step(state, realA, realB, g_lr, d_lr)
-        return state, _average_scalars(aux)
+        return state, _average_scalars(aux, mesh)
 
     return step
 

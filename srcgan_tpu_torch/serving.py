@@ -22,11 +22,17 @@ non-square input) and their inverted fp32 RGB outputs are averaged.
 ``TiledPredictor`` serves scenes of any size through one tile shape: the
 scene is cut into overlapping windows, run in batches, and the cores of the
 output tiles are stitched.
+
+``SpatialShardedPredictor`` runs each batch over the ``space`` ranks of a
+mesh, a row strip each (``parallel.spatial``); ``SpatialShardedTiledPredictor``
+is the tiled form over it.  Space rank 0 drives: its ``predict`` sends each
+call's header and batch to the other ranks, which run ``follow()``.
 """
 from __future__ import annotations
 
 import contextlib
 import copy
+import threading
 from collections import deque
 
 import numpy as np
@@ -312,3 +318,149 @@ class TiledPredictor(CascadePredictor):
             canvas[cy * s:(cy + ly) * s, cx * s:(cx + lx) * s] = \
                 out_tiles[idx, ky * s:(ky + ly) * s, kx * s:(kx + lx) * s]
         return canvas
+
+
+# the followers' headers: what the next broadcast holds
+_STOP, _U8, _GRAY, _RELOAD = 0, 1, 2, 3
+_HEADER = 8
+
+
+class SpatialShardedPredictor(CascadePredictor):
+    """The cascade over the ``space`` ranks of ``mesh`` (a 1-D space mesh of
+    every rank by default), for images beyond one card's memory.
+
+    Each call's batch crosses to every rank; each runs ``/255``, the SR net
+    (the RDDBNet x4's RDB5 and tail kernels on its strip plus their halos in
+    bf16 on the card) and the colorizer under ``spatial.space_scope`` on its
+    row strip of ``spatial.cascade_geometry``'s plan, and space rank 0
+    gathers the uint8 strips.  With ``self_ensemble`` rank 0 transforms the
+    whole batch and the copies cross as fp32 gray, their fp32 RGB strips
+    gathered.  Rank 0 drives, one call at a time; every other rank runs
+    ``follow()`` until rank 0's ``stop()``.  Results match the unsharded
+    predictor within uint8 rounding.  ``followers``: an object whose
+    ``alive()`` rank 0 checks before each call (the serve tool's child
+    processes), so that a dead follower raises instead of hanging."""
+
+    def __init__(self, *args, mesh=None, followers=None, **kw):
+        super().__init__(*args, **kw)
+        if self.int8:
+            raise ValueError("the space-sharded cascade runs bf16 or fp32, not int8")
+        from srcgan_tpu_torch import parallel
+        from srcgan_tpu_torch.parallel import spatial
+
+        self.mesh = mesh or parallel.make_mesh(None, ("space",), device=self.device)
+        self.followers = followers
+        self._spatial = spatial
+        self._lock = threading.Lock()
+        self._src = self.mesh.peer("space", 0)
+        self.align, self.min_rows = spatial.cascade_geometry(self.sr_model, self.c_model,
+                                                             self.up)
+
+    @property
+    def is_leader(self) -> bool:
+        return self.mesh.coord("space") == 0
+
+    def plan(self, h: int):
+        """The strips of an input of h rows."""
+        return self._spatial.plan_strips(h, self.mesh.size("space"), self.align,
+                                         self.min_rows)
+
+    # -- the collectives -----------------------------------------------------------
+
+    def _broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        torch.distributed.broadcast(t, self._src, group=self.mesh.group("space"))
+        return t
+
+    def _send(self, kind: int, t: torch.Tensor | None = None) -> None:
+        if self.followers is not None and not self.followers.alive():
+            raise RuntimeError("a follower rank of the space-sharded cascade has died")
+        head = torch.zeros(_HEADER, dtype=torch.int64, device=self.device)
+        head[0] = kind
+        if t is not None:
+            head[1] = t.dim()
+            head[2:2 + t.dim()] = torch.tensor(t.shape)
+        self._broadcast(head)
+        if t is not None:
+            self._broadcast(t)
+
+    def _strip(self, kind: int, x: torch.Tensor) -> torch.Tensor:
+        """This rank's output strip of the batch x (NHWC)."""
+        plan = self.plan(x.shape[1])
+        xs = plan.cut(x, self.mesh.coord("space"))
+        with torch.no_grad(), config.precision("bf16" if self.bf16 else "fp32"), \
+                self._spatial.space_scope(self.mesh, plan):
+            if kind == _GRAY:
+                return self._rgb_of(xs)
+            return CascadePredictor._run(self, xs)
+
+    def _sharded(self, kind: int, x: torch.Tensor) -> torch.Tensor:
+        self._send(kind, x)
+        return self._spatial.gather_strips(self._strip(kind, x), self.mesh, dim=1)
+
+    # -- rank 0 ----------------------------------------------------------------------
+
+    def _run(self, gray_u8: torch.Tensor) -> torch.Tensor:
+        if not self.is_leader:
+            raise RuntimeError("only space rank 0 drives the sharded cascade; the others "
+                               "run follow()")
+        with self._lock:
+            if not self.self_ensemble:
+                return self._sharded(_U8, gray_u8.contiguous())
+            with torch.no_grad(), config.precision("bf16" if self.bf16 else "fp32"):
+                x = gray_u8.float() / 255.0
+                if x.shape[-1] == 3:
+                    x = rgb_to_gray(x)
+                rgb = ensemble.self_ensemble_apply(
+                    lambda v: self._sharded(_GRAY, v.contiguous()), x).clamp(0.0, 1.0)
+                return torch.round(rgb * 255.0).to(torch.uint8)
+
+    def reload_checkpoints(self, netGA: str, netGB: str):
+        """As ``CascadePredictor.reload_checkpoints``; ``install()`` also
+        sends the paths to the followers, which load and install them."""
+        install_here = super().reload_checkpoints(netGA, netGB)
+
+        def install():
+            with self._lock:
+                self._send(_RELOAD)
+                torch.distributed.broadcast_object_list([netGA, netGB], self._src,
+                                                        group=self.mesh.group("space"))
+                install_here()
+
+        return install
+
+    def stop(self) -> None:
+        """Rank 0: end the followers' loops."""
+        with self._lock:
+            self._send(_STOP)
+
+    # -- the other ranks ----------------------------------------------------------
+
+    def follow(self) -> None:
+        """Serve rank 0's calls until its ``stop()``."""
+        dtypes = {_U8: torch.uint8, _GRAY: torch.float32}
+        while True:
+            head = self._broadcast(torch.zeros(_HEADER, dtype=torch.int64,
+                                               device=self.device)).tolist()
+            kind = head[0]
+            if kind == _STOP:
+                return
+            if kind == _RELOAD:
+                paths = [None, None]
+                torch.distributed.broadcast_object_list(paths, self._src,
+                                                        group=self.mesh.group("space"))
+                super().reload_checkpoints(*paths)()
+                continue
+            x = torch.empty(head[2:2 + head[1]], dtype=dtypes[kind], device=self.device)
+            self._spatial.gather_strips(self._strip(kind, self._broadcast(x)), self.mesh,
+                                        dim=1)
+
+
+class SpatialShardedTiledPredictor(SpatialShardedPredictor, TiledPredictor):
+    """Scenes of any size over the space ranks: ``TiledPredictor``'s window
+    plan and stitching on rank 0, every tile batch (and a sub-tile scene at
+    its own shape) through ``SpatialShardedPredictor._run``.  The serve
+    tool's ``--mesh-size`` with ``--tile``.  Cooperative ``__init__``:
+    SpatialShardedPredictor takes ``mesh`` and ``followers``, TiledPredictor
+    ``tile`` / ``overlap`` / ``max_batch``, CascadePredictor the rest.
+    Heights smaller than the mesh, or not divisible by it, leave ranks
+    empty or ragged (``spatial.plan_strips``)."""

@@ -31,6 +31,8 @@ The math is the JAX trainer's; the form is PyTorch's:
   kd_target)`` (L1, plus the VGG16 perceptual term with
   ``perceptual_params``), and ``_distill_targets(sr_in, c_in)`` gives the
   ``kd_target``s, None here; ``train.distill.DistillTrainer`` overrides both.
+  The PSNR metrics go through ``_psnr``; ``parallel.dp.make_cas_2d_step``
+  takes both losses and PSNRs over the whole image of its strips.
 """
 from __future__ import annotations
 
@@ -166,6 +168,10 @@ class CasTrainer:
                 self.perceptual_params, pred, target)
         return loss
 
+    def _psnr(self, output, target):
+        """A metric hook: PSNR of a stage's detached fp32 output."""
+        return losses.psnr(output, target)
+
     def _distill_targets(self, sr_in, c_in):
         """A hook: ``DistillTrainer`` returns the frozen teacher's outputs on
         the stage inputs; the base trainer has no teacher."""
@@ -201,8 +207,8 @@ class CasTrainer:
         loss_sr, fake_BC, g_sr, ms_sr = self._stage_grads(state.sr.model, sr_in, real_BC, kd_sr)
         loss_c, fake_BB, g_c, ms_c = self._stage_grads(state.c.model, c_in, tgt_B, kd_c)
         metrics = {"loss_SR": loss_sr, "loss_C": loss_c,
-                   "psnr_SR": losses.psnr(fake_BC, real_BC),
-                   "psnr_C": losses.psnr(fake_BB, tgt_B)}
+                   "psnr_SR": self._psnr(fake_BC, real_BC),
+                   "psnr_C": self._psnr(fake_BB, tgt_B)}
         return {"sr": g_sr, "c": g_c}, {"sr": ms_sr, "c": ms_c}, metrics
 
     @torch.no_grad()

@@ -289,11 +289,23 @@ def test_gd_zero1_step_matches_jax_mesh(ranks, problem, gan, jmesh):
 
 
 def test_mesh_rules():
-    """What a mesh refuses: another axis, a size without processes."""
-    with pytest.raises(NotImplementedError, match="A14"):
-        parallel.make_mesh((2, 2), ("data", "space"), device="cpu")
+    """What a mesh takes: 1 or 2 of the four axes (a 2-D mesh of one rank
+    is a group of one); what it refuses: an unknown axis, a size without
+    processes."""
+    with pytest.raises(ValueError, match="axes"):
+        parallel.make_mesh((2,), ("rows",), device="cpu")
+    with pytest.raises(ValueError, match="axes"):
+        parallel.make_mesh((1, 1, 1), ("data", "space", "model"), device="cpu")
     if "WORLD_SIZE" not in os.environ:
         with pytest.raises(ValueError, match="processes"):
             parallel.make_mesh((2,), device="cpu")
+        with pytest.raises(ValueError, match="processes"):
+            parallel.make_mesh((2, 2), ("data", "space"), device="cpu")
+        mesh = parallel.make_mesh((1, 1), ("data", "space"), device="cpu")
+        try:
+            assert mesh.shape == {"data": 1, "space": 1} and mesh.size("space") == 1
+            assert mesh.coord("space") == 0 and mesh.group("data") is not None
+        finally:
+            parallel.destroy_mesh()
     padded, n = parallel.pad_batch_to(np.arange(5)[:, None], 4)
     assert padded.shape == (8, 1) and n == 5 and (padded[5:] == 4).all()

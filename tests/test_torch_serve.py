@@ -439,11 +439,22 @@ def test_warmup_runs_every_padded_bucket(ckpts, monkeypatch):
     assert seen == [(n, h, w, 1) for h, w in ((16, 16), (8, 12)) for n in (3, 6, 9)]
 
 
-def test_mesh_size_exits_naming_the_parallel_stack(ckpts):
-    args = serve.build_parser().parse_args(
-        ["--netGA", ckpts[0], "--netGB", ckpts[1], "--device", "cpu", "--mesh-size", "2"])
-    with pytest.raises(SystemExit, match="ROADMAP A14"):
-        serve.make_server(args)
+def test_mesh_size_exits_naming_the_parallel_stack(ckpts, reference):
+    """--mesh-size 2 serves: this process is space rank 0 and one gloo
+    follower takes the other strip; a request within 1 LSB of the one-rank
+    daemon's, /healthz names the mesh, and close() stops the follower."""
+    srv = start(ckpts, "--mesh-size", "2")
+    try:
+        img = np.random.default_rng(3).integers(0, 256, (32, 24), dtype=np.uint8)
+        status, _, out = post_png(srv.server_address[1], img)
+        assert status == 200
+        want = reference.predict(img[None, ..., None])[0]
+        assert out.shape == want.shape
+        assert np.abs(out.astype(int) - want.astype(int)).max() <= 1
+        assert get_json(srv.server_address[1], "/healthz")["mesh_size"] == 2
+    finally:
+        stop(srv)
+    assert not srv.followers.alive()
 
 
 def test_precision_scopes_of_two_threads_keep_tf32_off():

@@ -1,0 +1,164 @@
+"""The port's space axis on two gloo ranks against the JAX package on a
+2-device ``space`` mesh of the conftest's CPU devices.
+
+The two ranks run once for the module (``parallel.launch`` of
+``srcgan_tpu_torch.parallel.axes_check``: the workers import the port
+alone), from the seeds of the models built here, whose weights cross to
+JAX through ``interop``.  The cases: ``make_spatial_infer`` of ESPCN x2 and
+RDDBNet x4 (atol 2e-5, rtol 1e-4); the space-sharded predictor and its
+tiled form on the JAX package's three odd scenes (one of them leaving a
+rank empty), within 1 LSB of JAX's sharded predictors and of the port's
+unsharded ones; and, in float64 against one process, the group and batch
+norms over strips of 48 / 16 rows and of 64 / 0 rows, the ResDeconv's
+forward and backward on ragged strips, and the halo units of the fused
+paths.  The test of the strip plan needs no ranks.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from srcgan_tpu import config as jax_config
+from srcgan_tpu import models as jmodels
+from srcgan_tpu import parallel as jparallel
+from srcgan_tpu import serving as jserving
+from srcgan_tpu_torch import interop
+from srcgan_tpu_torch.parallel import axes_check, spatial
+from srcgan_tpu_torch.serving import CascadePredictor, TiledPredictor
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture(autouse=True)
+def _highest():
+    with jax_config.matmul_precision("highest"):
+        yield
+
+
+@pytest.fixture(scope="module")
+def problem():
+    return axes_check.make_problem()
+
+
+@pytest.fixture(scope="module")
+def ranks(problem):
+    return axes_check.run_ranks(problem, 2, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def jmesh():
+    return jparallel.make_mesh((2,), ("space",))
+
+
+def jparams(name):
+    return jax.tree_util.tree_map(jnp.asarray, interop.jax_tree_from_module(
+        axes_check.build(name))[0])
+
+
+@pytest.mark.parametrize("name,jax_model", [("espcn", lambda: jmodels.ESPCN(1, 3, 2)),
+                                            ("rddb", lambda: jmodels.RDDBNet(1, 1, 4, nf=16,
+                                                                             nb=1))])
+def test_spatial_infer_matches_jax(ranks, problem, jmesh, name, jax_model):
+    x = jnp.asarray(problem[f"sp_{name}"])
+    want = jparallel.make_spatial_infer(jax_model(), jmesh)(jparams(name), x)
+    np.testing.assert_allclose(ranks[f"sp/{name}"], np.asarray(want), atol=2e-5, rtol=1e-4)
+
+
+def _lsb(a, b):
+    assert a.shape == b.shape, (a.shape, b.shape)
+    return int(np.abs(a.astype(int) - b.astype(int)).max())
+
+
+@pytest.fixture(scope="module")
+def cascades(jmesh):
+    """(the JAX sharded predictor, its tiled form, the port's unsharded pair)."""
+    sr, c = jmodels.ESPCN(1, 1, 2), jmodels.ResDeconv(1, 3)
+    pa, pb = jparams("cas_sr"), jparams("cas_c")
+    tiled = dict(tile=32, overlap=8, max_batch=2)
+    psr, pc = axes_check.build("cas_sr"), axes_check.build("cas_c")
+    return (jserving.SpatialShardedPredictor(sr, pa, c, pb, up=2, mesh=jmesh),
+            jserving.SpatialShardedTiledPredictor(sr, pa, c, pb, up=2, mesh=jmesh, **tiled),
+            CascadePredictor(psr, pc, 2, device="cpu"),
+            TiledPredictor(psr, pc, 2, device="cpu", **tiled))
+
+
+def test_sharded_predictor_within_one_lsb(ranks, problem, cascades):
+    jpred, _, pred, _ = cascades
+    got = ranks["pred/u8"]
+    assert got.shape == (1, 128, 32, 3)
+    assert _lsb(got, np.asarray(jpred.predict(problem["pred_u8"]))) <= 1
+    assert _lsb(got, pred.predict(problem["pred_u8"])) <= 1
+
+
+def test_sharded_predictor_reload_and_ensemble(ranks, problem):
+    """A reload on rank 0 reaches the follower (the reloaded pair's
+    unsharded answer within 1 LSB), and the self-ensembled batch crosses
+    the strips as fp32 gray copies (within 1 LSB of the unsharded one)."""
+    x = problem["pred_u8"]
+    again = CascadePredictor(*axes_check.reloaded_pair(), 2, device="cpu")
+    assert _lsb(ranks["pred/reloaded"], again.predict(x)) <= 1
+    ens = CascadePredictor(axes_check.build("cas_sr"), axes_check.build("cas_c"), 2,
+                           device="cpu", self_ensemble=True)
+    assert _lsb(ranks["pred/ensemble"], ens.predict(x)) <= 1
+
+
+@pytest.mark.parametrize("shape", axes_check.SCENES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_sharded_tiled_odd_scenes(ranks, problem, cascades, shape):
+    """Sub-tile scenes at their own shape through the strips: H not
+    divisible by the mesh, H below the alignment (rank 1 empty), H just
+    above the tile core."""
+    _, jtiled, _, tiled = cascades
+    key = axes_check.scene_key(shape)
+    got = ranks[f"tiled/{key}"]
+    assert _lsb(got, np.asarray(jtiled.predict_scene(problem[key]))) <= 1
+    assert _lsb(got, tiled.predict_scene(problem[key])) <= 1
+    heights = ranks[f"tiled/plan/{key}"]
+    assert heights.sum() == shape[0] and (heights[0] > 0)
+    if shape[0] < 8:
+        assert heights.tolist() == [shape[0], 0]
+
+
+@pytest.mark.parametrize("layer", ["gn", "bn"])
+@pytest.mark.parametrize("heights", ["48_16", "64_0"])
+def test_norm_moments_over_uneven_and_empty_strips(ranks, layer, heights):
+    """Output, input gradient and scale gradient of the strips, float64,
+    against one process on the whole image."""
+    out, gx, gw = ranks[f"norm/{layer}/{heights}"]
+    assert out <= 1e-12 and gx <= 1e-10 and gw <= 1e-8, (out, gx, gw)
+
+
+def test_ragged_strips_forward_and_backward(ranks):
+    """ResDeconv on 46 rows (strips of 16 and 30): the strided convs' ceil
+    arithmetic gives the whole image's 48 output rows, and the halo
+    exchange's backward the whole image's gradients (float64)."""
+    y, gx, gp, rows, rows_ref = ranks["ragged/resdeconv"]
+    assert rows == rows_ref == 48
+    assert max(y, gx, gp) <= 1e-12, (y, gx, gp)
+
+
+def test_halo_units_are_exact(ranks):
+    """A 5-conv chain on a strip plus 5 rows each side, and the x4 tail on
+    a strip extended to a multiple of 8 rows by the neighbour's rows, both
+    cropped; x2 bilinear (one halo row, the edge rows repeated at the true
+    edges) and nearest upsampling: bit-equal to the whole image's, the
+    bilinear one to float64's rounding."""
+    chain, tail, bilinear, nearest = ranks["units"].tolist()
+    assert chain == tail == nearest == 0.0 and bilinear <= 1e-12
+
+
+@pytest.mark.parametrize("h,ranks_,align,rows,want", [
+    (64, 2, 8, 8, (32, 32)), (23, 2, 8, 8, (8, 15)), (7, 2, 8, 8, (7, 0)),
+    (37, 4, 8, 16, (16, 21, 0, 0)), (512, 4, 4, 8, (128, 128, 128, 128)),
+    (50, 3, 4, 8, (16, 16, 18))])
+def test_strip_plan(h, ranks_, align, rows, want):
+    plan = spatial.plan_strips(h, ranks_, align, rows)
+    assert plan.heights == want
+    assert all(s % align == 0 for s, n in zip(plan.starts, plan.heights) if n)
