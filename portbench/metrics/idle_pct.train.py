@@ -1,0 +1,2 @@
+"""The card's idle share in the training cell (``portbench.readers.idle_pct``)."""
+from portbench.readers import idle_pct as read  # noqa: F401
