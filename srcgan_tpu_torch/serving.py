@@ -27,6 +27,11 @@ output tiles are stitched.
 mesh, a row strip each (``parallel.spatial``); ``SpatialShardedTiledPredictor``
 is the tiled form over it.  Space rank 0 drives: its ``predict`` sends each
 call's header and batch to the other ranks, which run ``follow()``.
+
+``predict_scene`` adds each scene's output pixels to the counters
+``tiler.kept_px`` (the canvas) and ``tiler.computed_px`` (every row run, the
+last batch's padding included; ``utils.trace``): their ratio is the share of
+the device's tiled work that the stitch keeps.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ from srcgan_tpu_torch.interop import load_params_any
 from srcgan_tpu_torch.ops import ensemble
 from srcgan_tpu_torch.ops.color import lab_norm_to_rgb, rgb_to_gray
 from srcgan_tpu_torch.train.state import parse_checkpoint_name
+from srcgan_tpu_torch.utils import trace
 
 
 class CascadePredictor:
@@ -293,7 +299,9 @@ class TiledPredictor(CascadePredictor):
         if H < t or W < t:
             # one call at the scene's own shape, a batch of 1: padding it to
             # max_batch would run copies of the whole scene for nothing
-            return self._collect(*self._predict_async(scene_u8[None], pad=0))[0]
+            out = self._collect(*self._predict_async(scene_u8[None], pad=0))[0]
+            _count_pixels(out.shape[0] * out.shape[1], out.shape[0] * out.shape[1])
+            return out
         rows = self._axis_windows(H, t, self.overlap)
         cols = self._axis_windows(W, t, self.overlap)
         tiles = np.stack([scene_u8[wy:wy + t, wx:wx + t]
@@ -317,7 +325,16 @@ class TiledPredictor(CascadePredictor):
             _, kx, cx, lx = cols[j]
             canvas[cy * s:(cy + ly) * s, cx * s:(cx + lx) * s] = \
                 out_tiles[idx, ky * s:(ky + ly) * s, kx * s:(kx + lx) * s]
+        rows_run = -(-len(tiles) // self.max_batch) * self.max_batch
+        _count_pixels(H * s * W * s, rows_run * (t * s) ** 2)
         return canvas
+
+
+def _count_pixels(kept: int, computed: int) -> None:
+    """A scene's output pixels: those its canvas kept, and those the device
+    computed (every row run, the last batch's padding included)."""
+    trace.count("tiler.kept_px", kept)
+    trace.count("tiler.computed_px", computed)
 
 
 # the followers' headers: what the next broadcast holds
