@@ -6,7 +6,8 @@
 Phases, in order; the first failure raises and the script exits non-zero:
   1. device  - the card's name and power limit (nvidia-smi);
   2. build   - nvcc builds every kernel (tail_x4, gray_degrade, ssim, rdb5,
-               probes) from csrc/, one process per source, all started together;
+               probes, group_norm) from csrc/, one process per source, all
+               started together;
   3. kernels - each kernel's wrapper against its plain PyTorch version at the
                shapes the main paths give it, with both times (CUDA events,
                median of 25 calls after 3 warm-up calls) and its bound: the
@@ -25,13 +26,21 @@ Phases, in order; the first failure raises and the script exits non-zero:
                forms (bf16, int8) at the serving shape (8,128,128,64), a
                ragged one (1,15,128,64), a 512-wide one and phase 15's
                tiles (8,256,256,64), timed in turns with the cuDNN block;
-               the tail also on phase 15's 256^2 trunk;
+               the tail also on phase 15's 256^2 trunk; group_norm, through
+               the entry the module runs on channels_last views, at the
+               colorizer's four stream shapes and the tiled windows' four
+               with each epilogue (at most one bf16 ulp from its plain
+               version, two device kernels a call, three calls bit-equal),
+               timed at the stream shapes in turns with its plain version
+               and F.group_norm, with its device time against the 6-byte
+               bound;
   4. fp32    - the full-width serving cascade on the card against the same
                cascade on the CPU, in fp32 with TF32 off;
   5. serve   - the bf16 CascadePredictor at full width answers requests, every
                forward goes through the tail's main kernel and its finish once
-               each and the rdb5_bf16 kernel nine times (launch counters), and
-               the steady batch-8 throughput is measured;
+               each, the rdb5_bf16 kernel nine times and the group_norm
+               kernel 32 times with no plain GroupNorm call (launch counters),
+               and the steady batch-8 throughput is measured;
   6. trunk   - the serving RDDBNet in bf16 under rdb5_schedule("fused") and
                with no schedule scoped: 9 rdb5_bf16 launches per forward,
                against the naive forward (cuDNN), in turns;
@@ -128,7 +137,11 @@ Phases, in order; the first failure raises and the script exits non-zero:
                colorizer, tile 256, overlap 64: 6 batches of 8, each with 9
                rdb5_bf16 launches and one tail_x4 main and finish launch),
                within a mean of 2 LSB of the whole-scene fp32 program (TF32
-               off), the fp32 tiles within 1 LSB max, output MP/s; (b) the
+               off), the fp32 tiles within 1 LSB max, output MP/s; then with
+               the ResDeconv colorizer, as the benchmark's tiled cell: 32
+               group_norm launches a tile batch, no plain GroupNorm call,
+               within a mean of 1 LSB (2% of the values beyond 8) of the
+               same predictor with its GroupNorms on the plain path; (b) the
                serve cascade self-ensembled, bf16, batch 8 of 128^2 as ONE
                forward of 64 rows (9 + 1 + 1 launches), in fp32 within 1 LSB
                of the mean of 8 predictor calls on the transformed inputs,
@@ -228,7 +241,7 @@ NF = 64
 # [0, 1] (std ~0.2) instead of saturating: uint8 checks then see the values.
 PRED_SCALE = 0.03
 WARMUP, REPS = 3, 25         # calls per timing: warm-up, then the median of REPS
-KERNELS = ("tail_x4", "gray_degrade", "ssim", "rdb5", "probes")
+KERNELS = ("tail_x4", "gray_degrade", "ssim", "rdb5", "probes", "group_norm")
 # builds timed beside a kernel and never on a path: the tail's first design;
 # probe_matmul with its products left out (loads and stores only, both types);
 # the first design of the six probes redesigned since (probe_mxu's and
@@ -482,6 +495,91 @@ def phase_gray_degrade(dev, card: str) -> dict:
             "max_abs_err": worst, **first, "library_ms": None}
 
 
+# The colorizer's GroupNorm(32) inputs (NHWC) in a bf16 forward: the stream
+# cell's batch 8 of 128^2 -> 512^2 (9 + 9 + 9 + 5 calls), and the tiled
+# scenes' windows, batch 8 of 256^2 -> 1024^2
+GN_SHAPES = ((8, 256, 256, 64), (8, 128, 128, 128), (8, 64, 64, 256), (8, 32, 32, 512))
+GN_TILED_SHAPES = ((8, 512, 512, 64), (8, 256, 256, 128), (8, 128, 128, 256), (8, 64, 64, 512))
+
+
+def phase_group_norm(dev, card: str) -> dict:
+    """The GroupNorm kernel through the entry the module runs, on the
+    channels_last (N,C,H,W) view of each shape, against its plain version
+    at the colorizer's four stream shapes and the tiled windows' four, each
+    with no epilogue, ReLU, and residual + ReLU: at most one bf16 ulp apart
+    (``ulps_apart``), one call = two device kernels, three calls bit-equal.
+    At the stream shapes, with residual + ReLU: the entry, the plain version
+    and ``F.group_norm`` on the bf16 channels_last input (the yardstick: one
+    PyTorch call of the norm alone, never called by the port) in rounds in
+    turns, the device time (profiler) and the bound, 6 bytes an element at
+    3.35 TB/s (x read once, the residual read, y written), beside the two-
+    pass design's own least time (8: x read twice)."""
+    import torch.nn.functional as F
+
+    from srcgan_tpu_torch.ops.kernels import group_norm_kernel as gk
+    from srcgan_tpu_torch.probes import common
+
+    rows, worst = [], 0.0
+    for i, shape in enumerate(GN_SHAPES + GN_TILED_SHAPES):
+        g = torch.Generator().manual_seed(70 + i)
+        c = shape[-1]
+        x = (torch.randn(shape, generator=g) * 2 + 0.5).to(dev, torch.bfloat16)
+        res = torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+        w = (torch.rand(c, generator=g) + 0.5).to(dev, torch.bfloat16)
+        b = (torch.rand(c, generator=g) - 0.5).to(dev, torch.bfloat16)
+        xv, rv = x.permute(0, 3, 1, 2), res.permute(0, 3, 1, 2)
+        with torch.no_grad():
+            for label, r, relu in (("none", None, False), ("relu", None, True),
+                                   ("residual_relu", res, True)):
+                before = gk.launches
+                got = [gk.group_norm(xv, w, b, 32, 1e-5, None if r is None else rv, relu)
+                       for _ in range(3)]
+                torch.cuda.synchronize()
+                same = all(torch.equal(got[0], t) for t in got[1:])
+                layout = got[0].is_contiguous(memory_format=torch.channels_last)
+                gap = gk.ulps_apart(got[0].permute(0, 2, 3, 1), x, w, b, 32, 1e-5, r, relu)
+                worst = max(worst, gap)
+                ok = gap <= 1.0 and same and layout and gk.launches == before + 3
+                print(f"[kernels] group_norm {shape} {label}: {gap:.3f} of the bound (one bf16 "
+                      f"ulp + fp32's rounding of the operands), three calls bit-equal {same}, "
+                      f"channels_last {layout} {'PASS' if ok else 'FAIL'}")
+                check(ok, f"group_norm {shape} {label} disagrees with its plain version")
+            del got
+            if shape not in GN_SHAPES:
+                del x, res, xv, rv
+                continue
+            fns = {"kernel": lambda: gk.group_norm(xv, w, b, 32, 1e-5, rv, True),
+                   "plain": lambda: gk.group_norm_reference(x, w, b, 32, 1e-5, res, True),
+                   "library": lambda: F.group_norm(xv, 32, w, b, 1e-5)}
+            turns = in_turns_ms(fns, rounds=3)
+            names = common.device_kernels(fns["kernel"])
+            per_call = sum(names.values())
+            check(per_call == 2 and all("gn_" in k for k in names),
+                  f"group_norm ran {per_call} device kernels a call: {names}")
+            on_device = common.device_us(fns["kernel"], "")
+            graph_ms = common.graph_ms([fns["kernel"]] * 10)
+        ms, plain_ms, lib_ms = (statistics.median(turns[k]) for k in fns)
+        elems = x.numel()
+        bound = least_time(6 * elems, 0, "bf16")
+        two_pass = least_time(8 * elems, 0, "bf16")
+        ratio = "" if on_device is None else f" = {on_device / (bound['bound_ms'] * 1e3):.2f}x"
+        print(f"[kernels] group_norm {shape} residual+ReLU on {card}: wrapper {ms:.4f} ms "
+              f"({spread(turns['kernel'])}), device "
+              f"{'not measured' if on_device is None else f'{on_device:.2f} us'}, graph of 10 "
+              f"calls {graph_ms * 1e3:.2f} us a call; bound {bound['bound_ms'] * 1e3:.2f} us "
+              f"(6 B an element, x read once){ratio}; the two-pass design's "
+              f"{two_pass['bound_ms'] * 1e3:.2f} us (8 B); plain version {plain_ms:.4f} ms; "
+              f"F.group_norm alone {lib_ms:.4f} ms; {per_call:g} device kernels a call "
+              f"{sorted(names)}")
+        rows.append({"shape": list(shape), "ms": ms, "device_us": on_device,
+                     "graph_us": graph_ms * 1e3, "bound_ms": bound["bound_ms"],
+                     "two_pass_ms": two_pass["bound_ms"], "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "kernels_per_call": per_call})
+        del x, res, xv, rv
+    return {"name": "group_norm", "route": "cuda", "source": "srcgan_tpu_torch/csrc/group_norm.cu",
+            "replaces": None, "max_ulps": worst, "shapes": rows}
+
+
 def ssim_flop(n: int, h: int, w: int, c: int, ws: int = 11) -> int:
     """Operations of the separable form: three products per pixel, the row pass
     of five maps over H x (W-ws+1), the column pass over the valid region, and
@@ -623,8 +721,9 @@ def phase_fp32(dev, sr, c):
     return x, b
 
 
-def phase_serve(dev, card, sr, c, x_small, fp32_small) -> int:
-    from srcgan_tpu_torch.ops.kernels import rdb5_kernel, tail_kernel
+def phase_serve(dev, card, sr, c, x_small, fp32_small) -> tuple:
+    """The bf16 serving path; returns its tail_x4 and group_norm launches."""
+    from srcgan_tpu_torch.ops.kernels import group_norm_kernel, rdb5_kernel, tail_kernel
     from srcgan_tpu_torch.serving import CascadePredictor
 
     pred = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, bf16=True,
@@ -637,6 +736,7 @@ def phase_serve(dev, card, sr, c, x_small, fp32_small) -> int:
 
     tail_kernel.launches = tail_kernel.finish_launches = 0
     rdb5_kernel.launches_bf16 = rdb5_kernel.reference_calls = 0
+    group_norm_kernel.launches = group_norm_kernel.plain_calls = 0
     y = pred.predict(gray)
     y3 = pred.predict(gray[:3])             # ragged: padded to 8 with the last row
     yrgb = pred.predict(rgb)
@@ -650,6 +750,11 @@ def phase_serve(dev, card, sr, c, x_small, fp32_small) -> int:
           "a bf16 forward did not go through the tail's main kernel and finish once each")
     check(blocks == 9 * forwards and rdb5_kernel.reference_calls == 0,
           "a bf16 forward did not run its nine RDB5 blocks through the rdb5_bf16 kernel")
+    norms = group_norm_kernel.launches
+    print(f"[serve] group_norm launches {norms}, plain GroupNorm calls "
+          f"{group_norm_kernel.plain_calls} (want {32 * forwards} and 0)")
+    check(norms == 32 * forwards and group_norm_kernel.plain_calls == 0,
+          "a bf16 forward did not run the colorizer's 32 GroupNorms through the kernel")
 
     full = (BATCH, 4 * LR, 4 * LR, 3)
     check(y.shape == full and y.dtype == np.uint8, f"output {y.shape} {y.dtype}")
@@ -680,7 +785,7 @@ def phase_serve(dev, card, sr, c, x_small, fp32_small) -> int:
     print(f"[serve] steady batch-8 128^2 -> 512^2 bf16 on {card}: cascade "
           f"{ms:.3f} ms = {mp / ms * 1e3:.2f} MP/s; RDDBNet x4 alone {sr_ms:.3f} ms "
           f"= {mp / sr_ms * 1e3:.2f} MP/s")
-    return launches
+    return launches, norms
 
 
 def slice_trainer(dev, **kw):
@@ -2320,10 +2425,13 @@ def tile_colorizer(gen):
     return col
 
 
-def extras_tiled(dev, card: str, sr) -> dict:
+def extras_tiled(dev, card: str, sr, c) -> dict:
     """(a) the tiled scene: bf16 launch counts, bf16 and fp32 against the
-    whole-scene fp32 program, output MP/s."""
-    from srcgan_tpu_torch.ops.kernels import tail_kernel
+    whole-scene fp32 program, output MP/s, with a local colorizer; then with
+    the ResDeconv colorizer, as the benchmark's tiled cell serves it: 32
+    group_norm launches a tile batch, no plain GroupNorm call, and the scene
+    against the same predictor with every GroupNorm on the plain path."""
+    from srcgan_tpu_torch.ops.kernels import group_norm_kernel, tail_kernel
     from srcgan_tpu_torch.serving import CascadePredictor, TiledPredictor
 
     col = tile_colorizer(torch.Generator().manual_seed(3))
@@ -2371,6 +2479,27 @@ def extras_tiled(dev, card: str, sr) -> dict:
           f"{EXTRAS_REPS}, host clock) = {mp / ms * 1e3:.2f} output MP/s; one predict of "
           f"{BATCH} tiles alone {batch_ms:.3f} ms (x {n_batches} in sequence = "
           f"{n_batches * batch_ms:.3f} ms)")
+
+    gn_tiled = TiledPredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, bf16=True, tile=TILE,
+                              overlap=TILE_OVERLAP, max_batch=BATCH, device=dev)
+    group_norm_kernel.launches = group_norm_kernel.plain_calls = 0
+    got = gn_tiled.predict_scene(scene).astype(int)
+    torch.cuda.synchronize()
+    norms, plain = group_norm_kernel.launches, group_norm_kernel.plain_calls
+    with group_norm_kernel.PlainGroupNorm():
+        want = gn_tiled.predict_scene(scene).astype(int)
+    d = np.abs(got - want)
+    ok = (norms == 32 * n_batches and plain == 0 and len(np.unique(got)) > 16
+          and d.mean() <= 1 and (d > 8).mean() <= 0.02)
+    print(f"[extras] tiled scene with the ResDeconv colorizer (its GroupNorms at "
+          f"{list(GN_TILED_SHAPES)}), bf16: group_norm launches {norms} (want "
+          f"{32 * n_batches}), plain GroupNorm calls {plain} (want 0); against the same "
+          f"predictor with every GroupNorm on the plain path: mean|diff| {d.mean():.4f} LSB "
+          f"(bound 1), max {d.max()}, {(d > 8).mean():.5f} of the values beyond 8 LSB (bound "
+          f"0.02) {'PASS' if ok else 'FAIL'}")
+    check(ok, "a tile batch did not run the colorizer's 32 GroupNorms through the kernel, "
+              "or its answer strays from the plain path's")
+    launches["group_norm"] = norms
     return launches
 
 
@@ -2590,6 +2719,7 @@ def extras_daemon(dev, card: str, sr, c) -> dict:
     from srcgan_tpu_torch.cli import blend, serve
     from srcgan_tpu_torch.models.blocks import rdb5_schedule
     from srcgan_tpu_torch.models.rddb import no_tail_kernel
+    from srcgan_tpu_torch.ops.kernels import group_norm_kernel
     from srcgan_tpu_torch.serving import CascadePredictor
     from srcgan_tpu_torch.train.state import save_params
 
@@ -2680,6 +2810,7 @@ def extras_daemon(dev, card: str, sr, c) -> dict:
                     if path == "cuDNN only":
                         scopes.enter_context(rdb5_schedule("naive"))
                         scopes.enter_context(no_tail_kernel())
+                        scopes.enter_context(group_norm_kernel.PlainGroupNorm())
                     together = predict(batch).astype(int)
                     alone = np.stack([predict(im[None, ..., None])[0] for im in imgs[:BATCH]])
                     again = predict(batch).astype(int)
@@ -2777,6 +2908,7 @@ def extras_export(dev, card: str, sr, c) -> dict:
     from srcgan_tpu_torch.deploy import export_cascade, load_exported
     from srcgan_tpu_torch.models.blocks import rdb5_schedule
     from srcgan_tpu_torch.models.rddb import no_tail_kernel
+    from srcgan_tpu_torch.ops.kernels import group_norm_kernel
     from srcgan_tpu_torch.serving import CascadePredictor
 
     pred = CascadePredictor(copy.deepcopy(sr), copy.deepcopy(c), 4, bf16=True, device=dev)
@@ -2791,7 +2923,7 @@ def extras_export(dev, card: str, sr, c) -> dict:
     torch.cuda.synchronize()
     launches = kernel_launches()
     worst = 0
-    with no_tail_kernel(), rdb5_schedule("naive"):
+    with no_tail_kernel(), rdb5_schedule("naive"), group_norm_kernel.PlainGroupNorm():
         for n, x in xs.items():
             check(outs[n].shape == (n, 4 * LR, 4 * LR, 3), f"artifact output {outs[n].shape}")
             worst = max(worst, int(np.abs(outs[n].astype(int)
@@ -2859,7 +2991,7 @@ def phase_serve_extras(dev, card: str) -> dict:
 
     t_phase = time.perf_counter()
     sr, c = cascade(torch.Generator().manual_seed(1))
-    counts = {"tiled": extras_tiled(dev, card, sr),
+    counts = {"tiled": extras_tiled(dev, card, sr, c),
               "ensemble": extras_ensemble(dev, card, sr, c),
               "daemon": extras_daemon(dev, card, sr, c),
               "export": extras_export(dev, card, sr, c),
@@ -3524,9 +3656,10 @@ def main() -> int:
     gray = phase_gray_degrade(dev, where)
     ssim = phase_ssim(dev, where)
     rdb5_bf16, rdb5_int8 = phase_rdb5(dev, where)
+    gn = phase_group_norm(dev, where)
     sr, c = cascade(torch.Generator().manual_seed(1))
     x_small, fp32_small = phase_fp32(dev, sr, c)
-    tail["launches"] = phase_serve(dev, where, sr, c, x_small, fp32_small)
+    tail["launches"], gn["launches"] = phase_serve(dev, where, sr, c, x_small, fp32_small)
     rdb5_bf16["launches"] = phase_trunk(dev, where, sr, c)
     rdb5_int8["launches"] = phase_int8(dev, where, sr, c)
     phase_train_fp32(dev)
@@ -3550,7 +3683,8 @@ def main() -> int:
                      launches_zoo_eval=zoo_eval[key],
                      **{f"launches_{path}": n[key] for path, n in extras.items()})
 
-    print(json.dumps({"kernels": [tail, gray, ssim, rdb5_bf16, rdb5_int8, *probes]}))
+    gn["launches_tiled"] = extras["tiled"]["group_norm"]
+    print(json.dumps({"kernels": [tail, gray, ssim, rdb5_bf16, rdb5_int8, *probes, gn]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}))

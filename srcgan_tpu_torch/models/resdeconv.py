@@ -5,7 +5,6 @@ from __future__ import annotations
 from typing import List
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from srcgan_tpu_torch.models.blocks import deconv
@@ -25,7 +24,8 @@ def make_norm(kind: str, ch: int) -> nn.Module:
 
 
 class BasicBlock(nn.Module):
-    """conv3x3(stride) -> norm -> relu -> conv3x3 -> norm -> (+ downsample(x)) -> relu."""
+    """conv3x3(stride) -> norm -> relu -> conv3x3 -> norm -> (+ downsample(x)) -> relu.
+    The ReLUs and the residual add are the norms' epilogues (``ops.norm``)."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, BN: str = "GN"):
@@ -39,10 +39,10 @@ class BasicBlock(nn.Module):
             make_norm(BN, planes)) if downsample else None)
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+        out = self.conv2(self.bn1(self.conv1(x), relu=True))
+        # the convolutions in the JAX model's order: int8 scales are keyed by it
         identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + identity)
+        return self.bn2(out, residual=identity, relu=True)
 
 
 def _stage(inplanes: int, planes: int, blocks: int, stride: int, BN: str
@@ -83,7 +83,7 @@ class ResDeconv(nn.Module):
     def forward(self, x):
         if self.src_ch == 1:
             x = torch.cat([x, x, x], 1)
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = self.bn1(self.conv1(x), relu=True)
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         x = self.upRes1(self.deconv10(x))
         x = self.upRes2(self.deconv11(x))

@@ -16,6 +16,13 @@ across ranks; unlike ``nn.SyncBatchNorm`` it runs on any backend, gloo on
 the CPU included.  Inside ``moments_by(fn)`` (``parallel.spatial``'s strips,
 whose heights differ) ``fn`` gives the moments instead, from sums and
 element counts.
+
+Every module takes ``residual`` and ``relu`` after its input, the epilogue
+of ``models.resdeconv``'s blocks: ``relu?(norm(x) + residual?)``.  A
+``GroupNorm`` call that ``ops.kernels.group_norm_kernel.eligible`` admits
+(a bf16 channels_last forward on the card with no gradient asked for)
+runs the norm and its epilogue as one kernel, in fp32 with one rounding;
+every other call composes them after the norm in the activation dtype.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from srcgan_tpu_torch.ops.conv import to_nchw, to_nhwc
+from srcgan_tpu_torch.ops.kernels import group_norm_kernel
 
 
 def group_norm(x, scale, bias, num_groups: int = 32, eps: float = 1e-5):
@@ -138,21 +146,33 @@ def batch_norm(x, scale, bias, running_mean, running_var, *, train: bool,
     return to_nhwc(y).to(x.dtype), new_mean, new_var
 
 
+def _epilogue(y, residual=None, relu: bool = False):
+    """``relu?(y + residual?)`` in y's dtype, as the blocks composed it."""
+    if residual is not None:
+        y = y + residual
+    return F.relu(y) if relu else y
+
+
 class GroupNorm(nn.GroupNorm):
-    def forward(self, x):
-        return to_nchw(group_norm(to_nhwc(x), self.weight, self.bias,
-                                  self.num_groups, self.eps))
+    def forward(self, x, residual=None, relu: bool = False):
+        if group_norm_kernel.eligible(x, self.weight, self.bias, self.num_groups, residual):
+            return group_norm_kernel.launch(x, self.weight, self.bias, self.num_groups,
+                                            self.eps, residual, relu)
+        group_norm_kernel.plain_calls += 1
+        y = to_nchw(group_norm(to_nhwc(x), self.weight, self.bias, self.num_groups, self.eps))
+        return _epilogue(y, residual, relu)
 
 
 class InstanceNorm2d(nn.InstanceNorm2d):
     """torch defaults: affine=False, track_running_stats=False."""
 
-    def forward(self, x):
-        return to_nchw(instance_norm(to_nhwc(x), self.weight, self.bias, self.eps))
+    def forward(self, x, residual=None, relu: bool = False):
+        y = to_nchw(instance_norm(to_nhwc(x), self.weight, self.bias, self.eps))
+        return _epilogue(y, residual, relu)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    def forward(self, x):
+    def forward(self, x, residual=None, relu: bool = False):
         y, mean, var = batch_norm(to_nhwc(x), self.weight, self.bias,
                                   self.running_mean, self.running_var,
                                   train=self.training, momentum=self.momentum,
@@ -160,4 +180,4 @@ class BatchNorm2d(nn.BatchNorm2d):
         if self.training:
             self.running_mean.copy_(mean)
             self.running_var.copy_(var)
-        return to_nchw(y)
+        return _epilogue(to_nchw(y), residual, relu)

@@ -2,7 +2,8 @@
 versions, the model gate that routes the x4 bf16 tail through them, the
 trainer's fused-input path through the gray+degrade kernel, and the metrics
 and the eval tool through the ssim kernel, and the RDB5 kernel (both forms),
-the fused RDB5 schedule and the int8 predictor through it, the six probe
+the fused RDB5 schedule and the int8 predictor through it, the GroupNorm
+kernel and the bf16 colorizer through it, the six probe
 kernels, the LAB predictor, the CycleGAN step and eval tool (one ssim
 launch per test image), the multi-task GAN step (no kernel), a full-width
 instance-norm generator's gradients, two zoo models' forwards, the serve
@@ -26,7 +27,10 @@ rdb5_int8 rel-L2 <= 1e-2 and rdb5_bf16 rel-L2 <= 2e-2 (the bounds of
 tests/test_quant_kernel.py; the int8 form is expected bit-equal, since both
 sides sum exact integers and round the same fp32 steps); the probes' int8
 forms and the roll bit-equal, their bf16 dots rel-L2 <= 1e-3 on fp32 outputs
-and <= 1e-2 on probe_matmul's bf16 output.
+and <= 1e-2 on probe_matmul's bf16 output; group_norm at most one bf16 ulp
+from its plain version, plus fp32's rounding of the operands
+(``group_norm_kernel.ulps_apart``: the same fp32 function, sums in another
+order, rounded once).
 """
 import json
 import os
@@ -1442,3 +1446,237 @@ def test_data_axis_world_one_over_nccl(dev):
     finally:
         torch.backends.cudnn.deterministic = False
         parallel.destroy_mesh()
+
+
+# -- the GroupNorm kernel (csrc/group_norm.cu) -------------------------------------
+
+# the colorizer's GroupNorm inputs (NHWC) in a bf16 forward of the stream cell
+# (batch 8 of 128^2) and of the tiled scenes' windows (batch 8 of 256^2)
+GN_STREAM_SHAPES = [(8, 256, 256, 64), (8, 128, 128, 128), (8, 64, 64, 256), (8, 32, 32, 512)]
+GN_TILED_SHAPES = [(8, 512, 512, 64), (8, 256, 256, 128), (8, 128, 128, 256), (8, 64, 64, 512)]
+
+
+def gn_args(seed, shape, dev):
+    """x and a residual (N,H,W,C) bf16 on ``dev``, gamma and beta bf16."""
+    g = torch.Generator().manual_seed(seed)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=g) * 2 + 0.5).to(dev, torch.bfloat16)
+    res = torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+    w = (torch.rand(c, generator=g) + 0.5).to(dev, torch.bfloat16)
+    b = (torch.rand(c, generator=g) - 0.5).to(dev, torch.bfloat16)
+    return x, res, w, b
+
+
+def nchw(t):
+    """The (N,C,H,W) channels_last view of an NHWC tensor, as the models hold
+    activations."""
+    return None if t is None else t.permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("epilogue", ["none", "relu", "residual_relu"])
+@pytest.mark.parametrize("shape", GN_STREAM_SHAPES + GN_TILED_SHAPES)
+def test_group_norm_kernel_matches_plain_version(dev, shape, epilogue):
+    """The colorizer's four stream shapes and the tiled windows' four, through
+    the entry the module runs: at most one bf16 ulp from the plain version
+    (plus fp32's rounding of the operands, ``ulps_apart``), one call a
+    launch, a channels_last answer, three calls bit-equal (no atomics)."""
+    from srcgan_tpu_torch.ops.kernels import group_norm_kernel as gk
+
+    x, res, w, b = gn_args(sum(shape), shape, dev)
+    kw = dict(residual=res if epilogue == "residual_relu" else None, relu=epilogue != "none")
+    with torch.no_grad():
+        before = gk.launches
+        got = [gk.group_norm(nchw(x), w, b, 32, 1e-5, nchw(kw["residual"]), kw["relu"])
+               for _ in range(3)]
+        torch.cuda.synchronize()
+        assert gk.launches == before + 3
+        assert got[0].shape == nchw(x).shape and got[0].dtype == torch.bfloat16
+        assert got[0].is_contiguous(memory_format=torch.channels_last)
+        assert all(torch.equal(got[0], g) for g in got[1:])
+        gap = gk.ulps_apart(got[0].permute(0, 2, 3, 1), x, w, b, 32, 1e-5, **kw)
+    assert gap <= 1.0, gap
+
+
+@pytest.mark.parametrize("shape,groups", [((3, 17, 23, 64), 32), ((1, 5, 7, 128), 32),
+                                          ((2, 9, 9, 32), 32), ((2, 6, 10, 2048), 32),
+                                          ((2, 13, 11, 256), 8), ((1, 1, 1, 64), 32)])
+def test_group_norm_kernel_other_shapes(dev, shape, groups):
+    """Ragged pixel counts, one group a channel, 32 channels a group, 64
+    groups of 256 vectors' worth of channels, a single pixel."""
+    from srcgan_tpu_torch.ops.kernels import group_norm_kernel as gk
+
+    x, res, w, b = gn_args(7, shape, dev)
+    with torch.no_grad():
+        got = gk.group_norm(nchw(x), w, b, groups, 1e-5, nchw(res), True)
+        torch.cuda.synchronize()
+        assert gk.ulps_apart(got.permute(0, 2, 3, 1), x, w, b, groups, 1e-5, res, True) <= 1.0
+
+
+def test_group_norm_kernel_rejects_what_it_cannot_take(dev):
+    """The checked entry raises on every call ``eligible`` refuses, and
+    launches nothing."""
+    from srcgan_tpu_torch.ops.kernels import group_norm_kernel as gk
+
+    x, res, w, b = gn_args(8, (2, 8, 8, 64), dev)
+    x48 = x[..., :48].contiguous()
+    cases = ((nchw(x).float(), w, b, 32), (nchw(x).contiguous(), w, b, 32),
+             (nchw(x[..., :48]), w[:48], b[:48], 32), (nchw(x48), w[:48], b[:48], 32),
+             (nchw(x), w, b, 3), (nchw(x), w.float(), b, 32), (nchw(x), None, b, 32),
+             (nchw(x), w, b, 32, 1e-5, nchw(res).float()),
+             (nchw(x), w, b, 32, 1e-5, nchw(res).contiguous()),
+             (nchw(x).cpu(), w.cpu(), b.cpu(), 32))
+    launches = gk.launches
+    with torch.no_grad():
+        for args in cases:
+            with pytest.raises(ValueError, match="does not take"):
+                gk.group_norm(*args)
+        with gk.PlainGroupNorm(), pytest.raises(ValueError, match="does not take"):
+            gk.group_norm(nchw(x), w, b)
+    with pytest.raises(ValueError, match="does not take"):
+        gk.group_norm(nchw(x), w.clone().requires_grad_(True), b)
+    assert gk.launches == launches
+
+
+@pytest.mark.parametrize("kind", ["kernel", "grad", "fp32", "residual_nchw", "mode",
+                                  "subclass"])
+def test_group_norm_module_dispatch_on_the_card(dev, kind):
+    """``ops.norm.GroupNorm`` on the card: a bf16 channels_last forward with
+    no gradient asked for launches the kernel; a gradient wanted, fp32, a
+    residual that is not channels_last, a torch-function mode and a tensor
+    subclass each take the plain path and count a plain call, with the
+    blocks' composition: the norm, + residual, ReLU in the activation
+    dtype."""
+    import contextlib
+
+    import torch.nn.functional as F
+
+    from srcgan_tpu_torch.ops import norm
+    from srcgan_tpu_torch.ops.kernels import group_norm_kernel as gk
+
+    class Sub(torch.Tensor):
+        pass
+
+    x, res, w, b = gn_args(12, (2, 6, 4, 64), dev)
+    x, res = nchw(x), nchw(res)
+    gn = norm.GroupNorm(32, 64).to(dev, torch.bfloat16).requires_grad_(False)
+    with torch.no_grad():
+        gn.weight.copy_(w)
+        gn.bias.copy_(b)
+    ctx = contextlib.nullcontext()
+    if kind == "grad":
+        gn.requires_grad_(True)
+    elif kind == "fp32":
+        x, res, gn = x.float(), res.float(), gn.float()
+    elif kind == "residual_nchw":
+        res = res.contiguous()
+    elif kind == "mode":
+        ctx = gk.PlainGroupNorm()
+    elif kind == "subclass":
+        x = x.as_subclass(Sub)
+    with ctx:
+        assert gk.eligible(x, gn.weight, gn.bias, 32, res) is (kind == "kernel")
+        launches, plain = gk.launches, gk.plain_calls
+        got = gn(x, residual=res, relu=True)
+        torch.cuda.synchronize()
+    took = (1, 0) if kind == "kernel" else (0, 1)
+    assert (gk.launches - launches, gk.plain_calls - plain) == took
+    if kind == "kernel":
+        assert gk.ulps_apart(got.permute(0, 2, 3, 1), x.permute(0, 2, 3, 1), gn.weight, gn.bias,
+                             32, gn.eps, res.permute(0, 2, 3, 1), True) <= 1.0
+    else:
+        with gk.PlainGroupNorm():
+            want = F.relu(norm.GroupNorm.forward(gn, x) + res)
+        assert torch.equal(got.as_subclass(torch.Tensor), want.as_subclass(torch.Tensor))
+
+
+def gn_cascade(dev):
+    from srcgan_tpu_torch.serving import CascadePredictor
+
+    g = torch.Generator().manual_seed(9)
+    sr = models.RDDBNet(1, 1, 4, nf=16, nb=1, generator=g)
+    c = models.ResDeconv(1, 3, generator=g)
+    with torch.no_grad():
+        c.pred.weight.mul_(0.03)
+    return CascadePredictor(sr, c, 4, bf16=True, device=dev)
+
+
+def test_bf16_colorizer_runs_every_group_norm_through_the_kernel(dev):
+    """A bf16 forward of the cascade: the colorizer's 32 GroupNorms launch
+    the kernel, none takes the plain path; the answer stays within the bf16
+    cascade's noise of the plain path's."""
+    import numpy as np
+
+    from srcgan_tpu_torch.ops.kernels import group_norm_kernel as gk
+
+    pred = gn_cascade(dev)
+    x = np.random.default_rng(9).integers(0, 256, (2, 16, 16, 1), dtype=np.uint8)
+    launches, plain = gk.launches, gk.plain_calls
+    got = pred.predict(x)
+    assert (gk.launches - launches, gk.plain_calls - plain) == (32, 0)
+    with gk.PlainGroupNorm():                 # every GroupNorm on the plain path
+        launches, plain = gk.launches, gk.plain_calls
+        want = pred.predict(x)
+        assert (gk.launches - launches, gk.plain_calls - plain) == (0, 32)
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert diff.mean() <= 1.0 and (diff > 8).mean() <= 0.01, (diff.mean(), diff.max())
+
+
+def test_cas_train_step_takes_the_plain_group_norm(dev, small_rddbnet):
+    """Training asks for gradients: a bf16 uint8 step launches no GroupNorm
+    kernel and its norms take the plain path."""
+    from srcgan_tpu_torch.ops.kernels import group_norm_kernel as gk
+    from srcgan_tpu_torch.train.cas import CasTrainer
+
+    tr = CasTrainer(sr_model="RDDBNet", c_model="ResDeconv", up=2, device=dev,
+                    act_dtype=torch.bfloat16, fused_input=True)
+    state = tr.init(3)
+    launches, plain = gk.launches, gk.plain_calls
+    state, m = tr.train_step_u8(state, u8(3, (2, 64, 64, 3), dev), u8(4, (2, 64, 64, 3), dev),
+                                1e-4)
+    torch.cuda.synchronize()
+    assert gk.launches == launches and gk.plain_calls > plain
+    assert all(torch.isfinite(v) for v in m.values())
+
+
+def test_sharded_predictor_world_one_keeps_its_plain_group_norm(dev):
+    """The strips' torch-function mode intercepts ``F.group_norm``, so a
+    world-1 SpatialShardedPredictor takes the plain path, as before the
+    kernel: within 1 LSB of the bf16 predictor on the plain path."""
+    import copy
+
+    import numpy as np
+
+    from srcgan_tpu_torch import parallel
+    from srcgan_tpu_torch.ops.kernels import group_norm_kernel as gk
+    from srcgan_tpu_torch.serving import SpatialShardedPredictor
+
+    pred = gn_cascade(dev)
+    x = np.random.default_rng(10).integers(0, 256, (2, 32, 32, 1), dtype=np.uint8)
+    with gk.PlainGroupNorm():
+        want = pred.predict(x)
+    mesh = parallel.make_mesh((1,), ("space",))
+    try:
+        sharded = SpatialShardedPredictor(copy.deepcopy(pred.sr_model),
+                                          copy.deepcopy(pred.c_model), 4, bf16=True,
+                                          mesh=mesh, device=dev)
+        launches = gk.launches
+        got = sharded.predict(x)
+        assert gk.launches == launches
+    finally:
+        parallel.destroy_mesh()
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+def test_group_norm_kernel_answers_a_sample_alike_in_every_batch(dev):
+    """The statistics' chunks follow a sample's shape alone, not the batch:
+    a sample's answer is the same bits alone, in a batch of 3 and of 8 (the
+    daemon groups requests as they come)."""
+    from srcgan_tpu_torch.ops.kernels import group_norm_kernel as gk
+
+    x, res, w, b = gn_args(11, (8, 64, 64, 128), dev)
+    with torch.no_grad():
+        whole = gk.group_norm(nchw(x), w, b, 32, 1e-5, nchw(res), True)
+        for lo, hi in ((0, 1), (2, 5), (7, 8)):
+            part = gk.group_norm(nchw(x[lo:hi].contiguous()), w, b, 32, 1e-5,
+                                 nchw(res[lo:hi].contiguous()), True)
+            assert torch.equal(part, whole[lo:hi])
