@@ -4,10 +4,11 @@
 Keyword-constructed from an ``args`` namespace with EDSR-PyTorch's defaults
 (``args_namespace``), as the JAX package builds them.  Inputs are in
 ``rgb_range`` (255), except EDSRWeb's, which are in [0, 1] with its own
-+-0.5 shift.  NCHW modules in channels_last; each attribute keeps its JAX
-tree name, which is the reference torch name where the JAX package chose
-one, so ``interop`` carries weights across both ways.  Two kinds of leaf
-need it to:
++-0.5 shift, and those of RCAN's cascade form, ``RCAN(in_ch, ou_ch, up)``
+(``models.create("RCAN", 1, 1, 4)``), in [0, 1].  NCHW modules in
+channels_last; each attribute keeps its JAX tree name, which is the
+reference torch name where the JAX package chose one, so ``interop``
+carries weights across both ways.  Two kinds of leaf need it to:
 
 - ``MeanShift`` is a frozen constant: not in the JAX parameter tree, but the
   reference state_dict holds it as a 1x1 conv (a diagonal weight and a
@@ -31,6 +32,15 @@ from torch import nn
 from srcgan_tpu_torch.ops.initializers import init_kaiming_, init_torch_default_
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
+# one channel's mean: the BT.601 luma of RGB_MEAN (the published nets are RGB only)
+GRAY_MEAN = (0.299 * RGB_MEAN[0] + 0.587 * RGB_MEAN[1] + 0.114 * RGB_MEAN[2],)
+
+
+def color_mean(n_colors: int) -> tuple:
+    """The MeanShift mean of an image of ``n_colors`` channels (1 or 3)."""
+    if n_colors not in (1, 3):
+        raise ValueError(f"n_colors must be 1 or 3, not {n_colors}")
+    return RGB_MEAN if n_colors == 3 else GRAY_MEAN
 
 
 def args_namespace(**kw) -> SimpleNamespace:
@@ -58,8 +68,9 @@ class MeanShift(nn.Module):
 
     jax_constant = True         # no JAX tree holds these (see ``interop``)
 
-    def __init__(self, rgb_range, rgb_mean=RGB_MEAN, rgb_std=(1.0, 1.0, 1.0), sign=-1):
+    def __init__(self, rgb_range, rgb_mean=RGB_MEAN, rgb_std=None, sign=-1):
         super().__init__()
+        rgb_std = rgb_std or (1.0,) * len(rgb_mean)
         std = torch.tensor(rgb_std, dtype=torch.float32)
         mean = torch.tensor(rgb_mean, dtype=torch.float32)
         self.register_buffer("weight", torch.diag(1.0 / std)[:, :, None, None])
@@ -220,6 +231,10 @@ class CALayer(nn.Module):
     """Channel attention: the mean over H and W, 1x1 conv down by
     ``reduction``, relu, 1x1 conv up, sigmoid; x times that."""
 
+    # a reduction over the whole image, which ``parallel.spatial``'s strips
+    # do not all-reduce: the space-sharded predictors refuse it
+    global_spatial_reduction = True
+
     def __init__(self, channel: int, reduction: int = 16):
         super().__init__()
         self.conv_du = nn.Sequential(nn.Conv2d(channel, channel // reduction, 1, 1, 0),
@@ -258,25 +273,37 @@ class _ResGroup(nn.Module):
 class RCAN(nn.Module):
     """MeanShift-wrapped head, ``n_resgroups`` residual groups of
     ``n_resblocks`` RCABs and a conv each, a body conv with the long
-    residual, an Upsampler tail."""
+    residual, an Upsampler tail.
 
-    def __init__(self, args: Optional[SimpleNamespace] = None, *, device=None,
-                 generator: torch.Generator | None = None, **kw):
+    ``RCAN(args)`` (or keywords over ``args_namespace``) is the zoo's form,
+    in ``rgb_range`` 255 by default; ``RCAN(in_ch, ou_ch, up)`` is an SR
+    stage of the cascade at the published x4 widths (10 groups of 20 RCABs,
+    64 features, reduction 16, keywords override them) on [0, 1] images
+    (``rgb_range`` 1).  A one-channel image shifts by ``GRAY_MEAN``."""
+
+    def __init__(self, args=None, ou_ch: Optional[int] = None, up: Optional[int] = None, *,
+                 device=None, generator: torch.Generator | None = None, **kw):
         super().__init__()
-        a = args or args_namespace(**kw)
+        if isinstance(args, int):
+            widths = {**dict(n_resgroups=10, n_resblocks=20, n_feats=64, reduction=16), **kw}
+            a = args_namespace(scale=[up], rgb_range=1, n_colors=args, **widths)
+            in_ch, ou_ch = args, ou_ch
+        else:
+            a = args or args_namespace(**kw)
+            in_ch = ou_ch = a.n_colors
 
         def group():
             return _ResGroup(nn.Sequential(
                 *[RCAB(a.n_feats, 3, a.reduction) for _ in range(a.n_resblocks)],
                 _conv(a.n_feats, a.n_feats, 3)))
 
-        self.sub_mean = MeanShift(a.rgb_range)
-        self.head = nn.Sequential(_conv(a.n_colors, a.n_feats, 3))
+        self.sub_mean = MeanShift(a.rgb_range, color_mean(in_ch))
+        self.head = nn.Sequential(_conv(in_ch, a.n_feats, 3))
         self.body = nn.Sequential(*[group() for _ in range(a.n_resgroups)],
                                   _conv(a.n_feats, a.n_feats, 3))
         self.tail = nn.Sequential(Upsampler(a.scale[0], a.n_feats),
-                                  _conv(a.n_feats, a.n_colors, 3))
-        self.add_mean = MeanShift(a.rgb_range, sign=1)
+                                  _conv(a.n_feats, ou_ch, 3))
+        self.add_mean = MeanShift(a.rgb_range, color_mean(ou_ch), sign=1)
         _finish(self, init_torch_default_, generator, device)
 
     def forward(self, x):

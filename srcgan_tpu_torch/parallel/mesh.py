@@ -355,9 +355,15 @@ class Followers:
         shutil.rmtree(self.tmp, ignore_errors=True)
 
     def join(self, timeout: float = 60.0) -> None:
-        """Wait for the followers to exit (they must have been told to), then
-        leave the mesh; a follower's error is raised here."""
+        """Leave the mesh and wait for the followers to exit (they must have
+        been told to); a follower's error is raised here.  Rank 0 leaves
+        first, once its device is done: NCCL's teardown waits for every rank
+        of a communicator, so a follower leaving the mesh as it exits would
+        wait for rank 0 while rank 0 waited for it to exit."""
         try:
+            if torch.cuda.is_available() and torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+            destroy_mesh()
             for p in self.context.processes:
                 p.join(timeout)
                 if p.is_alive():

@@ -46,6 +46,12 @@ leaves every op as it is (and the batch norm's moments too, where the
 ``stats_group`` also has one rank), so a mesh of one computes what one
 device computes.
 
+A scope sums the bytes of the halo rows its strip received in the forward
+exchanges (``SpaceScope.halo_bytes``), and the space-sharded predictors add
+them to the counter ``space.halo_bytes`` once a call.  Modules that reduce
+over the whole image in a way the mode does not all-reduce (RCAN's channel
+attention) are refused by ``refuse_global_reductions``.
+
 ``gather_strips`` assembles the ranks' output strips on space rank 0; a
 strip never gathers the whole image to compute what a halo should give it.
 A scope holds for forwards in the thread that entered it; a backward that
@@ -141,6 +147,18 @@ def geometry(model: nn.Module):
     return align, max(rows, align)
 
 
+def refuse_global_reductions(model: nn.Module, role: str) -> None:
+    """Raise where ``model`` holds a module that reduces over the whole image
+    in a way the mode does not all-reduce (``global_spatial_reduction``,
+    e.g. RCAN's channel attention): on a strip it would take its own rows'
+    mean and answer wrongly without an error."""
+    for name, m in model.named_modules():
+        if getattr(m, "global_spatial_reduction", False):
+            raise ValueError(f"the {role}'s module {name} ({type(m).__name__}) reduces over "
+                             "the whole image, which the space axis's strips do not "
+                             "all-reduce: serve it on one device")
+
+
 def cascade_geometry(sr_model: nn.Module, c_model: nn.Module, up: int):
     """(alignment, least strip height) in the SR input's rows for the
     cascade: the colorizer runs on rows ``up`` times as many."""
@@ -173,6 +191,7 @@ class _Exchange(torch.autograd.Function):
                                f"of a strip of {h}: the strip plan is too fine for this model")
         new = lambda k: torch.empty((n, c, k, w), dtype=x.dtype, device=x.device)  # noqa: E731
         recv_top, recv_bottom = new(top), new(bottom)
+        scope.halo_bytes += (recv_top.numel() + recv_bottom.numel()) * x.element_size()
         scope.transfer([("prev", x[:, :, :give_up]), ("next", x[:, :, h - give_down:])],
                        [("prev", recv_top), ("next", recv_bottom)])
         fmt = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
@@ -226,6 +245,8 @@ class SpaceScope(TorchFunctionMode):
         self.group, self.prev, self.next, self.active = group, prev, next_, active
         self.stats_group = group if stats_group is None else stats_group
         self.off = False
+        # the bytes of the halo rows this strip received in the forward exchanges
+        self.halo_bytes = 0
         # a strip that is the whole image (a line of one rank) has nothing to
         # exchange or sum: its forwards run as they would without a scope
         self.alone = group is not None and dist.get_world_size(group) == 1

@@ -356,14 +356,21 @@ class SpatialShardedPredictor(CascadePredictor):
     ``follow()`` until rank 0's ``stop()``.  Results match the unsharded
     predictor within uint8 rounding.  ``followers``: an object whose
     ``alive()`` rank 0 checks before each call (the serve tool's child
-    processes), so that a dead follower raises instead of hanging."""
+    processes), so that a dead follower raises instead of hanging.  Nets
+    with a reduction over the whole image that the strips do not all-reduce
+    (RCAN's channel attention) are refused (``spatial.refuse_global_reductions``).
+    Each call adds the halo bytes its strip received to the counter
+    ``space.halo_bytes`` (``utils.trace``)."""
 
-    def __init__(self, *args, mesh=None, followers=None, **kw):
-        super().__init__(*args, **kw)
+    def __init__(self, sr_model, c_model, *args, mesh=None, followers=None, **kw):
+        from srcgan_tpu_torch.parallel import spatial
+
+        spatial.refuse_global_reductions(sr_model, "SR net")
+        spatial.refuse_global_reductions(c_model, "colorizer")
+        super().__init__(sr_model, c_model, *args, **kw)
         if self.int8:
             raise ValueError("the space-sharded cascade runs bf16 or fp32, not int8")
         from srcgan_tpu_torch import parallel
-        from srcgan_tpu_torch.parallel import spatial
 
         self.mesh = mesh or parallel.make_mesh(None, ("space",), device=self.device)
         self.followers = followers
@@ -405,10 +412,10 @@ class SpatialShardedPredictor(CascadePredictor):
         plan = self.plan(x.shape[1])
         xs = plan.cut(x, self.mesh.coord("space"))
         with torch.no_grad(), config.precision("bf16" if self.bf16 else "fp32"), \
-                self._spatial.space_scope(self.mesh, plan):
-            if kind == _GRAY:
-                return self._rgb_of(xs)
-            return CascadePredictor._run(self, xs)
+                self._spatial.space_scope(self.mesh, plan) as scope:
+            out = self._rgb_of(xs) if kind == _GRAY else CascadePredictor._run(self, xs)
+        trace.count("space.halo_bytes", scope.halo_bytes)
+        return out
 
     def _sharded(self, kind: int, x: torch.Tensor) -> torch.Tensor:
         self._send(kind, x)

@@ -162,3 +162,71 @@ def test_strip_plan(h, ranks_, align, rows, want):
     plan = spatial.plan_strips(h, ranks_, align, rows)
     assert plan.heights == want
     assert all(s % align == 0 for s, n in zip(plan.starts, plan.heights) if n)
+
+
+# -- the four-card scene cell's reference and driver (portbench), at small sizes ---------
+
+def _scene_config(precision="fp32"):
+    """srcgan_g2rgb_x4 with a narrow RDDBNet (the colorizer as published)."""
+    from portbench import harness
+
+    cfg = harness.load_json(harness.BENCH / "configs" / "srcgan_g2rgb_x4.json")
+    cfg["sr_model"].update(nf=8, nb=1, gc=4)
+    cfg["precision"] = precision
+    return cfg
+
+
+@pytest.mark.parametrize("heights", [(8, 8, 16), (16, 4, 12)])
+def test_blockwise_group_norm_matches_float64(heights):
+    """The scene reference's GroupNorm over row blocks (float64 sums in two
+    passes) against the whole image's float64 GroupNorm."""
+    from portbench.reference import scene
+
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 64, sum(heights), 12, generator=gen) * 3 + 1
+    w, b = torch.rand(64, generator=gen), torch.randn(64, generator=gen)
+    net = scene.Scene({"gn.weight": w, "gn.bias": b})
+    got = torch.cat(net.group_norm(list(x.split(list(heights), 2)), "gn", 32), 2)
+    want = torch.nn.functional.group_norm(x.double(), 32, w.double(), b.double(), 1e-5)
+    assert float((got.double() - want).abs().max()) <= 2e-6
+
+
+def test_blockwise_scene_reference_matches_the_whole_image():
+    """The scene reference in blocks of 16 input rows (64 at the colorizer,
+    4 at its stride-16 layers: the halos of every layer cross blocks) within
+    1 LSB of ``reference.cascade.serve_u8`` on the whole scene."""
+    from portbench import cascade as cs
+    from portbench.reference import cascade as ref
+    from portbench.reference import scene
+
+    cfg = _scene_config()
+    gen = torch.Generator().manual_seed(3)
+    p_sr = cs._draw(ref.rddbnet_specs(cfg["sr_model"]), gen, "cpu")
+    p_c = cs._draw(ref.resdeconv_specs(cfg["c_model"]), gen, "cpu")
+    p_c["pred.weight"].mul_(0.03)
+    x = torch.randint(0, 256, (80, 48, 1), generator=gen, dtype=torch.uint8)
+    whole = ref.serve_u8(p_sr, p_c, cfg, x[None])[0].numpy()
+    blocks = scene.serve_u8(p_sr, p_c, cfg, x.numpy(), [torch.device("cpu")], rows=16)
+    d = np.abs(whole.astype(int) - blocks.astype(int))
+    assert d.max() <= 1 and (d > 0).mean() < 1e-3
+
+
+@pytest.mark.parametrize("variant", ["program", "halo_short"])
+def test_space_driver_numbers(variant):
+    """The scene cell's driver on two gloo ranks (this process leads, one
+    follower spawned) at a 64x64 scene, fp32: both numbers 0 for the
+    program; with one halo row short, values off at the seam."""
+    from portbench import harness
+
+    traffic = {"driver": "space", "ranks": 2, "side": 64, "pool": 2, "warmup": 1,
+               "trace_s": 1.0, "block": 64, "seam_rows": 8}
+    cell = harness.Cell("x4_scene_space4", _scene_config(), traffic, {}, 1835644354, 0.5, False,
+                        torch.device("cpu"), variant)
+    out = harness.run_driver(cell)
+    numbers = out.numbers
+    assert out.attempted >= 1 and out.metrics["scene_mp_s"] > 0
+    if variant == "program":
+        assert numbers == {"worst_answer_share_off": 0.0, "seam_share_off": 0.0}
+    else:
+        assert numbers["seam_share_off"] > 0.1
+        assert numbers["seam_share_off"] > numbers["worst_answer_share_off"] / 2
